@@ -1,0 +1,20 @@
+"""mxnet_tpu_torch: the PyTorch/CUDA port of mxnet_tpu.
+
+The JAX package `mxnet_tpu` is the reference; this package keeps its
+module paths and names and runs on an NVIDIA H100.  Entry points run on
+the card (``gpu()``) unless the caller passes ``cpu()``; without CUDA
+they raise.  f32 matrix products and convolutions run at true f32 (TF32
+off), as the reference computes them.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from . import autograd, gluon, initializer, models, serve  # noqa: E402
+from . import numpy_extension as npx  # noqa: E402
+from .base import MXNetError  # noqa: E402
+from .context import cpu, current_context, gpu, num_gpus  # noqa: E402
+
+__all__ = ["autograd", "gluon", "initializer", "models", "serve", "npx",
+           "MXNetError", "cpu", "gpu", "num_gpus", "current_context"]

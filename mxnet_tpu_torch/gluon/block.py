@@ -1,0 +1,91 @@
+"""Gluon Block / HybridBlock (counterpart of `mxnet_tpu/gluon/block.py`).
+
+A Block is an ``nn.Module``: children register as torch submodules, in
+assignment order, and ``forward`` is torch's.  Gluon parameters are
+`Parameter` objects registered in ``_reg_params``;
+``collect_params()`` returns them under the reference's dotted names
+(``encoder.layer0.attention.query.weight``, ``position_embed``), which
+is what `utils.convert.load_reference_params` matches on.
+
+``hybridize()`` is accepted and does nothing in the port: PyTorch runs
+eagerly, and capturing the forward (a CUDA graph) is later work.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .parameter import Parameter
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class Block(nn.Module):
+    """Base building block."""
+
+    def __init__(self):
+        super().__init__()
+        self._reg_params = {}
+
+    def __setattr__(self, name, value):
+        reg = self.__dict__.get("_reg_params")
+        if reg is not None:
+            if isinstance(value, Parameter):
+                reg[name] = value
+            else:
+                reg.pop(name, None)
+        super().__setattr__(name, value)
+
+    # -- parameter collection ---------------------------------------------
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._modules.items():
+            if isinstance(child, Block):
+                ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def collect_params(self):
+        """Dotted name -> `Parameter`, over this block and its children."""
+        ret = self._collect_params_with_prefix()
+        for name, param in ret.items():
+            param._structure_name = name
+        return ret
+
+    # -- lifecycle ---------------------------------------------------------
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, generator=None):
+        """Allocate every parameter on ``ctx`` (None = the card; pass
+        ``mx.cpu()`` for the CPU) and fill it from ``generator``, a CPU
+        ``torch.Generator`` (None = one seeded with 0).  Parameters
+        without an initializer of their own use ``init``."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for param in self.collect_params().values():
+            param.initialize(init=param.init, ctx=ctx, default_init=init,
+                             force_reinit=force_reinit, generator=generator)
+        return self
+
+    def hybridize(self, active=True, **kwargs):
+        """Accepted for the reference's API; a no-op in the port."""
+        return self
+
+    def cast(self, dtype):
+        """Cast every floating-point parameter to ``dtype``."""
+        for param in self.collect_params().values():
+            if param.dtype.is_floating_point:
+                param.cast(dtype)
+        return self
+
+    def as_endpoint(self, **serve_kwargs):
+        """Expose this block as a batched inference service
+        (:class:`mxnet_tpu_torch.serve.Endpoint`); keyword arguments go
+        to ``Endpoint``."""
+        from ..serve import Endpoint
+        return Endpoint(self, **serve_kwargs)
+
+
+class HybridBlock(Block):
+    """A Block the reference can compile to one XLA program; in the port
+    the same as `Block`."""

@@ -1,0 +1,303 @@
+"""Flash attention forward: the port of kernel B3.
+
+Counterpart of `mxnet_tpu/ops/pallas_kernels.py` (`flash_attention`,
+`flash_attention_with_lse`, `attn_dropout_mask`, `_threefry2x32`,
+`_kend`).  The TPU kernel `_fwd_kernel` becomes the hand-written CUDA
+kernel in `csrc/flash_attention_fwd.cu` (its header says what bounds it
+and how it is built); this module holds its wrapper and, beside it, the
+plain PyTorch version of the same function, `flash_attention_reference`.
+
+A tensor on the card launches the kernel, or the wrapper raises: there
+is no fallback.  A tensor on the CPU takes the plain version; that is
+what the CPU tests run.  The wrapper counts its launches in
+``FLASH_FWD.launches``.
+
+Semantics, as in the reference: scores are ``q k^T * scale`` in f32,
+then the bias is added, then the causal and key-padding masks fill
+``-1e30``.  Rows with no valid key give exact zeros and an lse below
+``_MASKED_ROW``.  Dropout zeroes softmax weights at rate ``dropout``
+and rescales survivors by 1/keep, with bits from a stateless
+threefry2x32 hash of (seed, batch*head, q_pos, k_pos); the lse is that
+of the undropped softmax.  f32 stays true f32; with bf16 inputs p is
+rounded to bf16 before the PV product, which accumulates in f32.
+
+The port has no backward yet (kernels B4/B5), so these functions are
+forward-only.  The kernel takes any sequence length, as the reference
+does at its default block sizes (a length with no power-of-two divisor
+runs there as one block): the last K and Q tiles are masked inside the
+kernel.  The reference's explicit ``block_q``/``block_k`` arguments,
+and the ValueError they raise when they do not divide T, have no
+counterpart here.  The model's ``use_flash="auto"`` policy keeps the
+reference's shape contract (T <= 128 or a multiple of 128).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["flash_attention", "flash_attention_with_lse",
+           "flash_attention_reference", "attn_dropout_mask", "FLASH_FWD"]
+
+_NEG_INF = -1e30
+_MASKED_ROW = -1e29
+_BH_FOLD = 0x9E3779B9
+_M32 = 0xFFFFFFFF
+_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _Kernel:
+    """A CUDA kernel's launch count (a plain integer, read and reset by
+    whoever checks that a path went through the kernel)."""
+
+    def __init__(self, name):
+        self.name = name
+        self.launches = 0
+
+
+FLASH_FWD = _Kernel("flash_attention_fwd")
+
+
+# ---------------------------------------------------------------------------
+# threefry2x32 dropout bits, in int64 arithmetic masked to 32 bits (torch's
+# uint32 coverage on the CPU is thin); the CUDA kernel uses native uint32
+# ---------------------------------------------------------------------------
+def _rotl32(x, r):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def _threefry2x32(k0, k1, c0, c1):
+    """Threefry-2x32 (20 rounds), first output word, on int64 tensors
+    holding uint32 values (broadcasting); bit-identical to the
+    reference's `_threefry2x32`."""
+    k0, k1, c0, c1 = (torch.as_tensor(a, dtype=torch.int64) & _M32
+                      for a in (k0, k1, c0, c1))
+    ks2 = 0x1BD11BDA ^ k0 ^ k1
+    x0 = (c0 + k0) & _M32
+    x1 = (c1 + k1) & _M32
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    inj = ((k1, ks2), (ks2, k0), (k0, k1), (k1, ks2), (ks2, k0))
+    for i, (a, b) in enumerate(inj):
+        for r in rot[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + a) & _M32
+        x1 = (x1 + b + (i + 1)) & _M32
+    return x0
+
+
+def _keep_threshold(keep):
+    """uint32 threshold with P(bits < threshold) = keep."""
+    return min(int(round(keep * 4294967296.0)), 4294967295)
+
+
+def _seed_words(key):
+    """Two uint32 seed words from ``key``: a sequence, array or tensor of
+    integer words (one word is used twice), as the reference takes raw
+    words."""
+    words = [int(w) & _M32 for w in torch.as_tensor(key).reshape(-1).tolist()]
+    if not words:
+        raise ValueError("dropout key needs at least one uint32 word")
+    return (words + words)[:2]
+
+
+def attn_dropout_mask(key, b, h, t_q, t_k, dropout, device="cpu"):
+    """The keep/rescale mask the kernel draws: (B, H, T_q, T_k) f32 of
+    {0, 1/keep}.  Used by the plain version and by tests; never built on
+    the kernel's path."""
+    keep = 1.0 - float(dropout)
+    s0, s1 = _seed_words(key)
+    bh = torch.arange(b * h, dtype=torch.int64, device=device)
+    k0 = (s0 ^ ((bh * _BH_FOLD) & _M32)).reshape(b * h, 1, 1)
+    qp = torch.arange(t_q, dtype=torch.int64, device=device).reshape(1, t_q, 1)
+    kp = torch.arange(t_k, dtype=torch.int64, device=device).reshape(1, 1, t_k)
+    bits = _threefry2x32(k0, s1, qp, kp)
+    inv_keep = torch.tensor(1.0 / keep, dtype=torch.float32)
+    mask = torch.where(bits < _keep_threshold(keep), inv_keep.to(device),
+                       torch.zeros((), dtype=torch.float32, device=device))
+    return mask.reshape(b, h, t_q, t_k)
+
+
+# ---------------------------------------------------------------------------
+# argument plumbing
+# ---------------------------------------------------------------------------
+def _norm_mask(mask):
+    """Key-padding mask (B, T_k), any dtype -> int32 0/1."""
+    if mask.ndim != 2:
+        raise ValueError(
+            f"flash_attention mask must be a (batch, key_len) key-padding "
+            f"mask; got ndim={mask.ndim} (full (b, t, s) attention masks "
+            "take the dense path)")
+    return (mask != 0).to(torch.int32).contiguous()
+
+
+def _kend(mi):
+    """(B,) int32: 1 + index of the last valid key (0 when none).  K
+    tiles at or past it are fully masked; the kernel skips them."""
+    t = mi.shape[1]
+    pos = torch.arange(1, t + 1, dtype=torch.int32, device=mi.device)
+    return (mi * pos).amax(dim=1).to(torch.int32)
+
+
+def _bias_4d(bias, b, h, t):
+    """Normalize an additive attention bias to (B|1, H|1, T, T)."""
+    if bias.ndim == 2:
+        bias = bias.reshape(1, 1, *bias.shape)
+    elif bias.ndim == 3:
+        bias = bias.reshape(1, *bias.shape)
+    bb, hb, tq, tk = bias.shape
+    if tq != t or tk != t or bb not in (1, b) or hb not in (1, h):
+        raise ValueError(
+            f"bias shape {tuple(bias.shape)} must broadcast to "
+            f"({b}, {h}, {t}, {t})")
+    return bias
+
+
+def _check(q, k, v, dropout):
+    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError("flash_attention takes q, k, v of one shape "
+                         f"(B, H, T, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError("flash_attention takes q, k, v all float32 or all "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must lie on one device")
+    if not 0.0 <= float(dropout) < 1.0:
+        raise ValueError(f"dropout must be in [0, 1); got {dropout}")
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+def flash_attention_reference(q, k, v, causal=False, scale=None, mask=None,
+                              bias=None, dropout=0.0, key=None):
+    """Plain PyTorch version of the kernel's function, on whole rows:
+    ``(out, lse)`` with out in q's dtype and lse (B, H, T) f32.  Takes
+    the same arguments as `flash_attention_with_lse`."""
+    _check(q, k, v, dropout)
+    b, h, t, d = q.shape
+    sc = d ** -0.5 if scale is None else scale
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sc
+    if bias is not None:
+        s = s + _bias_4d(bias, b, h, t).float()
+    if causal:
+        tril = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~tril, _NEG_INF)
+    if mask is not None:
+        valid = _norm_mask(mask).bool().reshape(b, 1, 1, t)
+        s = s.masked_fill(~valid, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    # a row with no valid key: anchor the exponent at 0 so its p is 0
+    m_exp = m if mask is None else torch.where(m > _MASKED_ROW, m,
+                                               torch.zeros_like(m))
+    p = torch.exp(s - m_exp)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if dropout:
+        if key is None:
+            raise ValueError("dropout > 0 needs an explicit key")
+        p = p * attn_dropout_mask(key, b, h, t, t, dropout, device=q.device)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    lse = (m + torch.log(l)).squeeze(-1)
+    return out.to(q.dtype), lse
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+def _declare(lib):
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    lib.flash_attention_fwd.argtypes = [
+        p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
+        i, i, i, i, i, f, i, i, u, u, u, f, p]
+    lib.flash_attention_fwd.restype = ctypes.c_int
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch(q, k, v, causal, sc, mask, bias, dropout, key):
+    from . import _build
+
+    b, h, t, d = q.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}; "
+                         f"got {d}")
+    if b * h > 65535:
+        raise ValueError(f"batch*heads = {b * h} exceeds the grid's 65535")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (B, H, T, D)")
+    mi = kend = None
+    if mask is not None:
+        if mask.device != q.device or tuple(mask.shape) != (b, t):
+            raise ValueError(f"mask must be ({b}, {t}) on {q.device}")
+        mi = _norm_mask(mask)
+        kend = _kend(mi)
+    bias_sb = bias_sh = 0
+    if bias is not None:
+        if bias.device != q.device:
+            raise ValueError(f"bias must lie on {q.device}")
+        bias = _bias_4d(bias, b, h, t).to(torch.float32).contiguous()
+        bb, hb = bias.shape[0], bias.shape[1]
+        bias_sb = hb * t * t if bb > 1 else 0
+        bias_sh = t * t if hb > 1 else 0
+    s0 = s1 = thr = 0
+    inv_keep = 1.0
+    if dropout:
+        if key is None:
+            raise ValueError("dropout > 0 needs an explicit key")
+        s0, s1 = _seed_words(key)
+        thr = _keep_threshold(1.0 - dropout)
+        inv_keep = 1.0 / (1.0 - dropout)
+
+    lib = _build.load("flash_attention_fwd", _declare)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), _ptr(mi), _ptr(kend), _ptr(bias), bias_sb, bias_sh,
+        b, h, t, d, _DTYPES[q.dtype], float(sc), int(bool(causal)),
+        int(bool(dropout)), s0, s1, thr, float(inv_keep), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
+                           f"{err}")
+    FLASH_FWD.launches += 1
+    return out, lse
+
+
+def flash_attention_with_lse(q, k, v, causal=False, scale=None, mask=None,
+                             bias=None, dropout=0.0, key=None):
+    """Flash attention returning ``(out, lse)``: q/k/v (B, H, T, D) ->
+    out (B, H, T, D) in the input dtype and the per-query log-sum-exp
+    (B, H, T) in f32, that of the undropped softmax.
+
+    ``mask``: key-padding mask (B, T), truthy = valid key.  ``bias``:
+    additive score bias broadcastable to (B, H, T, T) as (T, T),
+    (H, T, T) or (B|1, H|1, T, T).  ``dropout``/``key``: attention
+    dropout at rate ``dropout`` with the two uint32 seed words ``key``.
+    """
+    _check(q, k, v, dropout)
+    drop = float(dropout or 0.0)
+    sc = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, sc, mask, bias, drop, key)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on CUDA or the CPU; got "
+                         f"{q.device}")
+    return flash_attention_reference(q, k, v, causal=causal, scale=sc,
+                                     mask=mask, bias=bias, dropout=drop,
+                                     key=key)
+
+
+def flash_attention(q, k, v, causal=False, scale=None, mask=None, bias=None,
+                    dropout=0.0, key=None):
+    """Blockwise (flash) attention: q/k/v (B, H, T, D) -> (B, H, T, D).
+    Exact attention without the (T, T) score matrix in device memory;
+    arguments as in `flash_attention_with_lse`."""
+    return flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
+                                    mask=mask, bias=bias, dropout=dropout,
+                                    key=key)[0]

@@ -1,0 +1,51 @@
+"""Mode flags (counterpart of the flag half of `mxnet_tpu/ops/invoke.py`).
+
+The reference's invoke module also owns the imperative tape; in the port
+autograd is torch's own, so only the thread-local mode flags remain:
+``is_training`` (dropout active) and ``is_backward_expected`` (a
+backward pass will run through this forward — what the flash auto
+policy's training crossover reads).  ``generator`` is the explicit
+``torch.Generator`` that train-mode randomness draws from.
+"""
+from __future__ import annotations
+
+import threading
+
+__all__ = ["is_training", "set_training", "is_backward_expected",
+           "set_backward_expected", "current_generator", "set_generator"]
+
+_state = threading.local()
+
+
+def is_training():
+    return getattr(_state, "training", False)
+
+
+def set_training(flag):
+    prev = is_training()
+    _state.training = bool(flag)
+    return prev
+
+
+def is_backward_expected():
+    """True when a backward pass will follow: explicitly flagged, or the
+    forward runs in train mode."""
+    return getattr(_state, "backward", False) or is_training()
+
+
+def set_backward_expected(flag):
+    prev = getattr(_state, "backward", False)
+    _state.backward = bool(flag)
+    return prev
+
+
+def current_generator():
+    """The ``torch.Generator`` train-mode dropout draws from (None
+    outside ``autograd.train_mode(generator=...)``)."""
+    return getattr(_state, "generator", None)
+
+
+def set_generator(gen):
+    prev = current_generator()
+    _state.generator = gen
+    return prev
