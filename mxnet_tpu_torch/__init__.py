@@ -12,9 +12,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import autograd, gluon, initializer, models, serve  # noqa: E402
+from . import optimizer  # noqa: E402
 from . import numpy_extension as npx  # noqa: E402
 from .base import MXNetError  # noqa: E402
 from .context import cpu, current_context, gpu, num_gpus  # noqa: E402
 
-__all__ = ["autograd", "gluon", "initializer", "models", "serve", "npx",
+__all__ = ["autograd", "gluon", "initializer", "models", "optimizer",
+           "serve", "npx",
            "MXNetError", "cpu", "gpu", "num_gpus", "current_context"]

@@ -1,0 +1,89 @@
+// Device helpers shared by the flash-attention kernels (forward B3 in
+// flash_attention_fwd.cu, backward B4/B5 in flash_attention_bwd.cu), so that
+// all three draw bit-identical dropout masks and round at the same points.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr float NEG_INF = -1e30f;
+constexpr float MASKED_ROW = -1e29f;
+constexpr uint32_t BH_FOLD = 0x9E3779B9u;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename S> __device__ __forceinline__ S from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to S and widened back: the value a product in S would see
+template <typename S> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<S>(x));
+}
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds, first output word: `_threefry2x32` of the
+// reference, in native uint32 arithmetic (wraps at 2^32).
+__device__ __forceinline__ uint32_t threefry2x32(uint32_t k0, uint32_t k1,
+                                                 uint32_t c0, uint32_t c1) {
+  const uint32_t ks2 = 0x1BD11BDAu ^ k0 ^ k1;
+  const uint32_t inj[5][2] = {{k1, ks2}, {ks2, k0}, {k0, k1}, {k1, ks2},
+                              {ks2, k0}};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = c0 + k0;
+  uint32_t x1 = c1 + k1;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i % 2][j]);
+      x1 ^= x0;
+    }
+    x0 += inj[i][0];
+    x1 += inj[i][1] + static_cast<uint32_t>(i + 1);
+  }
+  return x0;
+}
+
+// Dropout keep/rescale factor of score element (q_pos, k_pos) of one
+// (batch, head): inv_keep where its bits fall below thr, else 0.  key0 is
+// seed0 ^ (batch*head * BH_FOLD), as the reference's `_keep_scale` folds it.
+__device__ __forceinline__ float keep_scale(uint32_t key0, uint32_t seed1,
+                                            int q_pos, int k_pos,
+                                            uint32_t thr, float inv_keep) {
+  const uint32_t bits = threefry2x32(key0, seed1, static_cast<uint32_t>(q_pos),
+                                     static_cast<uint32_t>(k_pos));
+  return bits < thr ? inv_keep : 0.f;
+}
+
+// Max / sum over the 8 lanes of a shuffle group (lanes 8g .. 8g+7).
+__device__ __forceinline__ float row_max8(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum8(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  return x;
+}
+
+}  // namespace flash

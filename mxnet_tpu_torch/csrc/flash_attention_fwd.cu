@@ -33,22 +33,29 @@
 // true f32 (no TF32); bf16 inputs are widened to f32, which is exact, so the
 // products accumulate in f32 as the reference's do, and p is rounded to bf16
 // before the PV product as the reference rounds it.  Tensor cores (wgmma),
-// TMA and a pipelined K loop are the next steps toward the bound.
+// TMA and a pipelined K loop are the next steps toward the bound.  The
+// threefry2x32 generator and the type conversions live in
+// flash_attention_common.cuh, shared with the backward kernels (B4, B5), so
+// that all three draw the same dropout bits.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
+
+using flash::BH_FOLD;
+using flash::MASKED_ROW;
+using flash::NEG_INF;
+using flash::from_f32;
+using flash::row_max8;
+using flash::row_sum8;
+using flash::threefry2x32;
+using flash::to_f32;
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per K/V tile
 constexpr int NTHREADS = 128;   // 4 warps x 16 query rows
 constexpr int R = 4;            // query rows per thread
 constexpr int C = BK / 8;       // score columns per thread: cg + 8 * j
-constexpr float NEG_INF = -1e30f;
-constexpr float MASKED_ROW = -1e29f;
-constexpr uint32_t BH_FOLD = 0x9E3779B9u;
 
 struct Params {
   const void* q;
@@ -68,62 +75,6 @@ struct Params {
   uint32_t seed0, seed1, thr;
   float inv_keep;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename S> __device__ __forceinline__ S from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds, first output word: `_threefry2x32` of the
-// reference, in native uint32 arithmetic (wraps at 2^32).
-__device__ __forceinline__ uint32_t threefry2x32(uint32_t k0, uint32_t k1,
-                                                 uint32_t c0, uint32_t c1) {
-  const uint32_t ks2 = 0x1BD11BDAu ^ k0 ^ k1;
-  const uint32_t inj[5][2] = {{k1, ks2}, {ks2, k0}, {k0, k1}, {k1, ks2},
-                              {ks2, k0}};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][j]);
-      x1 ^= x0;
-    }
-    x0 += inj[i][0];
-    x1 += inj[i][1] + static_cast<uint32_t>(i + 1);
-  }
-  return x0;
-}
-
-__device__ __forceinline__ float row_max8(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum8(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
 
 template <int D>
 constexpr size_t smem_floats() {

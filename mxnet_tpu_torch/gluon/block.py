@@ -67,6 +67,12 @@ class Block(nn.Module):
                              force_reinit=force_reinit, generator=generator)
         return self
 
+    def zero_grad(self):
+        """Clear every parameter's gradient (a cleared gradient reads as
+        zeros)."""
+        for param in self.collect_params().values():
+            param.zero_grad()
+
     def hybridize(self, active=True, **kwargs):
         """Accepted for the reference's API; a no-op in the port."""
         return self

@@ -4,8 +4,16 @@ A parameter holds one ``torch.Tensor`` on one device.  Its shape is
 known when it is created (the reference's deferred shape inference is
 not ported: layers take their input widths).  Initial values are drawn
 by an `initializer.Initializer` from an explicit ``torch.Generator``.
-The tensor does not require grad: the port serves only, and training
-(with its own gradient plumbing) comes later.
+
+The tensor is a leaf of torch's autograd that requires grad unless
+``grad_req='null'`` (or its dtype is not floating point); `set_data`
+and `cast` keep it a leaf.  ``grad_req='write'`` (the default) makes
+each backward replace the stored gradient, as the reference's does:
+a hook on the leaf drops the old gradient just before torch would add
+the new one into it, so a parameter reached along several paths in one
+backward (a tied embedding) still gets their sum.  ``'add'`` keeps
+torch's accumulation across backward passes until `zero_grad`.
+Optimizers update the tensor in place, outside autograd.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ __all__ = ["Parameter", "to_torch_dtype"]
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64,
            "int32": torch.int32, "int64": torch.int64}
+_GRAD_REQS = ("write", "add", "null")
 
 
 def to_torch_dtype(dtype):
@@ -33,13 +42,18 @@ def to_torch_dtype(dtype):
 
 
 class Parameter:
-    def __init__(self, name="weight", shape=None, dtype="float32", init=None):
+    def __init__(self, name="weight", grad_req="write", shape=None,
+                 dtype="float32", lr_mult=1.0, wd_mult=1.0, init=None):
         self._name = name
         self._shape = (shape,) if isinstance(shape, int) else (
             None if shape is None else tuple(shape))
         self.dtype = to_torch_dtype(dtype)
         self.init = initializer.resolve(init)
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self._grad_req = None
         self._data = None
+        self.grad_req = grad_req
         self._structure_name = None  # dotted name, set by collect_params
 
     @property
@@ -57,6 +71,37 @@ class Parameter:
     def _shape_known(self):
         return self._shape is not None and all(s > 0 for s in self._shape)
 
+    # -- grad_req ---------------------------------------------------------
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in _GRAD_REQS:
+            raise ValueError(f"grad_req must be one of {_GRAD_REQS}; got "
+                             f"{req!r}")
+        self._grad_req = req
+        if self._data is not None:
+            self._bind(self._data)
+
+    def _bind(self, tensor):
+        """Make ``tensor`` (detached, on its final device and dtype) this
+        parameter's leaf, requiring grad as ``grad_req`` says."""
+        tensor = tensor.detach()
+        if self._grad_req != "null" and tensor.is_floating_point():
+            tensor.requires_grad_(True)
+            tensor.register_hook(self._before_accumulate)
+        self._data = tensor
+
+    def _before_accumulate(self, grad):
+        # runs once per backward, with the summed gradient of every path
+        # into the leaf, just before torch adds it to .grad
+        if self._grad_req == "write":
+            self._data.grad = None
+        return grad
+
+    # -- initialization ---------------------------------------------------
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False, generator=None):
         """Allocate and fill the tensor on ``ctx`` (None = the card),
@@ -73,19 +118,46 @@ class Parameter:
         data = torch.empty(self._shape, dtype=self.dtype, device=device)
         fill = init or self.init or default_init or initializer.Uniform()
         fill(initializer.InitDesc(self.name), data, generator)
-        self._data = data
+        self._bind(data)
 
-    def data(self):
+    def _check_init(self):
         if self._data is None:
             raise RuntimeError(
                 f"Parameter {self.name} has not been initialized. You "
                 "should initialize parameters with Block.initialize().")
+
+    def data(self):
+        self._check_init()
         return self._data
+
+    def list_ctx(self):
+        return [self.data().device]
 
     @property
     def device(self):
         return None if self._data is None else self._data.device
 
+    # -- gradients --------------------------------------------------------
+    def grad(self):
+        """The gradient of the last backward ('write'), or the sum since
+        the last `zero_grad` ('add'); zeros before any backward."""
+        self._check_init()
+        if self._grad_req == "null":
+            raise RuntimeError(
+                f"Cannot get gradient array for Parameter {self.name} "
+                "because grad_req='null'")
+        if self._data.grad is None:
+            self._data.grad = torch.zeros_like(self._data)
+        return self._data.grad
+
+    def list_grad(self):
+        return [] if self._grad_req == "null" else [self.grad()]
+
+    def zero_grad(self):
+        if self._data is not None and self._data.grad is not None:
+            self._data.grad = None
+
+    # -- mutation ---------------------------------------------------------
     def set_data(self, data):
         """Replace the values (any array-like of this parameter's shape),
         keeping its dtype and device."""
@@ -93,10 +165,10 @@ class Parameter:
         if tuple(src.shape) != self._shape:
             raise ValueError(f"Parameter {self.name}: shape "
                              f"{tuple(src.shape)} != {self._shape}")
-        self._data = src.to(device=self.data().device,
-                            dtype=self.dtype).clone()
+        self._bind(src.to(device=self.data().device,
+                          dtype=self.dtype).clone())
 
     def cast(self, dtype):
         self.dtype = to_torch_dtype(dtype)
         if self._data is not None:
-            self._data = self._data.to(self.dtype)
+            self._bind(self._data.to(self.dtype))

@@ -1,8 +1,8 @@
 """Model families of the port."""
-from .transformer import (BertModel, MultiHeadAttention, PositionwiseFFN,
-                          TransformerEncoder, TransformerEncoderLayer,
-                          bert_base, bert_large)
+from .transformer import (BertForPretraining, BertModel, MultiHeadAttention,
+                          PositionwiseFFN, TransformerEncoder,
+                          TransformerEncoderLayer, bert_base, bert_large)
 
-__all__ = ["BertModel", "MultiHeadAttention", "PositionwiseFFN",
-           "TransformerEncoder", "TransformerEncoderLayer", "bert_base",
-           "bert_large"]
+__all__ = ["BertModel", "BertForPretraining", "MultiHeadAttention",
+           "PositionwiseFFN", "TransformerEncoder", "TransformerEncoderLayer",
+           "bert_base", "bert_large"]

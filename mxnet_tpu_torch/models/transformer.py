@@ -4,13 +4,16 @@
 The same architecture, parameter names and layouts as the reference:
 activations are (batch, seq, units), attention runs on (B, H, T, D),
 Dense weights are stored (out, in).  ``use_flash=True`` routes attention
-through the flash kernel (`ops/flash_attention.py`, kernel B3 on the
-card), which applies the (B, T) key-padding mask in-kernel; ``False``
-takes the dense path (two batched products and a softmax);
-``"auto"`` takes flash on a CUDA tensor once T reaches the crossover.
+through the flash kernels (`ops/flash_attention.py`: B3 forward, B4/B5
+backward on the card), which apply the (B, T) key-padding mask and
+attention dropout in-kernel; ``False`` takes the dense path (two batched
+products and a softmax); ``"auto"`` takes flash on a CUDA tensor once T
+reaches the crossover.  `BertForPretraining` adds the MLM and NSP heads.
 
-Not ported yet: `BertForPretraining`, the sequence-parallel ring
-(`bind_sp_mesh`), `remat` and the tensor-parallel partition rules.
+Not ported yet: the sequence-parallel ring (`bind_sp_mesh`), `remat`
+(torch's checkpointing does not replay draws from an explicit
+generator, so a recompute would draw new dropout bits) and the
+tensor-parallel partition rules.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from ..ops.invoke import is_backward_expected, is_training
 
 __all__ = [
     "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderLayer",
-    "TransformerEncoder", "BertModel", "bert_base", "bert_large",
+    "TransformerEncoder", "BertModel", "BertForPretraining", "bert_base",
+    "bert_large",
 ]
 
 # The flash-vs-dense crossovers of the auto policy.  These are the
@@ -207,6 +211,38 @@ class BertModel(HybridBlock):
         seq = self.encoder(x, valid_mask)
         pooled = self.pooler(seq[:, 0, :])
         return seq, pooled
+
+
+class BertForPretraining(HybridBlock):
+    """MLM + next-sentence heads over BertModel (the pretraining step of
+    the repo's BERT benchmark).  The MLM decoder is tied to the word
+    embedding: ``bert.word_embed.weight`` is one parameter that gets
+    gradient from the gather and from the vocab product."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+        self.bert = BertModel(**kwargs)
+        units = self.bert._units
+        std = init.Normal(0.02)
+        self.mlm_transform = nn.Dense(units, flatten=False, activation=None,
+                                      weight_initializer=std, in_units=units)
+        self.mlm_act = nn.GELU()
+        # the LayerNorm default eps (1e-5), not the encoder's 1e-12
+        self.mlm_ln = nn.LayerNorm(in_channels=units)
+        # decoder bias; the kernel is tied to the word embedding
+        self.mlm_bias = Parameter("mlm_bias",
+                                  shape=(self.bert.word_embed._input_dim,),
+                                  init=init.Zero())
+        self.nsp = nn.Dense(2, flatten=False, weight_initializer=std,
+                            in_units=units)
+
+    def forward(self, tokens, segments=None, valid_mask=None):
+        seq, pooled = self.bert(tokens, segments, valid_mask)
+        h = self.mlm_ln(self.mlm_act(self.mlm_transform(seq)))
+        embed_w = self.bert.word_embed.weight.data()     # (vocab, units)
+        mlm_logits = torch.matmul(h, embed_w.t()) + self.mlm_bias.data()
+        nsp_logits = self.nsp(pooled)
+        return mlm_logits, nsp_logits
 
 
 def bert_base(**kwargs):

@@ -1,7 +1,14 @@
 """``mx.npx`` (counterpart of `mxnet_tpu/numpy_extension/__init__.py`):
 the NN primitives Gluon layers call.  Each delegates to `ops/nn.py` or,
-for attention, to the flash kernel's wrapper; train/predict mode and
-the dropout generator come from `ops/invoke.py`."""
+for attention, to the flash kernels' wrapper; train/predict mode and
+the dropout generator come from `ops/invoke.py`.
+
+Train-mode randomness takes its seeds from the scope's CPU generator on
+the host: a dropout mask is then drawn on the data's device, and the
+flash kernels' two seed words are host integers, so neither syncs with
+the card.  The reference draws its dropout bits from XLA's ``rbg``
+generator, so model-level dropout masks differ between the packages
+(the flash kernels' own bits match, given the same seed words)."""
 from __future__ import annotations
 
 import torch
@@ -10,13 +17,16 @@ from ..ops import nn as _nn
 from ..ops.invoke import current_generator, is_training
 
 __all__ = ["activation", "dropout", "embedding", "fully_connected", "gelu",
-           "layer_norm", "leaky_relu", "softmax", "flash_attention"]
+           "layer_norm", "leaky_relu", "log_softmax", "pick", "softmax",
+           "flash_attention"]
 
 activation = _nn.activation
 embedding = _nn.embedding
 fully_connected = _nn.fully_connected
 layer_norm = _nn.layer_norm
 leaky_relu = _nn.leaky_relu
+log_softmax = _nn.log_softmax
+pick = _nn.pick
 softmax = _nn.softmax
 
 
@@ -29,27 +39,29 @@ def _generator(what):
     gen = current_generator()
     if gen is None:
         raise ValueError(f"{what} in train mode needs a torch.Generator: "
-                         "run under autograd.train_mode(generator=...)")
+                         "run under autograd.record(generator=...) or "
+                         "autograd.train_mode(generator=...)")
     return gen
 
 
 def dropout(data, p=0.5):
-    """Active only in train mode, drawing from the generator of
-    ``autograd.train_mode``."""
+    """Active only in train mode; the mask is drawn on the data's device
+    from a seed the scope's generator gives on the host."""
     if not is_training() or p == 0.0:
         return data
-    return _nn.dropout(data, _generator("dropout"), p=p)
+    seed = int(torch.randint(0, 2 ** 62, (), generator=_generator("dropout")))
+    return _nn.dropout(data, seed, p=p)
 
 
 def flash_attention(q, k, v, **kwargs):
-    """Blockwise (flash) attention: the CUDA kernel on the card, its
-    plain version on the CPU (see `ops/flash_attention.py`).  Accepts
+    """Blockwise (flash) attention: the CUDA kernels on the card, their
+    plain versions on the CPU (see `ops/flash_attention.py`).  Accepts
     ``causal``, ``scale``, ``mask`` (key-padding (B, T)), ``bias`` and
     in-kernel ``dropout``; with dropout and no ``key``, the two seed
-    words are drawn from the train-mode generator."""
+    words are drawn on the host from the train-mode generator."""
     from ..ops.flash_attention import flash_attention as _fa
     if kwargs.get("dropout") and kwargs.get("key") is None:
         kwargs["key"] = torch.randint(
-            0, 2 ** 32, (2,), generator=_generator("attention dropout"),
-            device=current_generator().device).tolist()
+            0, 2 ** 32, (2,),
+            generator=_generator("attention dropout")).tolist()
     return _fa(q, k, v, **kwargs)

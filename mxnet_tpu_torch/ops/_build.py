@@ -3,10 +3,11 @@
 Each `csrc/*.cu` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, which ``ctypes`` loads.
 Builds happen at first use, never at import, into ``build/kernels/``
-at the root of the checkout, under a name keyed by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused.  ``nvcc`` is taken from ``PATH``, else from ``$CUDA_HOME/bin``,
-else from ``/usr/local/cuda/bin``.  Nothing is downloaded.
+at the root of the checkout, under a name keyed by a hash of the source,
+the ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt
+and an unchanged one is reused.  ``nvcc`` is taken from ``PATH``, else
+from ``$CUDA_HOME/bin``, else from ``/usr/local/cuda/bin``.  Nothing is
+downloaded.
 """
 from __future__ import annotations
 
@@ -45,10 +46,12 @@ def find_nvcc():
 
 def build(name):
     """Path of the shared library built from ``csrc/<name>.cu``
-    (compiling it if no library for this source and these flags
-    exists yet)."""
+    (compiling it if no library for this source, the headers beside it
+    and these flags exists yet)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():

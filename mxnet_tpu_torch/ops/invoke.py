@@ -2,19 +2,31 @@
 
 The reference's invoke module also owns the imperative tape; in the port
 autograd is torch's own, so only the thread-local mode flags remain:
-``is_training`` (dropout active) and ``is_backward_expected`` (a
-backward pass will run through this forward — what the flash auto
-policy's training crossover reads).  ``generator`` is the explicit
-``torch.Generator`` that train-mode randomness draws from.
+``is_recording`` (inside ``autograd.record()``), ``is_training``
+(dropout active) and ``is_backward_expected`` (a backward pass will run
+through this forward — what the flash auto policy's training crossover
+reads).  ``generator`` is the explicit CPU ``torch.Generator`` that
+train-mode randomness draws its seeds from.
 """
 from __future__ import annotations
 
 import threading
 
-__all__ = ["is_training", "set_training", "is_backward_expected",
-           "set_backward_expected", "current_generator", "set_generator"]
+__all__ = ["is_recording", "set_recording", "is_training", "set_training",
+           "is_backward_expected", "set_backward_expected",
+           "current_generator", "set_generator"]
 
 _state = threading.local()
+
+
+def is_recording():
+    return getattr(_state, "recording", False)
+
+
+def set_recording(flag):
+    prev = is_recording()
+    _state.recording = bool(flag)
+    return prev
 
 
 def is_training():
@@ -29,8 +41,9 @@ def set_training(flag):
 
 def is_backward_expected():
     """True when a backward pass will follow: explicitly flagged, or the
-    forward runs in train mode."""
-    return getattr(_state, "backward", False) or is_training()
+    forward is recorded or runs in train mode."""
+    return (getattr(_state, "backward", False) or is_recording() or
+            is_training())
 
 
 def set_backward_expected(flag):
@@ -40,8 +53,9 @@ def set_backward_expected(flag):
 
 
 def current_generator():
-    """The ``torch.Generator`` train-mode dropout draws from (None
-    outside ``autograd.train_mode(generator=...)``)."""
+    """The CPU ``torch.Generator`` train-mode randomness draws its seeds
+    from (None outside ``autograd.record`` / ``autograd.train_mode`` with
+    a ``generator``)."""
     return getattr(_state, "generator", None)
 
 

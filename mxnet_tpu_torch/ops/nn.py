@@ -1,14 +1,14 @@
 """NN operators (counterpart of the subset of `mxnet_tpu/ops/nn.py` that
-the BERT serving path calls).  Plain functions on ``torch.Tensor``; the
-large products go to ``torch.matmul`` / ``F.linear``, as the reference
-left them to XLA."""
+the BERT serving and pretraining paths call).  Plain functions on
+``torch.Tensor``; the large products go to ``torch.matmul`` /
+``F.linear``, as the reference left them to XLA."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["layer_norm", "fully_connected", "softmax", "activation",
-           "leaky_relu", "dropout", "embedding"]
+__all__ = ["layer_norm", "fully_connected", "softmax", "log_softmax",
+           "activation", "leaky_relu", "dropout", "embedding", "pick"]
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
@@ -37,6 +37,10 @@ def softmax(data, axis=-1):
     return torch.softmax(data, dim=axis)
 
 
+def log_softmax(data, axis=-1):
+    return torch.log_softmax(data, dim=axis)
+
+
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
                 "tanh": torch.tanh, "softrelu": F.softplus}
 
@@ -54,16 +58,26 @@ def leaky_relu(data, act_type="gelu"):
     raise ValueError(f"unknown act_type {act_type!r}")
 
 
-def dropout(data, generator, p=0.5):
+def dropout(data, seed, p=0.5):
     """Zero elements at rate ``p`` and rescale the rest by 1/(1-p), with
-    the keep mask drawn from ``generator`` on its own device."""
+    the keep mask drawn on the data's own device from a generator seeded
+    with the integer ``seed`` (no host-device copy, no sync)."""
     if p == 0.0:
         return data
     keep = 1.0 - p
-    u = torch.rand(data.shape, generator=generator, device=generator.device)
-    mask = (u < keep).to(data.device)
-    return torch.where(mask, data / keep, torch.zeros_like(data))
+    gen = torch.Generator(device=data.device)
+    gen.manual_seed(seed)
+    u = torch.rand(data.shape, generator=gen, device=data.device)
+    return torch.where(u < keep, data / keep, torch.zeros_like(data))
 
 
 def embedding(data, weight):
     return F.embedding(data.long(), weight)
+
+
+def pick(data, index, axis=-1):
+    """``data`` at ``index`` along ``axis`` (which drops); out-of-range
+    indices are clipped, as the reference's default ``mode="clip"``."""
+    ax = axis if axis >= 0 else data.ndim + axis
+    idx = index.long().clamp(0, data.shape[ax] - 1)
+    return torch.gather(data, ax, idx.unsqueeze(ax)).squeeze(ax)

@@ -1,0 +1,126 @@
+"""Adam-family optimizers (counterpart of `mxnet_tpu/optimizer/adam.py`):
+Adam, AdamW and LAMB.
+
+Each keeps the reference's f32 math: the weight is widened to an f32
+copy, the states are f32, and the new weight is cast back to the
+weight's dtype.  ``t`` may be an int (the optimizer's own `update`) or
+an f32 scalar (the Trainer and `FusedTrainStep` pass it as the
+reference's fused programs do); the bias corrections are computed from
+it on the host.
+"""
+from __future__ import annotations
+
+import numpy as onp
+import torch
+
+from .optimizer import Optimizer, register
+
+__all__ = ["Adam", "AdamW", "LAMB"]
+
+
+def _f32_zeros(weight):
+    return torch.zeros_like(weight, dtype=torch.float32)
+
+
+@register
+class Adam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, correct_bias=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.correct_bias = correct_bias
+
+    def create_state(self, index, weight):
+        return (_f32_zeros(weight), _f32_zeros(weight))
+
+    def update_math(self, weight, grad, states, lr, wd, t):
+        grad = grad.float()
+        w32 = weight.float()
+        mean, var = states
+        if self.correct_bias:
+            # the bias correction folds into lr
+            coef1 = 1.0 - self.beta1 ** t
+            coef2 = 1.0 - self.beta2 ** t
+            lr = float(lr * onp.sqrt(coef2) / coef1)
+        g = grad + wd * w32
+        new_mean = self.beta1 * mean + (1 - self.beta1) * g
+        new_var = self.beta2 * var + (1 - self.beta2) * torch.square(g)
+        new_w = w32 - lr * new_mean / (torch.sqrt(new_var) + self.epsilon)
+        return new_w.to(weight.dtype), (new_mean, new_var)
+
+
+@register
+class AdamW(Optimizer):
+    """Decoupled weight decay (reference contrib adamw_update)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, correct_bias=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.correct_bias = correct_bias
+
+    def create_state(self, index, weight):
+        return (_f32_zeros(weight), _f32_zeros(weight))
+
+    def update_math(self, weight, grad, states, lr, wd, t):
+        grad = grad.float()
+        w32 = weight.float()
+        mean, var = states
+        new_mean = self.beta1 * mean + (1 - self.beta1) * grad
+        new_var = self.beta2 * var + (1 - self.beta2) * torch.square(grad)
+        m_hat, v_hat = new_mean, new_var
+        if self.correct_bias:
+            m_hat = new_mean / float(1 - self.beta1 ** t)
+            v_hat = new_var / float(1 - self.beta2 ** t)
+        new_w = w32 - lr * (m_hat / (torch.sqrt(v_hat) + self.epsilon) +
+                            wd * w32)
+        return new_w.to(weight.dtype), (new_mean, new_var)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments (reference `lamb.py`,
+    `lamb_update_phase1/2`): the BERT-pretraining optimizer of the
+    repo's BERT benchmark configuration."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_f32_zeros(weight), _f32_zeros(weight))
+
+    def update_math(self, weight, grad, states, lr, wd, t):
+        grad = grad.float()
+        w32 = weight.float()
+        mean, var = states
+        new_mean = self.beta1 * mean + (1 - self.beta1) * grad
+        new_var = self.beta2 * var + (1 - self.beta2) * torch.square(grad)
+        if self.bias_correction:
+            m_hat = new_mean / float(1 - self.beta1 ** t)
+            v_hat = new_var / float(1 - self.beta2 ** t)
+        else:
+            m_hat, v_hat = new_mean, new_var
+        g = m_hat / (torch.sqrt(v_hat) + self.epsilon) + wd * w32
+        r1 = torch.linalg.vector_norm(w32)
+        if self.lower_bound is not None:
+            r1 = torch.clamp(r1, min=self.lower_bound)
+        if self.upper_bound is not None:
+            r1 = torch.clamp(r1, max=self.upper_bound)
+        r2 = torch.linalg.vector_norm(g)
+        # the trust ratio stays on the device: no sync
+        ratio = torch.where((r1 > 0) & (r2 > 0), r1 / r2,
+                            torch.ones_like(r1))
+        new_w = w32 - lr * ratio * g
+        return new_w.to(weight.dtype), (new_mean, new_var)

@@ -1,0 +1,169 @@
+"""Optimizer base + registry (counterpart of
+`mxnet_tpu/optimizer/optimizer.py`).
+
+Each optimizer implements ``update_math``, a pure function
+``(weight, grad, states, lr, wd, t) -> (new_weight, new_states)`` over
+torch tensors, with ``lr``, ``wd`` and ``t`` host scalars.  `update`
+applies it per parameter and writes the results back in place; the
+Trainer and `FusedTrainStep` loop over the parameters with it.  The
+reference fused that loop into one XLA program; in the port it is plain
+torch ops, one set per parameter.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import registry
+
+__all__ = ["Optimizer", "register", "create"]
+
+
+class Optimizer:
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=None, lr_scheduler=None,
+                 begin_num_update=0, param_dict=None, **kwargs):
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate if learning_rate is not None else 0.01
+        self.lr_scheduler = lr_scheduler
+        if self.lr_scheduler is not None and learning_rate is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.wd = wd
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count = {}
+        self.clip_gradient = clip_gradient
+        if param_idx2name is None:
+            param_idx2name = {}
+        if not isinstance(param_idx2name, dict):
+            raise TypeError("param_idx2name must be a dict")
+        self.idx2name = param_idx2name.copy()
+        self.param_dict = param_dict if param_dict else {}
+        self.lr_mult = {}
+        self.wd_mult = {}
+
+    opt_registry = registry.get_registry("optimizer")
+
+    @staticmethod
+    def register(klass):
+        return registry.get_register_func(Optimizer, "optimizer")(klass)
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        return Optimizer.opt_registry.get(name)(**kwargs)
+
+    # -- state ------------------------------------------------------------
+    def create_state(self, index, weight):
+        return ()
+
+    def create_state_multi_precision(self, index, weight):
+        return self.create_state(index, weight)
+
+    # -- lr / wd ----------------------------------------------------------
+    @property
+    def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
+        return self.lr
+
+    @learning_rate.setter
+    def learning_rate(self, lr):
+        self.lr = lr
+
+    def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise UserWarning("LRScheduler of the optimizer has already been "
+                              "defined.")
+        self.lr = lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = args_lr_mult.copy()
+
+    def set_wd_mult(self, args_wd_mult):
+        self.wd_mult = args_wd_mult.copy()
+
+    def _update_count(self, index):
+        if not isinstance(index, (list, tuple)):
+            index = [index]
+        for idx in index:
+            if idx not in self._index_update_count:
+                self._index_update_count[idx] = self.begin_num_update
+            self._index_update_count[idx] += 1
+            self.num_update = max(self._index_update_count[idx],
+                                  self.num_update)
+
+    def _get_lr(self, index):
+        if self.lr_scheduler is not None:
+            lr = self.lr_scheduler(self.num_update)
+        else:
+            lr = self.lr
+        param = self.param_dict.get(index)
+        if param is not None:
+            lr *= getattr(param, "lr_mult", 1.0)
+        elif index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        elif index in self.idx2name:
+            lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        return lr
+
+    def _get_wd(self, index):
+        wd = self.wd
+        param = self.param_dict.get(index)
+        if param is not None:
+            wd *= getattr(param, "wd_mult", 1.0)
+        elif index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        elif index in self.idx2name:
+            wd *= self.wd_mult.get(self.idx2name[index], 1.0)
+        return wd
+
+    # -- the update -------------------------------------------------------
+    def preprocess_grad(self, grad):
+        """Rescale (in the gradient's own dtype) and clip."""
+        g = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        return g
+
+    def update_math(self, weight, grad, states, lr, wd, t):
+        """Pure update rule; override per optimizer.  ``grad`` arrives
+        already rescaled and clipped."""
+        raise NotImplementedError
+
+    def update(self, indices, weights, grads, states):
+        """Update ``weights`` and ``states`` in place (reference
+        signature; lists or single values accepted)."""
+        single = not isinstance(indices, (list, tuple))
+        if single:
+            indices, weights, grads, states = \
+                [indices], [weights], [grads], [states]
+        for index, weight, grad, state in zip(indices, weights, grads,
+                                              states):
+            self._update_count(index)
+            new_w, new_states = self.update_math(
+                weight, self.preprocess_grad(grad), _as_tuple(state),
+                self._get_lr(index), self._get_wd(index),
+                self._index_update_count[index])
+            write_back(weight, new_w, state, new_states)
+
+
+def write_back(weight, new_w, state, new_states, keep=None):
+    """Copy an update into the weight and state tensors in place, outside
+    autograd.  ``keep`` (a 0-dim bool tensor on the device) holds both
+    bitwise where it is False."""
+    with torch.no_grad():
+        pairs = [(weight, new_w)] + list(zip(_as_tuple(state),
+                                             _as_tuple(new_states)))
+        for old, new in pairs:
+            old.copy_(new if keep is None else torch.where(keep, new, old))
+
+
+def _as_tuple(x):
+    if x is None:
+        return ()
+    if isinstance(x, (tuple, list)):
+        return tuple(x)
+    return (x,)
+
+
+register = Optimizer.register
+create = Optimizer.create_optimizer

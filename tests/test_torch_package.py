@@ -42,7 +42,8 @@ def test_port_imports_no_jax(path):
 def test_import_leaves_jax_out():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
             "mxnet_tpu_torch.models, mxnet_tpu_torch.ops.flash_attention, "
-            "mxnet_tpu_torch.utils.convert; "
+            "mxnet_tpu_torch.utils.convert, mxnet_tpu_torch.optimizer, "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.fused_step; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
