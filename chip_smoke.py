@@ -60,14 +60,43 @@ the package is missing.  Phases, each fatal on failure:
 4b. **Where a training step's time goes.**  One step traced: device
    time, idle share, launches, top kernels, and the device-to-host
    syncs torch's sync debug mode reports.
+5. **B1 vs plain.**  The BatchNorm-backward reduction at ResNet-50's
+   nine batch-128 BatchNorm shapes and an odd one (C = 3, M = 2331),
+   f32 made on the card from a seed: worst error against an allowance
+   from the two summation orders, kernel, plain and library
+   (``torch.batch_norm_backward_reduce``) times beside the bound; the
+   stem case twice, which must agree bitwise.
+6. **B2 vs plain.**  The space-to-depth stem's (M, 192) @ (192, 64)
+   product at batch 128 in f32 and bf16, and an odd case (M = 765,
+   C_out = 24): against the plain product, and the packed stem through
+   B2 against cuDNN's 7x7/stride-2 conv of the unpacked input with the
+   same weight; times beside the bound, the cuBLAS product's and the
+   cuDNN conv's.
+7. **ResNet-50 v1 training** as ``bench.py`` builds it: Xavier, bf16,
+   SoftmaxCrossEntropyLoss, SGD lr 0.1 momentum 0.9 through ``Trainer``
+   and ``FusedTrainStep`` at batch 128 on one fixed seeded batch: 3
+   warm-up steps, then 20 timed steps.  Every loss finite, the last
+   five below the first, 53 B1 and 0 B2 launches per step; one eager
+   step against one fused step from the same state (cuDNN pinned
+   deterministic for it): weights within one bf16 ulp, running
+   statistics and losses equal; one step traced as in 4b.
+8. **The same with the space-to-depth stem**: ``features.0`` replaced
+   by ``SpaceToDepthStem(64, in_channels=3)`` carrying the same weight,
+   the input packed once on the card; 2 warm-up and 15 timed steps
+   (the loss spikes at lr 0.1 over steps 4-8, so ten would leave the
+   last five close to the first): falling losses, 1 B2 and 53 B1
+   launches per step.
 
 Every measurement is printed on a line of its own (``kernel``,
-``kernel_bwd``, ``serve:``, ``train:``, ``profile:``).  The last three
-lines are a ``{"kernels": [...]}`` object (B3 at the serving path's
-main case, bf16 with a key-padding mask, with its launches over the
-served traffic; B4 and B5 at the training path's main case, with their
-launches over the 30 timed steps), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``serve:``, ``train:``,
+``resnet:``, ``resnet_s2d:``, ``profile:``).  The last three lines are
+a ``{"kernels": [...]}`` object (B3 at the serving path's main case,
+bf16 with a key-padding mask, with its launches over the served
+traffic; B4 and B5 at the BERT training path's main case, with their
+launches over its 30 timed steps; B1 at the stem BatchNorm's shape,
+with its launches over the 20 timed ResNet steps; B2 at the bf16 stem,
+with its launches over the 15 timed space-to-depth steps), the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -140,7 +169,28 @@ GRAD_REL_TOL = 1e-3
 # flash vs dense attention, as a relative L2 error over its valid rows
 SERVE_REL_TOL = 2e-2
 N_CLIENTS, PER_CLIENT = 4, 12
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "bn_bwd_reduce",
+           "stem_matmul")
+EPS32 = 2.0 ** -24
+# B1 at ResNet-50 v1's batch-128 BatchNorm shapes, (N, C, H*W) as the
+# backward hands them to the kernel, with launches per training step;
+# the last an odd case (C = 3, M = 2331 a multiple of no tile)
+BN_CASES = [((128, 64, 12544), 1), ((128, 64, 3136), 6),
+            ((128, 256, 3136), 4), ((128, 128, 784), 8),
+            ((128, 512, 784), 5), ((128, 256, 196), 12),
+            ((128, 1024, 196), 7), ((128, 512, 49), 6), ((128, 2048, 49), 4),
+            ((7, 3, 333), 0)]
+# B2: ResNet-50's packed stem at batch 128 (B, 4 * C_in, H/2, W/2) with
+# C_out 64, and an odd case (M = 765, no multiple of the 128-row tile;
+# C_out = 24, a partial column tile)
+STEM_CASES = [("float32", (128, 12, 112, 112), 64),
+              ("bfloat16", (128, 12, 112, 112), 64),
+              ("bfloat16", (3, 12, 15, 17), 24)]
+# ResNet-50 v1 training as `bench.py` builds it
+RESNET_BATCH, RESNET_IMAGE = 128, 224
+RESNET_WARMUP, RESNET_STEPS = 3, 20
+S2D_WARMUP, S2D_STEPS = 2, 15
+BN_LAYERS = 53
 
 
 def log(*args):
@@ -924,7 +974,8 @@ def phase_train(dev):
                          f"falling={falling} launches per step ok="
                          f"{counts_ok}")
     out["eager_vs_fused"] = _eager_vs_fused(mod, trainer, args)
-    out["profile"] = phase_train_profile(step, args)
+    out["profile"] = phase_train_profile(
+        step, args, B_TRAIN, f"training step at ({B_TRAIN}, {T_TRAIN})")
     del step, trainer, mod, net
     torch.cuda.empty_cache()
     out["flash_vs_dense"] = _flash_vs_dense_grads(dev, args)
@@ -955,11 +1006,11 @@ def _count_syncs(fn):
     return len(syncs), syncs[:3]
 
 
-def phase_train_profile(step, args):
+def phase_train_profile(step, args, batch_size, label):
     import torch
 
     def one():
-        return step(*args, batch_size=B_TRAIN)
+        return step(*args, batch_size=batch_size)
 
     # the count is only as good as the debug mode's coverage: check that
     # it sees a known sync (a scalar read) before trusting a zero
@@ -973,12 +1024,407 @@ def phase_train_profile(step, args):
         one()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 3 * 1e3
-    out = profile_call(one, f"training step at ({B_TRAIN}, {T_TRAIN})",
-                       step_ms)
+    out = profile_call(one, label, step_ms)
     out["host_syncs_per_step"] = n_syncs
-    log(f"profile: training step: {n_syncs} device-to-host syncs "
-        f"{examples}")
+    log(f"profile: {label}: {n_syncs} device-to-host syncs {examples}; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: B1 (BatchNorm-backward reduction) vs plain
+# ---------------------------------------------------------------------------
+def _bn_allowance(n0, c, n1):
+    """B1's allowance, per channel, as a multiple of sum|term|: f32
+    summation with depth d errs by at most d * 2^-24 * sum|term|.  The
+    kernel's depth is ceil(chunk / 256) sequential adds per thread, 8
+    tree levels and ``splits`` sequential adds of the partials; the plain
+    sum's blocked order is taken to be no deeper, so the two may differ
+    by twice that."""
+    from mxnet_tpu_torch.ops.nn import bn_bwd_reduce_plan
+    splits, chunk = bn_bwd_reduce_plan(n0, c, n1)
+    depth = -(-chunk // 256) + 8 + splits
+    return 2 * depth * EPS32
+
+
+def phase_bn_reduce(dev):
+    """B1 against `bn_bwd_reduce_reference` at ResNet-50's BatchNorm
+    shapes and an odd one: worst error over its allowance, kernel time
+    (CUDA events, and the two kernels' device time by the profiler),
+    bound, plain version and the library call
+    (``torch.batch_norm_backward_reduce`` with mean 0 and invstd 1, whose
+    ``sum_dy_xmu`` is then sum(dy * xhat)); the stem case twice, bitwise."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    for (n0, c, n1), per_step in BN_CASES:
+        dy = torch.randn(n0, c, n1, generator=gen, device=dev)
+        xh = torch.randn(n0, c, n1, generator=gen, device=dev)
+        s, ss = tnn.bn_bwd_reduce(dy, xh)
+        torch.cuda.synchronize()
+        ps, pss = tnn.bn_bwd_reduce_reference(dy, xh)
+        frac = _bn_allowance(n0, c, n1)
+        allow_s = frac * dy.abs().sum(dim=(0, 2)) + 1e-30
+        allow_ss = frac * (dy * xh).abs().sum(dim=(0, 2)) + 1e-30
+        err = max((s - ps).abs().max().item(), (ss - pss).abs().max().item())
+        ratio = max(((s - ps).abs() / allow_s).max().item(),
+                    ((ss - pss).abs() / allow_ss).max().item())
+        ok = ratio <= 1.0 and bool(torch.isfinite(s).all()) and \
+            bool(torch.isfinite(ss).all())
+        repeat = None
+        if (n0, c, n1) == BN_CASES[0][0]:
+            s2, ss2 = tnn.bn_bwd_reduce(dy, xh)
+            repeat = bool(torch.equal(s, s2) and torch.equal(ss, ss2))
+            ok = ok and repeat
+        zeros = torch.zeros(c, device=dev)
+        ones = torch.ones(c, device=dev)
+        ms = cuda_ms(lambda: tnn.bn_bwd_reduce(dy, xh))
+        dev_ms = device_ms(lambda: tnn.bn_bwd_reduce(dy, xh))
+        plain_ms = cuda_ms(lambda: tnn.bn_bwd_reduce_reference(dy, xh),
+                           iters=5)
+        library_ms = cuda_ms(lambda: torch.batch_norm_backward_reduce(
+            dy, xh, zeros, ones, None, True, False, False))
+        bound_ms, bound_by = _bound_ms(
+            "float32", 2 * dy.numel() * 4 + 2 * c * 4, 2 * dy.numel())
+        row = {"shape": [n0, c, n1], "launches_per_step": per_step,
+               "max_abs_err": err, "err_over_tol": ratio,
+               "tol": f"{frac:.3e} x sum|term| per channel",
+               "bitwise_repeat": repeat, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "ok": ok}
+        rows.append(row)
+        rep = "" if repeat is None else f" bitwise_repeat={repeat}"
+        log(f"kernel_bn (N, C, L)={(n0, c, n1)} x{per_step}/step "
+            f"err={err:.3e} ({ratio:.3f} of tol) kernel_ms={ms:.4f} "
+            f"(device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}){rep} {'ok' if ok else 'FAILED'}")
+        del dy, xh, s, ss, ps, pss, allow_s, allow_ss
+    torch.cuda.empty_cache()
+    per_step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
+                for k in ("ms", "device_ms", "bound_ms", "library_ms")}
+    log("kernel_bn per ResNet-50 step (53 launches): " + json.dumps(per_step))
+    failed = [r["shape"] for r in rows if not r["ok"]]
+    if failed:
+        raise SystemExit(f"B1 disagrees with its plain version: {failed}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: B2 (space-to-depth stem matmul) vs plain
+# ---------------------------------------------------------------------------
+def phase_stem(dev):
+    """B2 against `stem_matmul_reference` on the stem's im2col patches,
+    and the packed stem (`stem_conv_auto`, through B2) against cuDNN's
+    7x7/stride-2 conv of the unpacked input with the same weight.
+    Allowances: f32 sums of K products err by at most K * 2^-24 * the
+    sum of |products| (computed as |A| @ |W|), for either side; in bf16
+    each side then rounds once to nearest, which moves a value v by at
+    most half a bf16 ulp, 2^-8 |round(v)|: so the kernel and the plain
+    product may differ by 2^-8 (|kernel| + |plain|) more, and the kernel
+    and the unrounded f32 conv by 2^-8 |kernel|."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import stem
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rows = []
+    for dname, (b, c, h2, w2), c_out in STEM_CASES:
+        dt = getattr(torch, dname)
+        x = (torch.rand(b, c // 4, 2 * h2, 2 * w2, generator=gen, device=dev)
+             * 2 - 1).to(dt)
+        w7 = (torch.randn(c_out, c // 4, 7, 7, generator=gen, device=dev)
+              * 0.05).to(dt)
+        xs = stem.space_to_depth2(x)
+        flat = stem.stem_patches(xs)
+        w2d = stem.fold_stem_kernel(w7).reshape(c_out, -1).t().contiguous()
+        m, k = flat.shape
+        out = stem.stem_matmul(flat, w2d)
+        torch.cuda.synchronize()
+        ref = stem.stem_matmul_reference(flat, w2d).float()
+        absprod = torch.matmul(flat.float().abs(), w2d.float().abs())
+        allow = 2 * k * EPS32 * absprod + 1e-30
+        if dt == torch.bfloat16:
+            allow = allow + 2.0 ** -8 * (ref.abs() + out.float().abs())
+        diff = (out.float() - ref).abs()
+        err, ratio = diff.max().item(), (diff / allow).max().item()
+        del absprod, allow, diff, ref
+        packed = stem.stem_conv_auto(xs, w7).float()
+        conv = F.conv2d(x.float(), w7.float(), stride=2, padding=3)
+        allow = 2 * k * EPS32 * F.conv2d(x.float().abs(), w7.float().abs(),
+                                         stride=2, padding=3) + 1e-30
+        if dt == torch.bfloat16:
+            allow = allow + 2.0 ** -8 * packed.abs()
+        conv_diff = (packed - conv).abs()
+        conv_err = conv_diff.max().item()
+        conv_ratio = (conv_diff / allow).max().item()
+        ok = (ratio <= 1.0 and conv_ratio <= 1.0 and
+              tuple(packed.shape) == (b, c_out, h2, w2) and
+              bool(torch.isfinite(out).all()))
+        del packed, conv, allow, conv_diff
+        ms = cuda_ms(lambda: stem.stem_matmul(flat, w2d))
+        plain_ms = cuda_ms(lambda: stem.stem_matmul_reference(flat, w2d),
+                           iters=5)
+        library_ms = cuda_ms(lambda: torch.matmul(flat, w2d))
+        conv_ms = cuda_ms(lambda: F.conv2d(x, w7, stride=2, padding=3))
+        esize = flat.element_size()
+        bound_ms, bound_by = _bound_ms(dname, (m * k + k * c_out + m * c_out)
+                                       * esize, 2 * m * k * c_out)
+        row = {"dtype": dname, "packed_input": [b, c, h2, w2],
+               "c_out": c_out, "m": m, "k": k, "max_abs_err": err,
+               "err_over_tol": ratio, "conv7x7_max_abs_err": conv_err,
+               "conv7x7_err_over_tol": conv_ratio, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "cudnn_conv7x7_ms": conv_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "ok": ok}
+        rows.append(row)
+        log(f"kernel_stem {dname:8s} (M, K, N)={(m, k, c_out)} err={err:.3e} "
+            f"({ratio:.3f} of tol) vs 7x7 conv err={conv_err:.3e} "
+            f"({conv_ratio:.3f} of tol) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"cudnn_conv7x7_ms={conv_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}) {'ok' if ok else 'FAILED'}")
+        del x, w7, xs, flat, w2d, out
+    torch.cuda.empty_cache()
+    failed = [f"{r['dtype']}/{r['m']}" for r in rows if not r["ok"]]
+    if failed:
+        raise SystemExit(f"B2 disagrees with its plain version or the 7x7 "
+                         f"conv: {failed}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training ResNet-50 v1 (the path bench.py times)
+# ---------------------------------------------------------------------------
+def net_with_loss(net):
+    """``bench.py``'s NetWithLoss: the net, then SoftmaxCrossEntropyLoss."""
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    class NetWithLoss(HybridBlock):
+        def __init__(self, n):
+            super().__init__()
+            self.net = n
+            self.loss_fn = SoftmaxCrossEntropyLoss()
+
+        def forward(self, x, y):
+            return self.loss_fn(self.net(x), y)
+
+    return NetWithLoss(net)
+
+
+def resnet50(dev):
+    """``vision.resnet50_v1()``, Xavier from seed 0, cast to bf16."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet50_v1()
+    net.initialize(init=mx.init.Xavier(), ctx=dev,
+                   generator=torch.Generator().manual_seed(0))
+    net.cast("bfloat16")
+    return net
+
+
+def resnet_batch(dev):
+    """uniform(-1, 1) bf16 images and random labels, from a fixed seed,
+    made on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = (torch.rand(RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE, generator=gen,
+                    device=dev)
+         * 2 - 1).to(torch.bfloat16)
+    y = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    return x, y
+
+
+def _cnn_counts():
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+    from mxnet_tpu_torch.ops.stem import STEM_MATMUL
+    return {"bn_bwd_reduce": BN_BWD_REDUCE.launches,
+            "stem_matmul": STEM_MATMUL.launches}
+
+
+def _reset_cnn_counts():
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+    from mxnet_tpu_torch.ops.stem import STEM_MATMUL
+    BN_BWD_REDUCE.launches = STEM_MATMUL.launches = 0
+
+
+def _train_steps(step, args, n_steps, expect):
+    """Run ``n_steps`` fused steps from launch counts of 0; returns the
+    losses (on the card), seconds to the final sync, the totals and
+    whether every step launched ``expect`` of each kernel."""
+    import torch
+    losses, ok = [], True
+    torch.cuda.synchronize()
+    _reset_cnn_counts()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        before = _cnn_counts()
+        losses.append(step(*args, batch_size=RESNET_BATCH))
+        after = _cnn_counts()
+        ok = ok and all(after[k] - before[k] == expect[k] for k in expect)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return losses, wall, _cnn_counts(), ok
+
+
+def _loss_gates(losses):
+    """Mean loss per step; every one finite, the last five below the
+    first."""
+    import torch
+    vals = torch.stack([v.float().mean() for v in losses]).cpu().tolist()
+    finite = all(v == v and abs(v) != float("inf") for v in vals)
+    return vals, finite, sum(vals[-5:]) / 5 < vals[0]
+
+
+def _resnet_eager_vs_fused(mod, trainer, step, args):
+    """One eager record/backward/Trainer.step step and one fused step
+    from the same weights, momentum and running statistics.  cuDNN's
+    backward algorithms may sum in a run-dependent order, so both steps
+    run with ``cudnn.deterministic`` (this check only).  The gradients'
+    rescale by 1/128 is exact, so the two steps hand SGD the same
+    gradient: weights must agree within one bf16 ulp (2^-7 |w|), the
+    losses and the running statistics exactly."""
+    import torch
+    from mxnet_tpu_torch import autograd
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        snap = _snapshot(mod, trainer)
+        with autograd.record():
+            loss_e = mod(*args)
+        autograd.backward(loss_e)
+        trainer.step(RESNET_BATCH)
+        eager = {k: p.data().detach().clone()
+                 for k, p in mod.collect_params().items()}
+        _restore(mod, trainer, snap)
+        loss_f = step(*args, batch_size=RESNET_BATCH)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    worst, n_diff, n_all, stats_equal = 0.0, 0, 0, True
+    for k, p in mod.collect_params().items():
+        w_f, w_e = p.data().detach(), eager[k]
+        if p.grad_req == "null":
+            stats_equal = stats_equal and bool(torch.equal(w_f, w_e))
+            continue
+        diff = (w_e.float() - w_f.float()).abs()
+        worst = max(worst, (diff / (EAGER_FUSED_ULP * w_f.float().abs()
+                                    + 1e-30)).max().item())
+        n_diff += int((diff != 0).sum())
+        n_all += diff.numel()
+    losses_equal = bool(torch.equal(loss_e.detach(), loss_f))
+    out = {"worst_diff_over_one_ulp": worst, "elements_differing": n_diff,
+           "elements": n_all, "running_stats_equal": stats_equal,
+           "losses_equal": losses_equal}
+    log("resnet: eager vs fused step: " + json.dumps(out))
+    if worst > 1.0 or not stats_equal or not losses_equal:
+        raise SystemExit("eager and fused ResNet steps disagree")
+    return out
+
+
+def phase_resnet(dev):
+    """ResNet-50 v1 as `bench.py` builds it, trained with SGD momentum
+    through `Trainer` + `FusedTrainStep` at batch 128, bf16."""
+    import torch
+    from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    net = resnet50(dev)
+    mod = net_with_loss(net)
+    args = resnet_batch(dev)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      kvstore="device")
+    step = FusedTrainStep(mod, trainer)
+    t0 = time.perf_counter()
+    warm = [step(*args, batch_size=RESNET_BATCH)
+            for _ in range(RESNET_WARMUP)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_matmul": 0}
+    losses, wall, launches, counts_ok = _train_steps(step, args,
+                                                     RESNET_STEPS, expect)
+    vals, finite, falling = _loss_gates(warm + losses)
+    measured = vals[RESNET_WARMUP:]
+    n_params = sum(p.data().numel() for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    out = {"model": "resnet50_v1", "dtype": "bfloat16",
+           "batch": RESNET_BATCH, "steps": RESNET_STEPS,
+           "warmup_steps": RESNET_WARMUP, "warmup_s": warm_s,
+           "step_ms": wall / RESNET_STEPS * 1e3,
+           "img_per_s": RESNET_BATCH * RESNET_STEPS / wall,
+           "trainable_params": n_params,
+           "loss_first": vals[0], "loss_last5_mean": sum(vals[-5:]) / 5,
+           "losses": measured, "launches": launches,
+           "launches_per_step_ok": counts_ok,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": nvidia_smi()}
+    log("resnet: " + json.dumps(out))
+    if not (finite and falling and counts_ok):
+        raise SystemExit(f"ResNet training failed: finite={finite} "
+                         f"falling={falling} launches per step ok="
+                         f"{counts_ok}")
+    out["eager_vs_fused"] = _resnet_eager_vs_fused(mod, trainer, step, args)
+    out["profile"] = phase_train_profile(
+        step, args, RESNET_BATCH, f"ResNet-50 training step at batch "
+        f"{RESNET_BATCH}")
+    del step, trainer, mod, net, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet_s2d(dev):
+    """The same net with ``features.0`` replaced by
+    ``SpaceToDepthStem(64, in_channels=3)`` carrying the 7x7 weight, fed
+    the input packed once on the card."""
+    import torch
+    from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
+    from mxnet_tpu_torch.gluon.nn import SpaceToDepthStem
+    from mxnet_tpu_torch.ops.stem import space_to_depth2
+
+    net = resnet50(dev)
+    x, y = resnet_batch(dev)
+    net._ensure_shapes(x[:1])
+    stem = SpaceToDepthStem(64, in_channels=3)
+    stem.initialize(ctx=dev)
+    stem.cast("bfloat16")
+    stem.weight.set_data(net.features[0].weight.data())
+    setattr(net.features, "0", stem)
+    args = (space_to_depth2(x).contiguous(), y)
+    del x
+    mod = net_with_loss(net)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      kvstore="device")
+    step = FusedTrainStep(mod, trainer)
+    warm = [step(*args, batch_size=RESNET_BATCH) for _ in range(S2D_WARMUP)]
+    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_matmul": 1}
+    losses, wall, launches, counts_ok = _train_steps(step, args, S2D_STEPS,
+                                                     expect)
+    vals, finite, falling = _loss_gates(warm + losses)
+    out = {"model": "resnet50_v1 + SpaceToDepthStem", "dtype": "bfloat16",
+           "batch": RESNET_BATCH, "steps": S2D_STEPS,
+           "warmup_steps": S2D_WARMUP, "step_ms": wall / S2D_STEPS * 1e3,
+           "img_per_s": RESNET_BATCH * S2D_STEPS / wall,
+           "loss_first": vals[0], "loss_last5_mean": sum(vals[-5:]) / 5,
+           "losses": vals[S2D_WARMUP:], "launches": launches,
+           "launches_per_step_ok": counts_ok}
+    log("resnet_s2d: " + json.dumps(out))
+    if not (finite and falling and counts_ok):
+        raise SystemExit(f"space-to-depth ResNet training failed: "
+                         f"finite={finite} falling={falling} launches per "
+                         f"step ok={counts_ok}")
+    del step, trainer, mod, net, args
+    torch.cuda.empty_cache()
+    return out
+
 
 
 def main():
@@ -1010,6 +1456,10 @@ def main():
     del net
     torch.cuda.empty_cache()
     trained = phase_train(dev)
+    bn_rows = phase_bn_reduce(dev)
+    stem_rows = phase_stem(dev)
+    resnet = phase_resnet(dev)
+    resnet_s2d = phase_resnet_s2d(dev)
     log(f"seconds: {time.perf_counter() - t_start:.1f}")
 
     main_case = next(r for r in rows
@@ -1018,6 +1468,9 @@ def main():
     bwd_case = next(r for r in bwd_rows
                     if r["dtype"] == "bfloat16" and
                     r["case"] == "train_mask_dropout")
+    # B1 at the stem BatchNorm, B2 at the bf16 stem: the largest shapes
+    bn_case = bn_rows[0]
+    stem_case = next(r for r in stem_rows if r["dtype"] == "bfloat16")
     bwd_src = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
     launches = trained["launches"]
     log(json.dumps({"kernels": [{
@@ -1050,6 +1503,24 @@ def main():
         "bound_ms": bwd_case["dkv_bound_ms"],
         "bound_by": bwd_case["dkv_bound_by"],
         "library_ms": bwd_case["library_ms"],
+    }, {
+        "name": "bn_bwd_reduce", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/bn_bwd_reduce.cu",
+        "replaces": "mxnet_tpu/ops/nn.py:340",
+        "launches": resnet["launches"]["bn_bwd_reduce"],
+        "max_abs_err": bn_case["max_abs_err"],
+        "ms": bn_case["ms"], "plain_ms": bn_case["plain_ms"],
+        "bound_ms": bn_case["bound_ms"], "bound_by": bn_case["bound_by"],
+        "library_ms": bn_case["library_ms"],
+    }, {
+        "name": "stem_matmul", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/stem_matmul.cu",
+        "replaces": "mxnet_tpu/ops/stem.py:120",
+        "launches": resnet_s2d["launches"]["stem_matmul"],
+        "max_abs_err": stem_case["max_abs_err"],
+        "ms": stem_case["ms"], "plain_ms": stem_case["plain_ms"],
+        "bound_ms": stem_case["bound_ms"], "bound_by": stem_case["bound_by"],
+        "library_ms": stem_case["library_ms"],
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

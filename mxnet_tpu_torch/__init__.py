@@ -17,6 +17,8 @@ from . import numpy_extension as npx  # noqa: E402
 from .base import MXNetError  # noqa: E402
 from .context import cpu, current_context, gpu, num_gpus  # noqa: E402
 
-__all__ = ["autograd", "gluon", "initializer", "models", "optimizer",
+init = initializer
+
+__all__ = ["autograd", "gluon", "initializer", "init", "models", "optimizer",
            "serve", "npx",
            "MXNetError", "cpu", "gpu", "num_gpus", "current_context"]

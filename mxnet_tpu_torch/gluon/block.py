@@ -59,13 +59,24 @@ class Block(nn.Module):
         """Allocate every parameter on ``ctx`` (None = the card; pass
         ``mx.cpu()`` for the CPU) and fill it from ``generator``, a CPU
         ``torch.Generator`` (None = one seeded with 0).  Parameters
-        without an initializer of their own use ``init``."""
+        without an initializer of their own use ``init``.  Parameters of
+        unknown shape are filled at the first forward, from the same
+        generator, in the order the forward reaches them."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for param in self.collect_params().values():
             param.initialize(init=param.init, ctx=ctx, default_init=init,
                              force_reinit=force_reinit, generator=generator)
         return self
+
+    def _ensure_shapes(self, *args):
+        """Settle deferred parameter shapes with one forward in predict
+        mode, without gradients (running statistics untouched)."""
+        if any(p._deferred_init is not None
+               for p in self.collect_params().values()):
+            from .. import autograd
+            with torch.no_grad(), autograd.predict_mode():
+                self(*args)
 
     def zero_grad(self):
         """Clear every parameter's gradient (a cleared gradient reads as

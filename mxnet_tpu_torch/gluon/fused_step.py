@@ -17,7 +17,14 @@ the reference's one-program step:
   back to its weight's dtype before ``update_math`` widens it again;
 - a step whose verdict is False leaves every weight and optimizer state
   bitwise as it was.  The verdict stays on the device as
-  ``last_step_finite`` (reading it as a bool syncs).
+  ``last_step_finite`` (reading it as a bool syncs);
+- auxiliary state that the forward updates (BatchNorm running
+  statistics) is collected in an `ops.aux_scope` around the forward and
+  committed after the update under the same verdict, so a skipped step
+  leaves it bitwise too.
+
+Deferred parameter shapes are settled before the first step by one
+forward in predict mode (`Block._ensure_shapes`).
 
 The reference compiles all of it into one XLA program; here it runs
 eagerly (capturing it as a CUDA graph is later work).  Train-mode
@@ -32,7 +39,8 @@ from __future__ import annotations
 import torch
 
 from .. import autograd
-from ..optimizer.optimizer import Optimizer
+from ..ops.aux_scope import aux_update_scope
+from ..optimizer.optimizer import Optimizer, write_back
 
 __all__ = ["FusedTrainStep"]
 
@@ -71,12 +79,13 @@ class FusedTrainStep:
         self._train_idx = None
         self._opt_index = None
 
-    def _setup(self):
+    def _setup(self, args):
         trainer = self._trainer
         opt = trainer._optimizer
         if type(opt).update_math is Optimizer.update_math:
             raise ValueError(f"{type(opt).__name__} has no update_math; "
                              "use the eager record/backward/step path")
+        self._block._ensure_shapes(*args)
         trainer._init_kvstore()
         trainer._init_states()
         params = self._block.collect_params()
@@ -94,12 +103,13 @@ class FusedTrainStep:
 
     def step(self, *args, batch_size=1):
         if self._plist is None:
-            self._setup()
+            self._setup(args)
         trainer = self._trainer
         trainer._optimizer.rescale_grad = trainer._scale / batch_size
         weights = [self._plist[k].data() for k in self._train_idx]
 
-        with autograd.record(train_mode=True, generator=self._generator):
+        with autograd.record(train_mode=True, generator=self._generator), \
+                aux_update_scope() as aux:
             outs = self._block(*args)
             seed = _first_leaf(outs).float().sum()
         grads = torch.autograd.grad(seed, weights, allow_unused=True)
@@ -114,6 +124,8 @@ class FusedTrainStep:
             finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
         trainer._apply(self._opt_index, weights, gs, cast_back=True,
                        keep=finite)
+        for arr, new in aux.updates:
+            write_back(arr, new, (), (), keep=finite)
         self.last_step_finite = finite
         if isinstance(outs, torch.Tensor):
             return outs.detach()

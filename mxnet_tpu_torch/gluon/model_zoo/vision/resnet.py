@@ -1,0 +1,314 @@
+"""ResNet v1/v2 (counterpart of
+`mxnet_tpu/gluon/model_zoo/vision/resnet.py`): 18/34/50/101/152 layers
+in both versions, with the reference's block structure and parameter
+names (``features.0.weight``, ``features.4.0.body.1.gamma``,
+``output.weight``, ...).  Convolutions and BatchNorms take their input
+widths at the first forward.  The port takes channels-first layouts
+only (NCHW, the default).
+"""
+from __future__ import annotations
+
+from ...block import HybridBlock
+from ... import nn
+
+__all__ = [
+    "ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2", "BottleneckV1",
+    "BottleneckV2", "resnet18_v1", "resnet34_v1", "resnet50_v1",
+    "resnet101_v1", "resnet152_v1", "resnet18_v2", "resnet34_v2",
+    "resnet50_v2", "resnet101_v2", "resnet152_v2", "get_resnet",
+]
+
+
+def _conv3x3(channels, stride, in_channels, layout="NCHW"):
+    return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
+                     use_bias=False, in_channels=in_channels, layout=layout)
+
+
+def _bn_axis(layout):
+    return layout.index("C")
+
+
+class BasicBlockV1(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW"):
+        super().__init__()
+        ax = _bn_axis(layout)
+        self.body = nn.HybridSequential()
+        self.body.add(_conv3x3(channels, stride, in_channels, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels, 1, channels, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        if downsample:
+            self.downsample = nn.HybridSequential()
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
+                                          strides=stride, use_bias=False,
+                                          in_channels=in_channels,
+                                          layout=layout))
+            self.downsample.add(nn.BatchNorm(axis=ax))
+        else:
+            self.downsample = None
+        self.relu = nn.Activation("relu")
+
+    def forward(self, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample:
+            residual = self.downsample(residual)
+        return self.relu(residual + x)
+
+
+class BottleneckV1(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW"):
+        super().__init__()
+        ax = _bn_axis(layout)
+        self.body = nn.HybridSequential()
+        self.body.add(nn.Conv2D(channels // 4, kernel_size=1, strides=stride,
+                                use_bias=False, layout=layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels // 4, 1, channels // 4, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(nn.Conv2D(channels, kernel_size=1, strides=1,
+                                use_bias=False, layout=layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        if downsample:
+            self.downsample = nn.HybridSequential()
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
+                                          strides=stride, use_bias=False,
+                                          in_channels=in_channels,
+                                          layout=layout))
+            self.downsample.add(nn.BatchNorm(axis=ax))
+        else:
+            self.downsample = None
+        self.relu = nn.Activation("relu")
+
+    def forward(self, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample:
+            residual = self.downsample(residual)
+        return self.relu(residual + x)
+
+
+class BasicBlockV2(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW"):
+        super().__init__()
+        ax = _bn_axis(layout)
+        self.bn1 = nn.BatchNorm(axis=ax)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout)
+        self.bn2 = nn.BatchNorm(axis=ax)
+        self.conv2 = _conv3x3(channels, 1, channels, layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels, layout=layout)
+        else:
+            self.downsample = None
+        self.relu = nn.Activation("relu")
+
+    def forward(self, x):
+        residual = x
+        x = self.bn1(x)
+        x = self.relu(x)
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = self.relu(x)
+        x = self.conv2(x)
+        return x + residual
+
+
+class BottleneckV2(HybridBlock):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW"):
+        super().__init__()
+        ax = _bn_axis(layout)
+        self.bn1 = nn.BatchNorm(axis=ax)
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        self.bn2 = nn.BatchNorm(axis=ax)
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, layout)
+        self.bn3 = nn.BatchNorm(axis=ax)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels, layout=layout)
+        else:
+            self.downsample = None
+        self.relu = nn.Activation("relu")
+
+    def forward(self, x):
+        residual = x
+        x = self.bn1(x)
+        x = self.relu(x)
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = self.relu(x)
+        x = self.conv2(x)
+        x = self.bn3(x)
+        x = self.relu(x)
+        x = self.conv3(x)
+        return x + residual
+
+
+class ResNetV1(HybridBlock):
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 layout="NCHW"):
+        super().__init__()
+        assert len(layers) == len(channels) - 1
+        ax = _bn_axis(layout)
+        self._layout = layout
+        self.features = nn.HybridSequential()
+        if thumbnail:
+            self.features.add(_conv3x3(channels[0], 1, 0, layout))
+        else:
+            self.features.add(nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                                        layout=layout))
+            self.features.add(nn.BatchNorm(axis=ax))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+        for i, num_layer in enumerate(layers):
+            stride = 1 if i == 0 else 2
+            self.features.add(self._make_layer(
+                block, num_layer, channels[i + 1], stride,
+                in_channels=channels[i], layout=layout))
+        self.features.add(nn.GlobalAvgPool2D(layout=layout))
+        self.output = nn.Dense(classes, in_units=channels[-1])
+
+    def _make_layer(self, block, layers, channels, stride, in_channels=0,
+                    layout="NCHW"):
+        layer = nn.HybridSequential()
+        layer.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, layout=layout))
+        for _ in range(layers - 1):
+            layer.add(block(channels, 1, False, in_channels=channels,
+                            layout=layout))
+        return layer
+
+    def forward(self, x):
+        x = self.features(x)
+        x = self.output(x)
+        return x
+
+
+class ResNetV2(HybridBlock):
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 layout="NCHW"):
+        super().__init__()
+        assert len(layers) == len(channels) - 1
+        ax = _bn_axis(layout)
+        self._layout = layout
+        self.features = nn.HybridSequential()
+        self.features.add(nn.BatchNorm(axis=ax, scale=False, center=False))
+        if thumbnail:
+            self.features.add(_conv3x3(channels[0], 1, 0, layout))
+        else:
+            self.features.add(nn.Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                                        layout=layout))
+            self.features.add(nn.BatchNorm(axis=ax))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+        in_channels = channels[0]
+        for i, num_layer in enumerate(layers):
+            stride = 1 if i == 0 else 2
+            self.features.add(self._make_layer(
+                block, num_layer, channels[i + 1], stride,
+                in_channels=in_channels, layout=layout))
+            in_channels = channels[i + 1]
+        self.features.add(nn.BatchNorm(axis=ax))
+        self.features.add(nn.Activation("relu"))
+        self.features.add(nn.GlobalAvgPool2D(layout=layout))
+        self.features.add(nn.Flatten())
+        self.output = nn.Dense(classes, in_units=channels[-1])
+
+    def _make_layer(self, block, layers, channels, stride, in_channels=0,
+                    layout="NCHW"):
+        layer = nn.HybridSequential()
+        layer.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, layout=layout))
+        for _ in range(layers - 1):
+            layer.add(block(channels, 1, False, in_channels=channels,
+                            layout=layout))
+        return layer
+
+    def forward(self, x):
+        x = self.features(x)
+        x = self.output(x)
+        return x
+
+
+resnet_spec = {
+    18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+    34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
+    50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+    101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
+}
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
+
+
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    assert num_layers in resnet_spec, \
+        f"Invalid resnet depth {num_layers}; options: {sorted(resnet_spec)}"
+    assert 1 <= version <= 2
+    block_type, layers, channels = resnet_spec[num_layers]
+    resnet_class = resnet_net_versions[version - 1]
+    block_class = resnet_block_versions[version - 1][block_type]
+    net = resnet_class(block_class, layers, channels, **kwargs)
+    if pretrained:
+        raise NotImplementedError(
+            "pretrained weights are not shipped; carry weights across with "
+            "utils.convert.load_reference_params")
+    return net
+
+
+def resnet18_v1(**kwargs):
+    return get_resnet(1, 18, **kwargs)
+
+
+def resnet34_v1(**kwargs):
+    return get_resnet(1, 34, **kwargs)
+
+
+def resnet50_v1(**kwargs):
+    return get_resnet(1, 50, **kwargs)
+
+
+def resnet101_v1(**kwargs):
+    return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

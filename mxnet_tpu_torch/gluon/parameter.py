@@ -1,13 +1,18 @@
 """Gluon Parameter (counterpart of `mxnet_tpu/gluon/parameter.py`).
 
-A parameter holds one ``torch.Tensor`` on one device.  Its shape is
-known when it is created (the reference's deferred shape inference is
-not ported: layers take their input widths).  Initial values are drawn
-by an `initializer.Initializer` from an explicit ``torch.Generator``.
+A parameter holds one ``torch.Tensor`` on one device.  Initial values
+are drawn by an `initializer.Initializer` from an explicit
+``torch.Generator``.  A parameter created with ``allow_deferred_init``
+may leave dimensions unknown (0): `initialize` then only records the
+initializer, the device and the generator, and the layer that owns it
+sets the shape at its first forward and calls `finish_deferred_init`,
+which draws the values then.  Layers run in a fixed order, so two
+models initialized from one seed draw identical values.
 
 The tensor is a leaf of torch's autograd that requires grad unless
-``grad_req='null'`` (or its dtype is not floating point); `set_data`
-and `cast` keep it a leaf.  ``grad_req='write'`` (the default) makes
+``grad_req='null'`` (always so for ``differentiable=False``, as the
+BatchNorm running statistics are) or its dtype is not floating point;
+`set_data` and `cast` keep it a leaf.  ``grad_req='write'`` (the default) makes
 each backward replace the stored gradient, as the reference's does:
 a hook on the leaf drops the old gradient just before torch would add
 the new one into it, so a parameter reached along several paths in one
@@ -22,7 +27,7 @@ import torch
 from ..context import resolve_device
 from .. import initializer
 
-__all__ = ["Parameter", "to_torch_dtype"]
+__all__ = ["Parameter", "DeferredInitializationError", "to_torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64,
@@ -41,9 +46,15 @@ def to_torch_dtype(dtype):
     return _DTYPES[name]
 
 
+class DeferredInitializationError(RuntimeError):
+    """A parameter's shape is still unknown (reference
+    `DeferredInitializationError`)."""
+
+
 class Parameter:
     def __init__(self, name="weight", grad_req="write", shape=None,
-                 dtype="float32", lr_mult=1.0, wd_mult=1.0, init=None):
+                 dtype="float32", lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
         self._name = name
         self._shape = (shape,) if isinstance(shape, int) else (
             None if shape is None else tuple(shape))
@@ -51,6 +62,9 @@ class Parameter:
         self.init = initializer.resolve(init)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
+        self.allow_deferred_init = allow_deferred_init
+        self._differentiable = differentiable
+        self._deferred_init = None   # (init, device, default_init, generator)
         self._grad_req = None
         self._data = None
         self.grad_req = grad_req
@@ -68,6 +82,18 @@ class Parameter:
     def shape(self):
         return self._shape
 
+    @shape.setter
+    def shape(self, new_shape):
+        new_shape = tuple(new_shape)
+        old = self._shape
+        if old is not None and (
+                len(old) != len(new_shape) or
+                any(s not in (0, ns) for s, ns in zip(old, new_shape))):
+            raise ValueError(f"Expected shape {self._shape} is incompatible "
+                             f"with given shape {new_shape} for Parameter "
+                             f"{self.name}")
+        self._shape = new_shape
+
     def _shape_known(self):
         return self._shape is not None and all(s > 0 for s in self._shape)
 
@@ -81,7 +107,7 @@ class Parameter:
         if req not in _GRAD_REQS:
             raise ValueError(f"grad_req must be one of {_GRAD_REQS}; got "
                              f"{req!r}")
-        self._grad_req = req
+        self._grad_req = req if self._differentiable else "null"
         if self._data is not None:
             self._bind(self._data)
 
@@ -105,23 +131,48 @@ class Parameter:
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False, generator=None):
         """Allocate and fill the tensor on ``ctx`` (None = the card),
-        drawing from ``generator`` (a CPU ``torch.Generator``)."""
+        drawing from ``generator`` (a CPU ``torch.Generator``); with an
+        unknown shape and ``allow_deferred_init``, record all of that for
+        `finish_deferred_init`."""
         if self._data is not None and not force_reinit:
             return
         device = resolve_device(ctx)
-        if not self._shape_known():
-            raise ValueError(
-                f"Cannot initialize Parameter {self.name} because it has "
-                f"invalid shape {self._shape}; specify in_units/in_channels.")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        if not self._shape_known():
+            if self.allow_deferred_init:
+                self._deferred_init = (init, device, default_init, generator)
+                return
+            raise ValueError(
+                f"Cannot initialize Parameter {self.name} because it has "
+                f"invalid shape {self._shape}; use allow_deferred_init=True "
+                "or specify in_units/in_channels.")
+        self._finish_init(init, device, default_init, generator)
+
+    def _finish_init(self, init, device, default_init, generator):
+        self._deferred_init = None
         data = torch.empty(self._shape, dtype=self.dtype, device=device)
         fill = init or self.init or default_init or initializer.Uniform()
         fill(initializer.InitDesc(self.name), data, generator)
         self._bind(data)
 
+    def finish_deferred_init(self):
+        """Draw the values of a deferred parameter, now that its layer
+        has set the shape."""
+        if self._deferred_init is None:
+            return
+        if not self._shape_known():
+            raise DeferredInitializationError(
+                f"Parameter {self.name} has unknown shape {self._shape}")
+        self._finish_init(*self._deferred_init)
+
     def _check_init(self):
         if self._data is None:
+            if self._deferred_init is not None:
+                raise DeferredInitializationError(
+                    f"Parameter {self.name} has not been initialized yet "
+                    "because initialization was deferred. Actual "
+                    "initialization happens during the first forward pass.")
             raise RuntimeError(
                 f"Parameter {self.name} has not been initialized. You "
                 "should initialize parameters with Block.initialize().")
@@ -131,6 +182,8 @@ class Parameter:
         return self._data
 
     def list_ctx(self):
+        if self._data is None and self._deferred_init is not None:
+            return [self._deferred_init[1]]
         return [self.data().device]
 
     @property
@@ -160,13 +213,20 @@ class Parameter:
     # -- mutation ---------------------------------------------------------
     def set_data(self, data):
         """Replace the values (any array-like of this parameter's shape),
-        keeping its dtype and device."""
+        keeping its dtype and device.  A deferred parameter takes its
+        shape from ``data`` and is allocated on its recorded device,
+        without drawing from its generator."""
         src = torch.as_tensor(data)
+        if self._data is None and self._deferred_init is not None:
+            self.shape = src.shape
+            device = self._deferred_init[1]
+            self._deferred_init = None
+        else:
+            device = self.data().device
         if tuple(src.shape) != self._shape:
             raise ValueError(f"Parameter {self.name}: shape "
                              f"{tuple(src.shape)} != {self._shape}")
-        self._bind(src.to(device=self.data().device,
-                          dtype=self.dtype).clone())
+        self._bind(src.to(device=device, dtype=self.dtype).clone())
 
     def cast(self, dtype):
         self.dtype = to_torch_dtype(dtype)

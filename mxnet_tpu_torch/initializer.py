@@ -9,12 +9,15 @@ across with `utils.convert.load_reference_params` instead.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as onp
 import torch
 
 from .base import registry
 
 __all__ = ["Initializer", "register", "Zero", "One", "Uniform", "Normal",
-           "InitDesc", "resolve"]
+           "Xavier", "InitDesc", "resolve"]
 
 
 class InitDesc(str):
@@ -88,6 +91,40 @@ class Normal(Initializer):
     def _init_weight(self, desc, arr, generator):
         n = torch.randn(arr.shape, generator=generator, dtype=torch.float32)
         self._copy_in(arr, n * self.sigma)
+
+
+@register
+class Xavier(Initializer):
+    """Xavier / Glorot (reference `initializer.py` Xavier): uniform in
+    [-s, s] or gaussian with deviation s, s = sqrt(magnitude / fan), the
+    fan averaged over in and out, or either alone; the kernel's spatial
+    size multiplies both fans."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, desc, arr, generator):
+        shape = tuple(arr.shape)
+        if len(shape) < 2:
+            raise ValueError(f"Xavier initializer needs >= 2D shape, got "
+                             f"{shape} for {desc}")
+        hw_scale = float(onp.prod(shape[2:])) if len(shape) > 2 else 1.0
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
+                  "out": fan_out}[self.factor_type]
+        scale = math.sqrt(self.magnitude / factor)
+        if self.rnd_type == "uniform":
+            u = torch.rand(shape, generator=generator, dtype=torch.float32)
+            self._copy_in(arr, (u * 2.0 - 1.0) * scale)
+        elif self.rnd_type == "gaussian":
+            n = torch.randn(shape, generator=generator, dtype=torch.float32)
+            self._copy_in(arr, n * scale)
+        else:
+            raise ValueError(f"unknown rnd_type {self.rnd_type!r}")
 
 
 def resolve(init):

@@ -1,7 +1,9 @@
 """``mx.npx`` (counterpart of `mxnet_tpu/numpy_extension/__init__.py`):
-the NN primitives Gluon layers call.  Each delegates to `ops/nn.py` or,
-for attention, to the flash kernels' wrapper; train/predict mode and
-the dropout generator come from `ops/invoke.py`.
+the NN primitives Gluon layers call.  Each delegates to `ops/nn.py`,
+`ops/stem.py` or, for attention, to the flash kernels' wrapper;
+train/predict mode and the dropout generator come from `ops/invoke.py`.
+`batch_norm` in train mode hands its new running statistics to
+`ops/aux_scope.apply_aux_update`.
 
 Train-mode randomness takes its seeds from the scope's CPU generator on
 the host: a dropout mask is then drawn on the data's device, and the
@@ -14,13 +16,19 @@ from __future__ import annotations
 import torch
 
 from ..ops import nn as _nn
+from ..ops import stem as _stem
+from ..ops.aux_scope import apply_aux_update
 from ..ops.invoke import current_generator, is_training
 
 __all__ = ["activation", "dropout", "embedding", "fully_connected", "gelu",
            "layer_norm", "leaky_relu", "log_softmax", "pick", "softmax",
-           "flash_attention"]
+           "flash_attention", "convolution", "pooling", "batch_norm",
+           "stem_conv"]
 
 activation = _nn.activation
+convolution = _nn.convolution
+pooling = _nn.pooling
+stem_conv = _stem.stem_conv_auto
 embedding = _nn.embedding
 fully_connected = _nn.fully_connected
 layer_norm = _nn.layer_norm
@@ -65,3 +73,24 @@ def flash_attention(q, k, v, **kwargs):
             0, 2 ** 32, (2,),
             generator=_generator("attention dropout")).tolist()
     return _fa(q, k, v, **kwargs)
+
+
+def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               output_mean_var=False, axis=1):
+    """Batch normalization over ``axis``.  Train mode (``is_training()``,
+    not ``nn.Module.training``) without ``use_global_stats`` normalizes
+    by the batch's statistics and updates the running statistics, ``new
+    = momentum * old + (1 - momentum) * batch`` with the biased
+    variance; otherwise it normalizes by the running statistics.
+    ``fix_gamma`` uses a gamma of ones (its gradient is zero)."""
+    if fix_gamma:
+        gamma = gamma * 0 + 1
+    if is_training() and not use_global_stats:
+        out, new_mean, new_var = _nn.batch_norm_train(
+            x, gamma, beta, momentum, eps, axis, running_mean, running_var)
+        apply_aux_update(running_mean, new_mean)
+        apply_aux_update(running_var, new_var)
+        return out
+    return _nn.batch_norm_inference(x, gamma, beta, running_mean,
+                                    running_var, eps, axis)

@@ -20,7 +20,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "find_nvcc", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "Kernel", "find_nvcc", "build",
+           "load", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -30,6 +31,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _loaded = {}          # source name -> ctypes.CDLL
 BUILD_LOG = {}        # source name -> {"seconds": float, "ptxas": str}
+
+
+class Kernel:
+    """A CUDA kernel's launch count (a plain integer, read and reset by
+    whoever checks that a path went through the kernel)."""
+
+    def __init__(self, name):
+        self.name = name
+        self.launches = 0
+
+
+def stream_of(x):
+    """The current CUDA stream of ``x``'s device, as ``ctypes`` takes it."""
+    import torch
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def find_nvcc():

@@ -45,6 +45,8 @@ import ctypes
 
 import torch
 
+from ._build import Kernel, stream_of
+
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_backward_reference",
            "attn_dropout_mask", "FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV"]
@@ -57,18 +59,9 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class _Kernel:
-    """A CUDA kernel's launch count (a plain integer, read and reset by
-    whoever checks that a path went through the kernel)."""
-
-    def __init__(self, name):
-        self.name = name
-        self.launches = 0
-
-
-FLASH_FWD = _Kernel("flash_attention_fwd")
-FLASH_BWD_DQ = _Kernel("flash_attention_bwd_dq")
-FLASH_BWD_DKV = _Kernel("flash_attention_bwd_dkv")
+FLASH_FWD = Kernel("flash_attention_fwd")
+FLASH_BWD_DQ = Kernel("flash_attention_bwd_dq")
+FLASH_BWD_DKV = Kernel("flash_attention_bwd_dkv")
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +351,7 @@ def _launch_fwd(q, k, v, args):
     lib = _build.load("flash_attention_fwd", _declare_fwd)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = stream_of(q)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *args.tail(stream))
@@ -387,7 +380,7 @@ def _launch_dq(q, k, v, dout, lse, delta, args):
     lib = _build.load("flash_attention_bwd", _declare_bwd)
     head = _bwd_head(q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = stream_of(q)
     err = lib.flash_attention_bwd_dq(*head, dq.data_ptr(), *args.tail(stream))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
@@ -404,7 +397,7 @@ def _launch_dkv(q, k, v, dout, lse, delta, args):
     lib = _build.load("flash_attention_bwd", _declare_bwd)
     head = _bwd_head(q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = stream_of(q)
     err = lib.flash_attention_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(),
                                       *args.tail(stream))
     if err != 0:

@@ -1,14 +1,32 @@
 """NN operators (counterpart of the subset of `mxnet_tpu/ops/nn.py` that
-the BERT serving and pretraining paths call).  Plain functions on
-``torch.Tensor``; the large products go to ``torch.matmul`` /
-``F.linear``, as the reference left them to XLA."""
+the BERT and ResNet paths call).  Plain functions on ``torch.Tensor``;
+the large products and the convolutions go to ``torch.matmul`` /
+``F.linear`` / ``F.conv2d``, as the reference left them to XLA.
+
+BatchNorm in train mode is the reference's own formulation, spelled in
+torch ops (`batch_norm_train`), with its backward's per-channel
+reduction as the hand-written CUDA kernel B1 (`bn_bwd_reduce`, source
+`csrc/bn_bwd_reduce.cu`, replacing the TPU kernel `_bn_reduce_kernel`).
+A tensor on the card launches the kernel or the wrapper raises; a
+tensor on the CPU takes its plain version, `bn_bwd_reduce_reference`.
+The wrapper counts its launches in ``BN_BWD_REDUCE.launches``.
+"""
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
+from ._build import Kernel, stream_of
+
 __all__ = ["layer_norm", "fully_connected", "softmax", "log_softmax",
-           "activation", "leaky_relu", "dropout", "embedding", "pick"]
+           "activation", "leaky_relu", "dropout", "embedding", "pick",
+           "convolution", "pooling", "batch_norm_train",
+           "batch_norm_inference", "bn_bwd_reduce", "bn_bwd_reduce_reference",
+           "BN_BWD_REDUCE"]
+
+BN_BWD_REDUCE = Kernel("bn_bwd_reduce")
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
@@ -81,3 +99,269 @@ def pick(data, index, axis=-1):
     ax = axis if axis >= 0 else data.ndim + axis
     idx = index.long().clamp(0, data.shape[ax] - 1)
     return torch.gather(data, ax, idx.unsqueeze(ax)).squeeze(ax)
+
+
+# ---------------------------------------------------------------------------
+# convolution and pooling (channels-first layouts: NCW, NCHW, NCDHW)
+# ---------------------------------------------------------------------------
+def _tuplize(v, n):
+    if v is None:
+        return (1,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(v)
+    return t * n if len(t) == 1 else t
+
+
+def _check_layout(layout, ndim):
+    if layout not in ("NCW", "NCHW", "NCDHW") or len(layout) != ndim:
+        raise NotImplementedError(
+            f"layout {layout!r} for a {ndim}-d input: the port takes the "
+            "channels-first layouts NCW/NCHW/NCDHW (channels-last is "
+            "ROADMAP queue A)")
+
+
+def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
+                pad=None, num_filter=None, num_group=1, layout="NCHW"):
+    """N-d convolution, weight (num_filter, C // group, *kernel), the
+    result in the data's dtype plus the bias."""
+    _check_layout(layout, data.ndim)
+    nsp = data.ndim - 2
+    conv = (F.conv1d, F.conv2d, F.conv3d)[nsp - 1]
+    out = conv(data, weight, None, _tuplize(stride, nsp),
+               _tuplize(pad if pad is not None else 0, nsp),
+               _tuplize(dilate, nsp), num_group)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
+    return out
+
+
+_POOLS = {"max": (F.max_pool1d, F.max_pool2d, F.max_pool3d),
+          "avg": (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)}
+
+
+def pooling(data, kernel=None, pool_type="max", stride=None, pad=None,
+            global_pool=False, count_include_pad=True, layout="NCHW",
+            pooling_convention="valid"):
+    """Max, average or sum pooling.  ``pooling_convention='full'`` keeps
+    the last partial window (ceil mode) by widening the high-side pad, as
+    the reference does; an average's ``count_include_pad`` counts the
+    user's padding but never that widening."""
+    _check_layout(layout, data.ndim)
+    nsp = data.ndim - 2
+    sp = tuple(range(2, data.ndim))
+    if global_pool:
+        if pool_type == "max":
+            return data.amax(dim=sp, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=sp, keepdim=True)
+        return data.mean(dim=sp, keepdim=True)
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError(f"unknown pool_type {pool_type!r}")
+    kernel = _tuplize(kernel, nsp)
+    stride = _tuplize(stride if stride is not None else kernel, nsp)
+    pad = _tuplize(pad if pad is not None else 0, nsp)
+    his = []
+    for size, k, s, p in zip(data.shape[2:], kernel, stride, pad):
+        hi = p
+        if pooling_convention == "full":
+            out_ceil = -(-(size + 2 * p - k) // s) + 1
+            hi = max(p, (out_ceil - 1) * s + k - size - p)
+        his.append(hi)
+    window = 1
+    for k in kernel:
+        window *= k
+    simple = (list(his) == list(pad) and
+              all(2 * p <= k for p, k in zip(pad, kernel)))
+    if simple and pool_type == "max":
+        return _POOLS["max"][nsp - 1](data, kernel, stride, pad)
+    if simple and pool_type == "avg":
+        return _POOLS["avg"][nsp - 1](data, kernel, stride, pad,
+                                      count_include_pad=count_include_pad)
+    # the general case: explicit (lo, hi) padding, then unpadded windows
+    widths = [w for lo, hi in zip(reversed(pad), reversed(his))
+              for w in (lo, hi)]
+    if pool_type == "max":
+        fill = float("-inf") if data.is_floating_point() else \
+            torch.iinfo(data.dtype).min
+        return _POOLS["max"][nsp - 1](F.pad(data, widths, value=fill),
+                                      kernel, stride)
+    summed = _POOLS["avg"][nsp - 1](F.pad(data, widths), kernel, stride) \
+        * window
+    if pool_type == "sum":
+        return summed
+    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                      device=data.device)
+    if count_include_pad:
+        base = [w for p in reversed(pad) for w in (p, p)]
+        ones = F.pad(ones, base, value=1.0)
+        extra = [w for p, hi in zip(reversed(pad), reversed(his))
+                 for w in (0, hi - p)]
+        ones = F.pad(ones, extra)
+    else:
+        ones = F.pad(ones, widths)
+    counts = _POOLS["avg"][nsp - 1](ones, kernel, stride) * window
+    return summed / counts
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm (reference `_bn_train_fwd` / `_bn_train_bwd`)
+# ---------------------------------------------------------------------------
+def _bn_view(data, axis):
+    """(N0, C, N1): the data as a channel-middle 3-d view (rows before
+    the channel axis, the channel, elements after it)."""
+    c = data.shape[axis]
+    n0 = 1
+    for s in data.shape[:axis]:
+        n0 *= s
+    return n0, c, data.numel() // (n0 * c)
+
+
+def _bn_shape(data, axis):
+    shape = [1] * data.ndim
+    shape[axis] = data.shape[axis]
+    return shape
+
+
+def bn_bwd_reduce_reference(dy, xhat):
+    """Plain version of B1: per-channel ``(sum(dy), sum(dy * xhat))`` of
+    two (N0, C, N1) tensors, in their dtype (f32 on the path)."""
+    return dy.sum(dim=(0, 2)), (dy * xhat).sum(dim=(0, 2))
+
+
+_BN_THREADS = 256           # threads per block of the partial kernel
+_BN_TARGET_BLOCKS = 4 * 132  # about four blocks per SM of an H100
+
+
+def bn_bwd_reduce_plan(n0, c, n1):
+    """(splits, chunk): the B1 kernel cuts each channel's M = N0 * N1
+    elements into ``splits`` ranges of ``chunk`` (the last shorter), one
+    block each, so that the card holds some four blocks per SM and every
+    thread sums at least 8 elements."""
+    m = n0 * n1
+    splits = max(1, min(-(-_BN_TARGET_BLOCKS // c),
+                        -(-m // (8 * _BN_THREADS))))
+    chunk = -(-m // splits)
+    return -(-m // chunk), chunk
+
+
+def _declare_bn(lib):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bn_bwd_reduce.argtypes = [p, p, p, p, p, i, i, ll, i, ll, p]
+    lib.bn_bwd_reduce.restype = ctypes.c_int
+
+
+def bn_bwd_reduce(dy, xhat):
+    """B1: per-channel ``(sum(dy), sum(dy * xhat))`` in f32 of two
+    contiguous (N0, C, N1) f32 tensors.  On the card the CUDA kernel
+    (fixed summation order: two launches on the same inputs agree
+    bitwise); on the CPU the plain version."""
+    if dy.shape != xhat.shape or dy.ndim != 3 or dy.device != xhat.device:
+        raise ValueError(f"bn_bwd_reduce takes two (N0, C, N1) tensors on one "
+                         f"device; got {tuple(dy.shape)} on {dy.device} and "
+                         f"{tuple(xhat.shape)} on {xhat.device}")
+    if dy.device.type == "cpu":
+        return bn_bwd_reduce_reference(dy, xhat)
+    if dy.device.type != "cuda":
+        raise ValueError(f"bn_bwd_reduce: unsupported device {dy.device}")
+    if dy.dtype != torch.float32 or xhat.dtype != torch.float32:
+        raise TypeError(f"the B1 kernel takes float32; got {dy.dtype}, "
+                        f"{xhat.dtype}")
+    if not (dy.is_contiguous() and xhat.is_contiguous()):
+        raise ValueError("the B1 kernel takes contiguous (N0, C, N1) tensors")
+    from . import _build
+
+    n0, c, n1 = dy.shape
+    if c > 65535:
+        raise ValueError(f"{c} channels exceed the grid's 65535")
+    splits, chunk = bn_bwd_reduce_plan(n0, c, n1)
+    lib = _build.load("bn_bwd_reduce", _declare_bn)
+    part = torch.empty((2, c, splits), dtype=torch.float32, device=dy.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=dy.device)
+    err = lib.bn_bwd_reduce(dy.data_ptr(), xhat.data_ptr(), part.data_ptr(),
+                            out[0].data_ptr(), out[1].data_ptr(), n0, c, n1,
+                            splits, chunk, stream_of(dy))
+    if err != 0:
+        raise RuntimeError(f"bn_bwd_reduce launch failed: CUDA error {err}")
+    BN_BWD_REDUCE.launches += 1
+    return out[0], out[1]
+
+
+def _promoted(dtype):
+    """The statistics' dtype: f32 for bf16/f16/f32 data, f64 for f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Single-pass statistics (sum and sum of squares in f32, var =
+    max(s2/n - mean^2, 0)), the scale and shift folded into one
+    multiply-add, and the reference's hand-written backward: x-hat
+    rebuilt in f32, one joint reduction (B1), one elementwise pass.
+    dgamma and dbeta come back in gamma's dtype, dx in the data's.  The
+    new running statistics are outputs without a gradient, computed in
+    the running statistics' own dtype."""
+
+    @staticmethod
+    def forward(ctx, data, gamma, beta, moving_mean, moving_var, momentum,
+                eps, axis):
+        red = tuple(i for i in range(data.ndim) if i != axis)
+        n = data.numel() // data.shape[axis]
+        shape = _bn_shape(data, axis)
+        cdt = _promoted(data.dtype)
+        xf = data.to(cdt)
+        s1 = xf.sum(dim=red)
+        s2 = (xf * xf).sum(dim=red)
+        mean = s1 / n
+        var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        a = gamma.to(cdt) * inv
+        b = beta.to(cdt) - mean * a
+        out = torch.addcmul(b.reshape(shape), xf, a.reshape(shape)).to(
+            data.dtype)
+        new_mean = moving_mean * momentum + \
+            mean.to(moving_mean.dtype) * (1 - momentum)
+        new_var = moving_var * momentum + \
+            var.to(moving_var.dtype) * (1 - momentum)
+        ctx.save_for_backward(data, gamma, mean, inv)
+        ctx.axis = axis
+        ctx.mark_non_differentiable(new_mean, new_var)
+        return out, new_mean, new_var
+
+    @staticmethod
+    def backward(ctx, dy, _d_mean, _d_var):
+        data, gamma, mean, inv = ctx.saved_tensors
+        axis = ctx.axis
+        n0, c, n1 = _bn_view(data, axis)
+        n = n0 * n1
+        shape = _bn_shape(data, axis)
+        cdt = _promoted(data.dtype)
+        dyf = dy.to(cdt).contiguous()
+        xhat = (data.to(cdt) - mean.reshape(shape)) * inv.reshape(shape)
+        xhat = xhat.contiguous()
+        if cdt == torch.float32:
+            sum_dy, sum_dy_xhat = bn_bwd_reduce(dyf.view(n0, c, n1),
+                                                xhat.view(n0, c, n1))
+        else:
+            sum_dy, sum_dy_xhat = bn_bwd_reduce_reference(
+                dyf.view(n0, c, n1), xhat.view(n0, c, n1))
+        a = (gamma.to(cdt) * inv).reshape(shape)
+        dx = a * torch.addcmul(dyf - (sum_dy / n).reshape(shape), xhat,
+                               (sum_dy_xhat / -n).reshape(shape))
+        return (dx.to(data.dtype), sum_dy_xhat.to(gamma.dtype),
+                sum_dy.to(gamma.dtype), None, None, None, None, None)
+
+
+def batch_norm_train(data, gamma, beta, momentum, eps, axis, moving_mean,
+                     moving_var):
+    """Returns ``(out, new_moving_mean, new_moving_var)``; gradients
+    reach data, gamma and beta (the running statistics get none)."""
+    return _BatchNormTrain.apply(data, gamma, beta, moving_mean, moving_var,
+                                 momentum, eps, axis % data.ndim)
+
+
+def batch_norm_inference(data, gamma, beta, moving_mean, moving_var, eps,
+                         axis):
+    shape = _bn_shape(data, axis % data.ndim)
+    inv = torch.rsqrt(moving_var.float() + eps).to(data.dtype)
+    return (data - moving_mean.reshape(shape)) * inv.reshape(shape) * \
+        gamma.reshape(shape) + beta.reshape(shape)

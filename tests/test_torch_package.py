@@ -43,7 +43,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
             "mxnet_tpu_torch.models, mxnet_tpu_torch.ops.flash_attention, "
             "mxnet_tpu_torch.utils.convert, mxnet_tpu_torch.optimizer, "
-            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.fused_step; "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.fused_step, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.ops.stem, mxnet_tpu_torch.gluon.loss, "
+            "mxnet_tpu_torch.optimizer.sgd; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -71,3 +74,18 @@ def test_entry_points_need_the_card_unless_given_the_cpu():
         BertModel(**cfg).initialize()
     net = BertModel(**cfg).initialize(ctx=mx.cpu())
     assert net.collect_params()["pooler.weight"].data().device.type == "cpu"
+
+
+def test_resnet_needs_the_card_unless_given_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    with pytest.raises(mx.MXNetError, match="CUDA is not available"):
+        vision.resnet50_v1().initialize()
+    net = vision.resnet50_v1()
+    net.initialize(ctx=mx.cpu())
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 32, 32))
+    assert net.collect_params()["output.weight"].data().device.type == "cpu"
