@@ -86,20 +86,47 @@ the package is missing.  Phases, each fatal on failure:
    (the loss spikes at lr 0.1 over steps 4-8, so ten would leave the
    last five close to the first): falling losses, 1 B2 and 53 B1
    launches per step.
+9. **B6 vs plain.**  The user kernels of ``USER_KERNELS_SRC`` (user
+   code, as upstream's ``custom_softmax_rtc.py`` writes it) compiled
+   once by NVRTC through ``rtc.CudaModule`` (timed): ``axpy``, the
+   template ``scale<float>`` (found by its exported name) and
+   ``row_reverse`` (80 KB of dynamic shared memory) held bitwise;
+   ``softmax_fwd`` within `_softmax_tol` of its plain version and
+   ``softmax_bwd`` bitwise, at the head's (128, 1000), BERT-base's MLM
+   logits (640, 30522) and an odd (37, 1001), timed beside the bound,
+   the plain version and ``torch.softmax``; the host's time per
+   ``CudaKernel.launch`` against torch's own launch of the same work.
+10. **ResNet-50 with the custom head**, as in 7 but trained in the
+   eager loop (``record``, the net, its logits in f32 through
+   ``mx.nd.Custom(logits, label, op_type="softmax_rtc")``,
+   ``autograd.backward``, ``Trainer.step``): 3 warm-up and 20 timed
+   steps.  Every loss (-log p[label], taken from the logits, since the
+   head's f32 p[label] underflows to 0 for some samples while the loss
+   spikes) finite, the last five below the first, 2 B6 launches
+   (``softmax_fwd``, ``softmax_bwd``) and 53 B1 launches per step;
+   the head's logits gradient within 1e-6 of autograd through
+   SoftmaxCrossEntropyLoss;
+   ``save_parameters`` + ``save_states``, loaded into a fresh net and
+   trainer, whose next step must equal the running net's bitwise (cuDNN
+   pinned deterministic); one step traced.
 
 Every measurement is printed on a line of its own (``kernel``,
-``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``serve:``, ``train:``,
-``resnet:``, ``resnet_s2d:``, ``profile:``).  The last three lines are
-a ``{"kernels": [...]}`` object (B3 at the serving path's main case,
+``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``kernel_rtc``,
+``serve:``, ``train:``, ``resnet:``, ``resnet_s2d:``, ``rtc:``,
+``resnet_custom:``, ``profile:``).  The last three lines are a
+``{"kernels": [...]}`` object (B3 at the serving path's main case,
 bf16 with a key-padding mask, with its launches over the served
 traffic; B4 and B5 at the BERT training path's main case, with their
 launches over its 30 timed steps; B1 at the stem BatchNorm's shape,
 with its launches over the 20 timed ResNet steps; B2 at the bf16 stem,
-with its launches over the 15 timed space-to-depth steps), the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+with its launches over the 15 timed space-to-depth steps; B6 as
+``softmax_fwd`` and ``softmax_bwd`` at the head's shape, with their
+launches over the 20 timed custom-head steps), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -191,6 +218,197 @@ RESNET_BATCH, RESNET_IMAGE = 128, 224
 RESNET_WARMUP, RESNET_STEPS = 3, 20
 S2D_WARMUP, S2D_STEPS = 2, 15
 BN_LAYERS = 53
+# ResNet-50 with the softmax_rtc head, trained in the eager loop; the
+# checkpoint is taken after the warm-up and timed steps.  As phase 7's,
+# its loss spikes at lr 0.1 until about step 10, so the last five of 13
+# steps sit at or above the first: 20 timed steps, as phase 7 takes
+CUSTOM_WARMUP, CUSTOM_STEPS = 3, 20
+# B6's softmax at the head's (batch, classes), at BERT-base's MLM
+# logits (32 sequences x 20 masked positions, vocab 30522), and odd
+SOFTMAX_SHAPES = [(128, 1000), (640, 30522), (37, 1001)]
+# the head's gradient against autograd through SoftmaxCrossEntropyLoss:
+# both are softmax - onehot in f32, rounded at other points
+HEAD_GRAD_TOL = 1e-6
+
+
+# ---------------------------------------------------------------------------
+# user kernels, launched through mxnet_tpu_torch.rtc (B6)
+# ---------------------------------------------------------------------------
+# User code, not package code: the upstream MXNet example
+# `example/numpy-ops/custom_softmax_rtc.py` writes its softmax loss head
+# this way.  ``req`` is upstream's request code: 0 null, 1 write, 2 add.
+SOFTMAX_THREADS = 256
+USER_KERNELS_SRC = r"""
+#include <cuda_bf16.h>
+
+#define THREADS 256
+
+// y = a * x + y, each product and sum rounded on its own (no fused
+// multiply-add), so the plain torch version matches bitwise
+extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = __fadd_rn(__fmul_rn(a, x[i]), y[i]);
+}
+
+// row softmax over the last axis: one block of THREADS per row, the
+// row's max and sum of exponentials each reduced by a shared-memory tree
+extern "C" __global__ void softmax_fwd(const float *x, float *y, int n_cols,
+                                       int req) {
+  __shared__ float red[THREADS];
+  const float *row = x + (size_t)blockIdx.x * n_cols;
+  float *out = y + (size_t)blockIdx.x * n_cols;
+  const int t = threadIdx.x;
+  float m = __int_as_float(0xff800000);            // -inf
+  for (int j = t; j < n_cols; j += THREADS) m = fmaxf(m, row[j]);
+  red[t] = m;
+  __syncthreads();
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] = fmaxf(red[t], red[t + s]);
+    __syncthreads();
+  }
+  m = red[0];
+  __syncthreads();
+  float sum = 0.f;
+  for (int j = t; j < n_cols; j += THREADS) sum += expf(row[j] - m);
+  red[t] = sum;
+  __syncthreads();
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (t < s) red[t] += red[t + s];
+    __syncthreads();
+  }
+  sum = red[0];
+  for (int j = t; j < n_cols; j += THREADS) {
+    float v = expf(row[j] - m) / sum;
+    if (req == 1) out[j] = v;
+    else if (req == 2) out[j] += v;
+  }
+}
+
+// SoftmaxOutput's gradient dx = y - onehot(label); a grid of
+// (column blocks, rows)
+extern "C" __global__ void softmax_bwd(const int *label, const float *y,
+                                       float *dx, int n_cols, int req) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_cols) return;
+  const size_t i = (size_t)blockIdx.y * n_cols + j;
+  float g = y[i] - (j == label[blockIdx.y] ? 1.f : 0.f);
+  if (req == 1) dx[i] = g;
+  else if (req == 2) dx[i] += g;
+}
+
+// a C++ template, found through its exported name "scale<float>"
+template <typename T>
+__global__ void scale(const T *x, T *y, T a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * a;
+}
+
+// reverses each row through dynamic shared memory (one row per block;
+// rows longer than 12288 floats need more than the default 48 KB)
+extern "C" __global__ void row_reverse(const float *x, float *y,
+                                       int n_cols) {
+  extern __shared__ float buf[];
+  const float *row = x + (size_t)blockIdx.x * n_cols;
+  float *out = y + (size_t)blockIdx.x * n_cols;
+  for (int j = threadIdx.x; j < n_cols; j += blockDim.x) buf[j] = row[j];
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_cols; j += blockDim.x)
+    out[j] = buf[n_cols - 1 - j];
+}
+"""
+USER_KERNELS = {
+    "axpy": "const float *x, float *y, float a, int n",
+    "softmax_fwd": "const float *x, float *y, int n_cols, int req",
+    "softmax_bwd": "const int *label, const float *y, float *dx, "
+                   "int n_cols, int req",
+    "scale<float>": "const float *x, float *y, float a, int n",
+    "row_reverse": "const float *x, float *y, int n_cols",
+}
+REQ_CODES = {"null": 0, "write": 1, "add": 2}
+
+
+def axpy_plain(x, y, a):
+    """``a * x + y`` in torch, each step rounded (as the kernel)."""
+    return a * x + y
+
+
+def softmax_plain(x):
+    """Row softmax over the last axis, spelled in torch ops."""
+    e = (x - x.amax(dim=-1, keepdim=True)).exp()
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def softmax_bwd_plain(label, y):
+    """``y - onehot(label)``: the gradient of cross entropy through a
+    softmax, in y's dtype."""
+    import torch
+    onehot = torch.zeros_like(y)
+    onehot.scatter_(1, label.long()[:, None], 1.0)
+    return y - onehot
+
+
+@functools.cache
+def user_kernels():
+    """The user kernels, compiled by NVRTC once per process
+    (``compile_ms`` is the compile's host time)."""
+    from mxnet_tpu_torch import rtc
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(USER_KERNELS_SRC, exports=["scale<float>"])
+    out = {"compile_ms": (time.perf_counter() - t0) * 1e3}
+    out.update({name: mod.get_kernel(name, sig)
+                for name, sig in USER_KERNELS.items()})
+    return out
+
+
+def register_softmax_rtc():
+    """Register the ``softmax_rtc`` CustomOp (arguments ``data``,
+    ``label``; ``need_top_grad=False``, as upstream's
+    `custom_softmax_rtc.py`): its forward and backward launch
+    ``softmax_fwd`` and ``softmax_bwd`` on a CUDA tensor and the plain
+    versions on a CPU tensor.  Returns the prop class."""
+    from mxnet_tpu_torch import operator
+
+    class SoftmaxRTC(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x, y = in_data[0], out_data[0]
+            if not x.is_cuda:
+                self.assign(y, req[0], softmax_plain(x))
+                return
+            user_kernels()["softmax_fwd"].launch(
+                (x, y, x.shape[1], REQ_CODES[req[0]]), x.device,
+                (x.shape[0],), (SOFTMAX_THREADS,))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            label, y, dx = in_data[1], out_data[0], in_grad[0]
+            if not y.is_cuda:
+                self.assign(dx, req[0], softmax_bwd_plain(label, y))
+                return
+            rows, cols = y.shape
+            user_kernels()["softmax_bwd"].launch(
+                (label, y, dx, cols, REQ_CODES[req[0]]), y.device,
+                (-(-cols // SOFTMAX_THREADS), rows), (SOFTMAX_THREADS,))
+
+    @operator.register("softmax_rtc")
+    class SoftmaxRTCProp(operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def infer_type(self, in_type):
+            return in_type, [in_type[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return SoftmaxRTC()
+
+    return SoftmaxRTCProp
 
 
 def log(*args):
@@ -1216,15 +1434,15 @@ def net_with_loss(net):
     return NetWithLoss(net)
 
 
-def resnet50(dev):
-    """``vision.resnet50_v1()``, Xavier from seed 0, cast to bf16."""
+def resnet50(dev, seed=0):
+    """``vision.resnet50_v1()``, Xavier from ``seed``, cast to bf16."""
     import torch
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo import vision
 
     net = vision.resnet50_v1()
     net.initialize(init=mx.init.Xavier(), ctx=dev,
-                   generator=torch.Generator().manual_seed(0))
+                   generator=torch.Generator().manual_seed(seed))
     net.cast("bfloat16")
     return net
 
@@ -1426,6 +1644,385 @@ def phase_resnet_s2d(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: B6 (user kernels through rtc.CudaModule) vs plain
+# ---------------------------------------------------------------------------
+def _softmax_tol(cols):
+    """softmax_fwd's allowance as a multiple of |plain|: f32 sums of
+    positive terms with depth d err by at most d * 2^-24 of the sum; the
+    kernel's depth is ceil(cols / 256) sequential adds per thread and 8
+    tree levels, the plain sum's taken to be no deeper, so the two sums
+    may differ by twice that; each side's exp and division add at most 2
+    and 1 ulps."""
+    return (2 * (-(-cols // SOFTMAX_THREADS) + 8) + 6) * EPS32
+
+
+def _host_us(fn, n=200):
+    """Host microseconds per call of ``fn``: the enqueue cost, over
+    fewer calls than the launch queue holds, so that the host never
+    waits for the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / n * 1e6
+
+
+def phase_rtc(dev):
+    """The user module compiled once by NVRTC (timed); ``axpy``,
+    ``scale<float>`` (a template found by its exported name) and
+    ``row_reverse`` (80 KB of dynamic shared memory) held bitwise;
+    ``softmax_fwd`` against `softmax_plain` within `_softmax_tol` and
+    ``softmax_bwd`` bitwise against `softmax_bwd_plain` at
+    `SOFTMAX_SHAPES`, each timed beside its bound, its plain version and
+    its library call (``torch.softmax``; for the backward
+    ``torch.scatter_add`` of -1 at the labels, held bitwise against the
+    plain version); and the host's time per
+    ``CudaKernel.launch`` against torch's launch of the same work
+    (``add_`` for ``axpy``, ``torch.softmax`` for ``softmax_fwd``)."""
+    import torch
+
+    kernels = user_kernels()
+    gen = torch.Generator(device=dev).manual_seed(51)
+    checks = {}
+    n = 128 * 1000
+    x = torch.randn(n, generator=gen, device=dev)
+    y = torch.randn(n, generator=gen, device=dev)
+    want = axpy_plain(x, y, 2.5)
+    kernels["axpy"].launch((x, y, 2.5, n), dev, (-(-n // 256),), (256,))
+    checks["axpy_bitwise"] = bool(torch.equal(y, want))
+    out = torch.empty_like(x)
+    kernels["scale<float>"].launch((x, out, -0.75, n), dev, (-(-n // 256),),
+                                   (256,))
+    checks["scale<float>_bitwise"] = bool(torch.equal(out, x * -0.75))
+    wide = torch.randn(4, 20000, generator=gen, device=dev)
+    rev = torch.empty_like(wide)
+    smem = wide.shape[1] * 4
+    kernels["row_reverse"].launch((wide, rev, wide.shape[1]), dev, (4,),
+                                  (1024,), shared_mem=smem)
+    checks[f"row_reverse_{smem}_bytes_smem_bitwise"] = bool(
+        torch.equal(rev, wide.flip(1)))
+    torch.cuda.synchronize()
+    host_us = _host_us(lambda: kernels["axpy"].launch(
+        (x, y, 2.5, n), dev, (-(-n // 256),), (256,)))
+    torch_us = _host_us(lambda: y.add_(x, alpha=2.5))
+    del x, y, want, out, wide, rev
+
+    fwd, bwd = kernels["softmax_fwd"], kernels["softmax_bwd"]
+    rows = []
+    for r, c in SOFTMAX_SHAPES:
+        x = torch.randn(r, c, generator=gen, device=dev) * 4
+        label = torch.randint(0, c, (r,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        prob = torch.empty_like(x)
+        dx = torch.empty_like(x)
+
+        def run_fwd():
+            fwd.launch((x, prob, c, 1), dev, (r,), (SOFTMAX_THREADS,))
+
+        def run_bwd():
+            bwd.launch((label, prob, dx, c, 1), dev,
+                       (-(-c // SOFTMAX_THREADS), r), (SOFTMAX_THREADS,))
+
+        run_fwd()
+        run_bwd()
+        torch.cuda.synchronize()
+        ref = softmax_plain(x)
+        tol = _softmax_tol(c)
+        diff = (prob - ref).abs()
+        err = diff.max().item()
+        ratio = (diff / (tol * ref.abs() + 1e-30)).max().item()
+        bwd_want = softmax_bwd_plain(label, prob)
+        bwd_diff = (dx - bwd_want).abs()
+        bwd_equal = not bool(bwd_diff.any())
+        # the library yardstick for softmax_bwd: one scatter_add of -1 at
+        # each row's label, the same function bitwise (y + -1 is y - 1)
+        idx = label.long()[:, None]
+        neg_ones = torch.full((r, 1), -1.0, device=dev)
+        lib_equal = bool(torch.equal(
+            torch.scatter_add(prob, 1, idx, neg_ones), bwd_want))
+        ok = ratio <= 1.0 and bwd_equal and lib_equal and \
+            bool(torch.isfinite(prob).all())
+        fwd_bound = _bound_ms("float32", 2 * x.numel() * 4, 5 * x.numel())
+        bwd_bound = _bound_ms("float32", 2 * x.numel() * 4 + r * 4,
+                              x.numel())
+        row = {"shape": [r, c], "fwd_max_abs_err": err,
+               "err_over_tol": ratio, "rtol": tol,
+               "bwd_max_abs_err": bwd_diff.max().item(),
+               "bwd_bitwise": bwd_equal,
+               "fwd_ms": cuda_ms(run_fwd),
+               "fwd_plain_ms": cuda_ms(lambda: softmax_plain(x)),
+               "fwd_library_ms": cuda_ms(lambda: torch.softmax(x, -1)),
+               "fwd_bound_ms": fwd_bound[0], "fwd_bound_by": fwd_bound[1],
+               "bwd_ms": cuda_ms(run_bwd),
+               "bwd_plain_ms": cuda_ms(lambda: softmax_bwd_plain(label,
+                                                                 prob)),
+               "bwd_library_ms": cuda_ms(lambda: torch.scatter_add(
+                   prob, 1, idx, neg_ones)),
+               "bwd_library_bitwise": lib_equal,
+               "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
+               "fwd_host_us": _host_us(run_fwd),
+               "torch_softmax_host_us": _host_us(
+                   lambda: torch.softmax(x, -1)),
+               "ok": ok}
+        rows.append(row)
+        log(f"kernel_rtc softmax {(r, c)} fwd err={err:.3e} ({ratio:.3f} "
+            f"of tol {tol:.2e}) fwd_ms={row['fwd_ms']:.4f} plain_ms="
+            f"{row['fwd_plain_ms']:.4f} torch.softmax_ms="
+            f"{row['fwd_library_ms']:.4f} bound_ms={fwd_bound[0]:.4f}; "
+            f"bwd bitwise={bwd_equal} bwd_ms={row['bwd_ms']:.4f} plain_ms="
+            f"{row['bwd_plain_ms']:.4f} scatter_add_ms="
+            f"{row['bwd_library_ms']:.4f} (bitwise={lib_equal}) "
+            f"bound_ms={bwd_bound[0]:.4f}; host "
+            f"us per launch {row['fwd_host_us']:.1f} (torch.softmax "
+            f"{row['torch_softmax_host_us']:.1f}) "
+            f"{'ok' if ok else 'FAILED'}")
+        del x, label, prob, dx, ref, diff, bwd_diff, bwd_want, idx, neg_ones
+    torch.cuda.empty_cache()
+    out = {"compile_ms": kernels["compile_ms"], "checks": checks,
+           "host_us_per_launch": host_us, "torch_add_host_us": torch_us,
+           "softmax": rows}
+    log("rtc: " + json.dumps({k: v for k, v in out.items()
+                              if k != "softmax"}))
+    failed = [k for k, v in checks.items() if not v] + \
+        [str(r["shape"]) for r in rows if not r["ok"]]
+    if failed:
+        raise SystemExit(f"user kernels disagree with their plain "
+                         f"versions: {failed}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: ResNet-50 with the softmax_rtc head, eager loop, checkpoint
+# ---------------------------------------------------------------------------
+def _custom_step(net, trainer, x, y):
+    """One eager step with the custom head: record, the forward, the
+    logits in f32 through ``mx.nd.Custom(..., op_type="softmax_rtc")``,
+    backward (the head ignores its head gradients) and
+    ``Trainer.step``.  Returns the f32 logits and the head's
+    probabilities, off the tape."""
+    import mxnet_tpu_torch as mx
+    with mx.autograd.record():
+        logits = net(x).float()
+        prob = mx.nd.Custom(logits, y, op_type="softmax_rtc")
+    mx.autograd.backward(prob)
+    trainer.step(RESNET_BATCH)
+    return logits.detach(), prob.detach()
+
+
+def _nll(out, y):
+    """The step's mean loss -log p[label] and how many of its samples'
+    p[label] the head's f32 output holds as 0.  The loss is taken from
+    the logits (a log-softmax): during the lr-0.1 spike some samples'
+    p[label] falls below f32's least value, where -log p of the head's
+    output reads +inf."""
+    import torch
+    logits, prob = out
+    idx = y.long()[:, None]
+    nll = -torch.log_softmax(logits, -1).gather(1, idx).mean()
+    return nll, (prob.gather(1, idx) == 0).sum()
+
+
+def _head_grad_check(net, x, y, train=False):
+    """The head's logits gradient against autograd through
+    SoftmaxCrossEntropyLoss on the same f32 logits, from a forward in
+    predict mode or (``train``) in train mode, as a step takes it (which
+    moves the running statistics).  Returns the largest difference and
+    how many elements differ once both are rounded to bf16, as the
+    step's backward rounds them into the net."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    mode = mx.autograd.train_mode() if train else mx.autograd.predict_mode()
+    with torch.no_grad(), mode:
+        logits = net(x).float()
+    a = logits.clone().requires_grad_()
+    b = logits.clone().requires_grad_()
+    with mx.autograd.record():
+        prob = mx.nd.Custom(a, y, op_type="softmax_rtc")
+        loss = SoftmaxCrossEntropyLoss()(b, y)
+    mx.autograd.backward(prob)
+    mx.autograd.backward(loss)
+    return ((a.grad - b.grad).abs().max().item(),
+            (a.grad.bfloat16() != b.grad.bfloat16()).sum().item())
+
+
+def _ce_step(net, trainer, x, y, f32_logits):
+    """One eager step with SoftmaxCrossEntropyLoss in the head's place:
+    on the f32 logits, as the head takes them, or on the bf16 logits, as
+    phase 7's step does."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    with mx.autograd.record():
+        logits = net(x)
+        loss = SoftmaxCrossEntropyLoss()(
+            logits.float() if f32_logits else logits, y)
+    mx.autograd.backward(loss)
+    trainer.step(RESNET_BATCH)
+
+
+def _weight_diff(mine, theirs):
+    """The largest absolute difference over every parameter, and how
+    many parameters differ at all."""
+    import torch
+    diffs = [(a.data().float() - theirs[k].data().float()).abs().max()
+             for k, a in mine.items()]
+    return {"max_abs": torch.stack(diffs).max().item(),
+            "params_differing": sum(bool(d > 0) for d in diffs),
+            "params": len(diffs)}
+
+
+def _checkpoint_resume(net, trainer, dev, x, y):
+    """``save_parameters`` + ``save_states``, one more step on the
+    running net; a fresh net (other random weights) and trainer load
+    both and take the same step.  With cuDNN pinned deterministic (and
+    B1 and the user kernels deterministic by design) the two must leave
+    every weight, running statistic and momentum bitwise equal.  Then
+    the fresh net and trainer load the checkpoint again and take the
+    step with SoftmaxCrossEntropyLoss in the head's place, once on the
+    f32 logits and once on the bf16 logits: how far each lands from the
+    head's step (reported, not gated), beside the two logits gradients
+    from the checkpoint's train-mode forward."""
+    import pathlib
+
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer
+
+    folder = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+    folder.mkdir(parents=True, exist_ok=True)
+    params, states = folder / "resnet50.params", folder / "resnet50.states"
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        net.save_parameters(str(params))
+        trainer.save_states(str(states))
+        save_s = time.perf_counter() - t0
+        _custom_step(net, trainer, x, y)
+        fresh = resnet50(dev, seed=1)
+        t0 = time.perf_counter()
+        fresh.load_parameters(str(params))
+        fresh_tr = Trainer(fresh.collect_params(), "sgd",
+                           {"learning_rate": 0.1, "momentum": 0.9},
+                           kvstore="device")
+        fresh_tr.load_states(str(states))
+        load_s = time.perf_counter() - t0
+        _custom_step(fresh, fresh_tr, x, y)
+        torch.cuda.synchronize()
+        mine, theirs = net.collect_params(), fresh.collect_params()
+        differing = [k for k, p in mine.items()
+                     if not torch.equal(p.data(), theirs[k].data())]
+        differing += [f"state {i}" for i, st in trainer._states.items()
+                      if not all(torch.equal(s, t) for s, t in
+                                 zip(st, fresh_tr._states[i]))]
+        fresh.load_parameters(str(params))
+        err, bf16_differing = _head_grad_check(fresh, x, y, train=True)
+        head_vs_ce = {"logits_grad_train_mode_max_abs": err,
+                      "logits_grad_bf16_elements_differing": bf16_differing}
+        for name, f32 in (("ce_on_f32_logits", True),
+                          ("ce_on_bf16_logits", False)):
+            fresh.load_parameters(str(params))
+            fresh_tr.load_states(str(states))
+            _ce_step(fresh, fresh_tr, x, y, f32)
+            head_vs_ce[name] = _weight_diff(mine, theirs)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    out = {"file_mb": (params.stat().st_size + states.stat().st_size) / 1e6,
+           "save_s": save_s, "load_s": load_s,
+           "tensors_compared": len(mine) + len(trainer._states),
+           "differing": differing[:5], "bitwise_equal": not differing,
+           "head_step_vs_cross_entropy_step": head_vs_ce}
+    params.unlink()
+    states.unlink()
+    del fresh, fresh_tr
+    return out
+
+
+def phase_resnet_custom(dev):
+    """ResNet-50 v1 (`resnet50`: bf16, batch 128, Xavier from seed 0)
+    with the ``softmax_rtc`` head over its f32 logits, SGD lr 0.1
+    momentum 0.9 through `Trainer` in the eager loop: warm-up, then the
+    timed steps from launch counts of 0 (B6 twice a step, B1 53 times);
+    the head's gradient against SoftmaxCrossEntropyLoss's; checkpoint
+    and resume; one step traced."""
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+
+    register_softmax_rtc()
+    kernels = user_kernels()
+    fwd, bwd = kernels["softmax_fwd"], kernels["softmax_bwd"]
+    torch.cuda.reset_peak_memory_stats()
+    net = resnet50(dev)
+    x, y = resnet_batch(dev)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      kvstore="device")
+    t0 = time.perf_counter()
+    steps = [_nll(_custom_step(net, trainer, x, y), y)
+             for _ in range(CUSTOM_WARMUP)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    def counts():
+        return (fwd.launches, bwd.launches, BN_BWD_REDUCE.launches)
+
+    counts_ok = True
+    fwd.launches = bwd.launches = BN_BWD_REDUCE.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(CUSTOM_STEPS):
+        before = counts()
+        steps.append(_nll(_custom_step(net, trainer, x, y), y))
+        after = counts()
+        counts_ok = counts_ok and [b - a for a, b in zip(before, after)] == \
+            [1, 1, BN_LAYERS]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("softmax_fwd", "softmax_bwd", "bn_bwd_reduce"),
+                        counts()))
+    vals, finite, falling = _loss_gates([nll for nll, _ in steps])
+    zero_p = torch.stack([z for _, z in steps]).tolist()
+    grad_err, _ = _head_grad_check(net, x, y)
+    out = {"model": "resnet50_v1 + softmax_rtc head (eager)",
+           "dtype": "bfloat16 (logits f32)", "batch": RESNET_BATCH,
+           "steps": CUSTOM_STEPS, "warmup_steps": CUSTOM_WARMUP,
+           "warmup_s": warm_s, "step_ms": wall / CUSTOM_STEPS * 1e3,
+           "img_per_s": RESNET_BATCH * CUSTOM_STEPS / wall,
+           "loss_first": vals[0], "loss_last5_mean": sum(vals[-5:]) / 5,
+           "losses": vals[CUSTOM_WARMUP:],
+           "samples_with_p_label_0_per_step": zero_p, "launches": launches,
+           "launches_per_step_ok": counts_ok,
+           "head_grad_max_abs_err": grad_err, "head_grad_tol": HEAD_GRAD_TOL,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": nvidia_smi()}
+    log("resnet_custom: " + json.dumps(out))
+    if not (finite and falling and counts_ok and grad_err <= HEAD_GRAD_TOL):
+        raise SystemExit(f"ResNet training with the custom head failed: "
+                         f"finite={finite} falling={falling} launches per "
+                         f"step ok={counts_ok} head grad err={grad_err}")
+    out["checkpoint"] = _checkpoint_resume(net, trainer, dev, x, y)
+    log("resnet_custom: checkpoint and resume: " +
+        json.dumps(out["checkpoint"]))
+    if not out["checkpoint"]["bitwise_equal"]:
+        raise SystemExit("the resumed step differs from the uninterrupted "
+                         "one")
+    train_err = out["checkpoint"]["head_step_vs_cross_entropy_step"][
+        "logits_grad_train_mode_max_abs"]
+    if not train_err <= HEAD_GRAD_TOL:
+        raise SystemExit(f"the head's gradient on train-mode logits is "
+                         f"{train_err} from cross entropy's")
+    out["profile"] = phase_train_profile(
+        lambda *a, batch_size: _custom_step(net, trainer, x, y), (),
+        RESNET_BATCH, f"ResNet-50 eager step with the softmax_rtc head at "
+        f"batch {RESNET_BATCH}")
+    del net, trainer, x, y
+    torch.cuda.empty_cache()
+    return out
+
 
 def main():
     try:
@@ -1460,6 +2057,8 @@ def main():
     stem_rows = phase_stem(dev)
     resnet = phase_resnet(dev)
     resnet_s2d = phase_resnet_s2d(dev)
+    rtc_out = phase_rtc(dev)
+    custom = phase_resnet_custom(dev)
     log(f"seconds: {time.perf_counter() - t_start:.1f}")
 
     main_case = next(r for r in rows
@@ -1471,6 +2070,8 @@ def main():
     # B1 at the stem BatchNorm, B2 at the bf16 stem: the largest shapes
     bn_case = bn_rows[0]
     stem_case = next(r for r in stem_rows if r["dtype"] == "bfloat16")
+    # B6 at the head's shape; softmax_bwd is held bitwise
+    rtc_case = rtc_out["softmax"][0]
     bwd_src = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
     launches = trained["launches"]
     log(json.dumps({"kernels": [{
@@ -1521,7 +2122,18 @@ def main():
         "ms": stem_case["ms"], "plain_ms": stem_case["plain_ms"],
         "bound_ms": stem_case["bound_ms"], "bound_by": stem_case["bound_by"],
         "library_ms": stem_case["library_ms"],
-    }]}))
+    }] + [{
+        "name": f"rtc:{name}", "route": "cuda",
+        "source": "chip_smoke.py:USER_KERNELS_SRC",
+        "launcher": "mxnet_tpu_torch/rtc.py",
+        "replaces": "mxnet_tpu/rtc.py:61",
+        "launches": custom["launches"][name],
+        "max_abs_err": rtc_case[f"{part}_max_abs_err"],
+        "ms": rtc_case[f"{part}_ms"], "plain_ms": rtc_case[f"{part}_plain_ms"],
+        "bound_ms": rtc_case[f"{part}_bound_ms"],
+        "bound_by": rtc_case[f"{part}_bound_by"],
+        "library_ms": rtc_case[f"{part}_library_ms"],
+    } for name, part in (("softmax_fwd", "fwd"), ("softmax_bwd", "bwd"))]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

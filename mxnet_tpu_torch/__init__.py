@@ -4,7 +4,8 @@ The JAX package `mxnet_tpu` is the reference; this package keeps its
 module paths and names and runs on an NVIDIA H100.  Entry points run on
 the card (``gpu()``) unless the caller passes ``cpu()``; without CUDA
 they raise.  f32 matrix products and convolutions run at true f32 (TF32
-off), as the reference computes them.
+off), as the reference computes them.  Importing it loads no CUDA
+library: `rtc` loads NVRTC and libcuda at its first use.
 """
 import torch
 
@@ -12,7 +13,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import autograd, gluon, initializer, models, serve  # noqa: E402
-from . import optimizer  # noqa: E402
+from . import operator, optimizer, rtc  # noqa: E402
+from . import ndarray as nd  # noqa: E402
 from . import numpy_extension as npx  # noqa: E402
 from .base import MXNetError  # noqa: E402
 from .context import cpu, current_context, gpu, num_gpus  # noqa: E402
@@ -20,5 +22,5 @@ from .context import cpu, current_context, gpu, num_gpus  # noqa: E402
 init = initializer
 
 __all__ = ["autograd", "gluon", "initializer", "init", "models", "optimizer",
-           "serve", "npx",
+           "serve", "npx", "nd", "operator", "rtc",
            "MXNetError", "cpu", "gpu", "num_gpus", "current_context"]

@@ -7,6 +7,11 @@ assignment order, and ``forward`` is torch's.  Gluon parameters are
 (``encoder.layer0.attention.query.weight``, ``position_embed``), which
 is what `utils.convert.load_reference_params` matches on.
 
+``save_parameters`` / ``load_parameters`` write and read the JAX
+package's ``.npz`` checkpoint (`utils.serialization`) under those
+names, so a file crosses between the packages either way; upstream's
+0x112 files load too.
+
 ``hybridize()`` is accepted and does nothing in the port: PyTorch runs
 eagerly, and capturing the forward (a CUDA graph) is later work.
 """
@@ -77,6 +82,62 @@ class Block(nn.Module):
             from .. import autograd
             with torch.no_grad(), autograd.predict_mode():
                 self(*args)
+
+    # -- save / load (reference block.py:209-250) ---------------------------
+    def save_parameters(self, filename, deduplicate=False):
+        """Save every initialized parameter's values under its dotted
+        name (``deduplicate``: a parameter shared by several blocks
+        once, under its first name)."""
+        from ..utils.serialization import save_ndarrays
+        arg_dict, seen = {}, set()
+        for name, param in self._collect_params_with_prefix().items():
+            if param._data is None or (deduplicate and id(param) in seen):
+                continue
+            seen.add(id(param))
+            arg_dict[name] = param.data()
+        save_ndarrays(filename, arg_dict)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Set the parameters from ``filename`` by dotted name (a
+        module-era ``arg:``/``aux:`` prefix is stripped), through
+        `load_dict` (``dtype_source`` changes nothing, as in the
+        reference)."""
+        from ..context import cpu
+        from ..utils.serialization import load_ndarrays
+        loaded = load_ndarrays(filename, ctx=cpu())
+        loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                  else k: v for k, v in loaded.items()}
+        self.load_dict(loaded, ctx=ctx, allow_missing=allow_missing,
+                       ignore_extra=ignore_extra, cast_dtype=cast_dtype,
+                       source=f"'{filename}'")
+
+    def load_dict(self, param_dict, ctx=None, allow_missing=False,
+                  ignore_extra=False, cast_dtype=False, source="the dict"):
+        """Set the parameters from ``param_dict`` (dotted name -> any
+        array-like) by name.  Each keeps its own dtype, as in the
+        reference (``cast_dtype`` changes nothing there either), and its
+        device unless ``ctx`` is given; a parameter whose shape is still
+        deferred takes it from the array.  A name missing from
+        ``param_dict`` raises unless
+        ``allow_missing``, one the block lacks unless ``ignore_extra``
+        (``source`` names ``param_dict`` in the error)."""
+        params = self._collect_params_with_prefix()
+        for name, param in params.items():
+            if name not in param_dict:
+                if not allow_missing:
+                    raise AssertionError(
+                        f"Parameter '{name}' is missing in {source}")
+                continue
+            if ctx is not None:
+                param.reset_ctx(ctx)
+            param.set_data(param_dict[name])
+        extra = set(param_dict) - set(params)
+        if extra and not ignore_extra:
+            raise AssertionError(
+                f"Parameters {sorted(extra)} in {source} are not present "
+                "in this Block")
 
     def zero_grad(self):
         """Clear every parameter's gradient (a cleared gradient reads as

@@ -186,6 +186,16 @@ class Parameter:
             return [self._deferred_init[1]]
         return [self.data().device]
 
+    def reset_ctx(self, ctx):
+        """Move the parameter (or, while deferred, the device it will be
+        allocated on) to ``ctx``."""
+        device = resolve_device(ctx)
+        if self._data is not None:
+            self._bind(self._data.to(device))
+        elif self._deferred_init is not None:
+            self._deferred_init = (self._deferred_init[0], device,
+                                   *self._deferred_init[2:])
+
     @property
     def device(self):
         return None if self._data is None else self._data.device

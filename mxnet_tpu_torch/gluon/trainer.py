@@ -14,8 +14,12 @@ Only one device is supported: ``kvstore`` may be ``None``, ``'local'``
 or ``'device'`` (each a no-op on one device), and ``allreduce_grads``
 does nothing.  Other kvstores, ``update_on_kvstore``, gradient
 compression and multi-device parameters raise ``NotImplementedError``
-(ROADMAP queue A, distribution).  Saving and loading optimizer states
-is not ported yet.
+(ROADMAP queue A, distribution).
+
+``save_states`` / ``load_states`` write and read the optimizer states
+in the JAX package's format (`optimizer.Updater`): the file of either
+package loads in the other.  As in the reference, the file holds the
+states only (SGD's momentum, Adam's moments), not the update counts.
 """
 from __future__ import annotations
 
@@ -107,6 +111,34 @@ class Trainer:
         optimizer._update_count(i)
         return (optimizer._get_lr(i), optimizer._get_wd(i),
                 onp.float32(optimizer._index_update_count[i]))
+
+    def save_states(self, fname):
+        """Write the optimizer states (reference `trainer.py:380`)."""
+        self._init_states()
+        updater = opt.Updater(self._optimizer)
+        updater.states = self._states
+        with open(fname, "wb") as f:
+            f.write(updater.get_states(dump_optimizer=False))
+
+    def load_states(self, fname):
+        """Copy the states in ``fname`` into this trainer's state tensors,
+        which keep their device and dtype."""
+        updater = opt.Updater(self._optimizer)
+        with open(fname, "rb") as f:
+            updater.set_states(f.read())
+        self._init_states()
+        with torch.no_grad():
+            for i, loaded in updater.states.items():
+                mine = self._states.get(i, ())
+                if len(mine) != len(loaded) or any(
+                        tuple(m.shape) != s.shape
+                        for m, s in zip(mine, loaded)):
+                    raise ValueError(
+                        f"state {i} in '{fname}' has shapes "
+                        f"{[s.shape for s in loaded]}; this trainer's are "
+                        f"{[tuple(m.shape) for m in mine]}")
+                for m, s in zip(mine, loaded):
+                    m.copy_(torch.from_numpy(s))
 
     # -- step -------------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):

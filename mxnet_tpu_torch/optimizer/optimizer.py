@@ -8,14 +8,22 @@ applies it per parameter and writes the results back in place; the
 Trainer and `FusedTrainStep` loop over the parameters with it.  The
 reference fused that loop into one XLA program; in the port it is plain
 torch ops, one set per parameter.
+
+`Updater` holds per-index states and (de)serializes them in the JAX
+package's format: a pickle of ``{index: tuple of numpy arrays}``.
 """
 from __future__ import annotations
 
+import io
+import pickle
+
+import numpy as onp
 import torch
 
 from ..base import registry
+from ..utils.serialization import ArraysOnlyUnpickler
 
-__all__ = ["Optimizer", "register", "create"]
+__all__ = ["Optimizer", "Updater", "register", "create"]
 
 
 class Optimizer:
@@ -144,6 +152,49 @@ class Optimizer:
                 self._get_lr(index), self._get_wd(index),
                 self._index_update_count[index])
             write_back(weight, new_w, state, new_states)
+
+
+class Updater:
+    """An optimizer with lazily created states, keyed by parameter index
+    (reference `optimizer.py:250-300`; upstream `optimizer/updater.py`).
+    ``updater(index, grad, weight)`` updates in place."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        single = not isinstance(index, (list, tuple))
+        indices, grads, weights = ([index], [grad], [weight]) if single \
+            else (list(index), list(grad), list(weight))
+        for i, w in zip(indices, weights):
+            if i not in self.states:
+                self.states[i] = \
+                    self.optimizer.create_state_multi_precision(i, w)
+        self.optimizer.update(indices, weights, grads,
+                              [self.states[i] for i in indices])
+
+    def get_states(self, dump_optimizer=False):
+        """The states as the JAX package pickles them: ``{index:
+        tuple(numpy arrays)}``.  The optimizer object itself is not
+        written: its class is this package's, which the JAX package
+        cannot load."""
+        if dump_optimizer:
+            raise NotImplementedError(
+                "dump_optimizer: the port writes states only, as the JAX "
+                "package's Trainer.save_states does")
+        return pickle.dumps({
+            i: tuple(s.detach().cpu().numpy() for s in _as_tuple(st))
+            for i, st in self.states.items()})
+
+    def set_states(self, states_blob):
+        """Load `get_states`' blob, or the JAX package's written without
+        its optimizer (as its ``Trainer.save_states`` writes), as numpy
+        arrays; the caller copies them into its state tensors."""
+        payload = ArraysOnlyUnpickler(io.BytesIO(states_blob),
+                                      "an optimizer state file").load()
+        self.states = {i: tuple(onp.asarray(s) for s in _as_tuple(st))
+                       for i, st in payload.items()}
 
 
 def write_back(weight, new_w, state, new_states, keep=None):

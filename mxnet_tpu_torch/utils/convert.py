@@ -20,14 +20,10 @@ __all__ = ["load_reference_params"]
 
 def load_reference_params(net, params):
     """Set every parameter of ``net`` from ``params`` by name, keeping
-    each parameter's dtype and device.  Raises ``KeyError`` on a name
-    missing from either side and ``ValueError`` on a shape mismatch."""
-    mine = net.collect_params()
-    missing = sorted(set(mine) - set(params))
-    extra = sorted(set(params) - set(mine))
-    if missing or extra:
-        raise KeyError(f"parameter names differ: missing {missing}, "
-                       f"unexpected {extra}")
-    for name, param in mine.items():
-        param.set_data(onp.array(params[name], dtype=onp.float32))
+    each parameter's dtype and device (`Block.load_dict`: a name missing
+    from either side raises ``AssertionError``, a shape mismatch
+    ``ValueError``)."""
+    net.load_dict({k: onp.array(v, dtype=onp.float32)
+                   for k, v in params.items()},
+                  source="the reference's arrays")
     return net
