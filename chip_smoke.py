@@ -11,7 +11,16 @@ the package is missing.  Phases, each fatal on failure:
 1. **Build.**  Compiles every CUDA kernel source in
    ``mxnet_tpu_torch/csrc`` (one ``nvcc`` each, all started together)
    for ``sm_90a`` and prints the build time, the compiler's register
-   and spill report, and the card's name and power limit.
+   and spill report, and the card's name and power limit; for each bf16
+   backward kernel (B4, B5 at each head dim) its registers, spill bytes
+   and tensor-core instructions (``HMMA``/``HGMMA`` in ``cuobjdump
+   -sass``, or "not measured" without that tool).  Fails if B4 or B5
+   spills at D = 64 or runs no HMMA there.
+1b. **Tensor-core sums vs sequential FMAs.**  A kernel compiled by NVRTC
+   chains ``mma.sync`` over k as B4 and B5 do and measures, on random
+   normal bf16 rows at each head dim, how far its dot products fall from
+   sequential f32 FMAs, in units of 2^-24 |a| |b|; fails above the bound
+   under which B4 and B5 take a bf16 rounding as settled.
 2. **Forward kernel vs plain.**  Calls B3's wrapper on the card at the
    serving path's largest shape, (B, H, T, D) = (8, 12, 512, 64), in
    bf16 and f32, for a ragged key-padding mask with one fully masked
@@ -30,10 +39,16 @@ the package is missing.  Phases, each fatal on failure:
    shape; held against the plain backward on the same saved forward and
    upstream gradient (and that forward, B3's out and lse, against the
    plain forward), with exact zeros required for the fully masked row's
-   out and dq and for the dk/dv rows of padding keys; each kernel timed
-   alone, beside its bound, the plain backward and SDPA's backward alone
-   (``autograd.grad`` through one SDPA forward; its kernels' device time
-   by ``torch.profiler``, two windows).
+   out and dq and for the dk/dv rows of padding keys; B4's delta against
+   the plain row sum bit for bit, and its keep words against the plain
+   packed mask on every live pair; a second launch of
+   B4 and B5 bitwise equal to the first; the share of live pairs whose
+   bf16 rounding each kernel derived again.  Each kernel timed alone by CUDA events and by its device time
+   (``torch.profiler``), beside its bound; the whole backward as training
+   runs it (``autograd.grad`` through `flash_attention`: B4, then B5) by
+   device time, beside the plain backward and SDPA's backward alone
+   (``autograd.grad`` through one SDPA forward; its kernels' device time,
+   two windows).
 3. **Serving.**  BERT-base at full width (vocab 30522, units 768, FFN
    3072, 12 layers, 12 heads, max_length 512), random weights from a
    seed, cast to bf16 on ``cuda:0``, behind ``serve.Endpoint``
@@ -58,8 +73,9 @@ the package is missing.  Phases, each fatal on failure:
    against dense gradients (2 layers, f32, dropout 0; relative L2 per
    parameter within 1e-3).
 4b. **Where a training step's time goes.**  One step traced: device
-   time, idle share, launches, top kernels, and the device-to-host
-   syncs torch's sync debug mode reports.
+   time, idle share, launches, top kernels, the device time of B3, B4
+   and B5 by name, and the device-to-host syncs torch's sync debug mode
+   reports.
 5. **B1 vs plain.**  The BatchNorm-backward reduction at ResNet-50's
    nine batch-128 BatchNorm shapes and an odd one (C = 3, M = 2331),
    f32 made on the card from a seed: worst error against an allowance
@@ -443,9 +459,74 @@ def cuda_ms(fn, iters=20, warmup=3):
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
+def _ptxas_by_kernel(ptxas):
+    """{mangled kernel name: (registers, spill store bytes)} from the
+    compiler's ``-Xptxas -v`` report."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [None, 0]
+        elif name and "bytes spill stores" in line:
+            out[name][1] = int(re.search(r"(\d+) bytes spill stores",
+                                         line).group(1))
+        elif name and "Used " in line:
+            out[name][0] = int(re.search(r"Used (\d+) registers",
+                                         line).group(1))
+    return out
+
+
+def _mma_counts(lib_path):
+    """{mangled kernel name: (HMMA, HGMMA) instruction counts} in the
+    library's SASS, from ``cuobjdump -sass`` beside nvcc; None where that
+    tool is missing."""
+    from pathlib import Path
+
+    from mxnet_tpu_torch.ops import _build
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0]
+        elif name and "HGMMA" in line:
+            out[name][1] += 1
+        elif name and "HMMA" in line:
+            out[name][0] += 1
+    return out
+
+
+def _bf16_bwd_kernels(path, ptxas):
+    """Registers, spill bytes and tensor-core instruction counts of the
+    bf16 backward kernels (B4, B5) at each head dim."""
+    regs = _ptxas_by_kernel(ptxas)
+    mma = _mma_counts(path)
+    rows = []
+    for name, (n_regs, spill) in sorted(regs.items()):
+        m = re.search(r"flash_bwd_(dq|dkv)_bf16_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        hmma, hgmma = (mma.get(name, (0, 0)) if mma is not None
+                       else ("not measured", "not measured"))
+        rows.append({"kernel": "B4" if m.group(1) == "dq" else "B5",
+                     "head_dim": int(m.group(2)), "registers": n_regs,
+                     "spill_store_bytes": spill, "hmma": hmma,
+                     "hgmma": hgmma})
+    return rows
+
+
 def phase_build():
     """Build every kernel source, one nvcc for each, all started
-    together."""
+    together; report the bf16 backward kernels' registers, spills and
+    tensor-core instructions, and fail if B4 or B5 spills at D = 64 or
+    runs no HMMA there."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mxnet_tpu_torch.ops import _build
@@ -453,6 +534,7 @@ def phase_build():
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         paths = list(pool.map(_build.build, SOURCES))
     seconds = time.perf_counter() - t0
+    bwd = []
     for name, path in zip(SOURCES, paths):
         ptxas = _build.BUILD_LOG.get(name, {}).get("ptxas", "")
         regs = sorted({line.split("Used ")[1].split(",")[0]
@@ -461,7 +543,112 @@ def phase_build():
             r"(\d+) bytes spill stores", ptxas)), default=0)
         log(f"build: {path.name} (nvcc {' '.join(_build.NVCC_FLAGS)}); "
             f"ptxas: {'; '.join(regs)}; most spill stores: {spill} bytes")
+        if name == "flash_attention_bwd":
+            bwd = _bf16_bwd_kernels(path, ptxas)
+    for r in bwd:
+        log(f"build: {r['kernel']} bf16 D={r['head_dim']}: "
+            f"{r['registers']} registers, {r['spill_store_bytes']} bytes "
+            f"spill stores, HMMA {r['hmma']}, HGMMA {r['hgmma']}")
     log(f"build: {len(SOURCES)} sources in {seconds:.1f} s")
+    at_64 = [r for r in bwd if r["head_dim"] == D]
+    if len(at_64) != 2 or any(
+            r["spill_store_bytes"] or r["hmma"] == 0 for r in at_64):
+        raise SystemExit(f"bf16 backward kernels at D={D}: expected no "
+                         f"spills and HMMA instructions, got {at_64}")
+    return bwd
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: the tensor cores' sums against sequential FMAs
+# ---------------------------------------------------------------------------
+# The bf16 backward kernels (B4, B5) derive again, with sequential f32 FMAs,
+# every element whose bf16 rounding a bounded difference between their
+# tensor-core sums and sequential FMAs could flip.  The bound takes that
+# difference to be at most MMA_ERR_BOUND * 2^-24 |a| |b| for rows a, b
+# (`SUM_ERR` in flash_attention_bwd.cu).  This kernel measures it: a . b
+# for each pair of 16-row and 8-row blocks, chained over k in steps of 16 as
+# B4 and B5 chain their mma.sync, against the sequential sum;
+# err = |difference| / (2^-24 |a| |b|).  Compiled by NVRTC (rtc).
+MMA_ERR_BOUND = 6
+MMA_ERR_SRC = r"""
+#include <cuda_bf16.h>
+
+__device__ unsigned pair(const __nv_bfloat16* x) {
+    return *reinterpret_cast<const unsigned*>(x);
+}
+
+extern "C" __global__ void mma_vs_fma(const __nv_bfloat16* a,
+                                      const __nv_bfloat16* b, float* err,
+                                      int rows, int d) {
+    const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+    const long slab = (long)blockIdx.z * rows * d;
+    const int r0 = 16 * blockIdx.x, c0 = 8 * blockIdx.y;
+    const __nv_bfloat16* A = a + slab + (long)r0 * d;
+    const __nv_bfloat16* B = b + slab + (long)c0 * d;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < d; k0 += 16) {
+        const unsigned a0 = pair(A + g * d + k0 + 2 * t);
+        const unsigned a1 = pair(A + (g + 8) * d + k0 + 2 * t);
+        const unsigned a2 = pair(A + g * d + k0 + 8 + 2 * t);
+        const unsigned a3 = pair(A + (g + 8) * d + k0 + 8 + 2 * t);
+        const unsigned b0 = pair(B + g * d + k0 + 2 * t);
+        const unsigned b1 = pair(B + g * d + k0 + 8 + 2 * t);
+        asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};"
+            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+    for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+        float seq = 0.f, na = 0.f, nb = 0.f;
+        for (int k = 0; k < d; ++k) {
+            const float x = __bfloat162float(A[r * d + k]);
+            const float y = __bfloat162float(B[col * d + k]);
+            seq = __fmaf_rn(x, y, seq);
+            na += x * x;
+            nb += y * y;
+        }
+        err[((long)blockIdx.z * rows + r0 + r) * rows + c0 + col] =
+            fabsf(c[e] - seq) / (sqrtf(na * nb) * 5.9604645e-8f);
+    }
+}
+"""
+
+
+def phase_mma_error(dev):
+    """The tensor cores' dot products against sequential FMAs on random
+    normal bf16 rows (as the kernels' inputs are drawn) at each head dim:
+    the largest and the 99.99th-percentile error in units of 2^-24 |a|
+    |b|, against the bound the kernels assume.  Fails if the bound is
+    exceeded."""
+    import torch
+    from mxnet_tpu_torch import rtc
+    kernel = rtc.CudaModule(MMA_ERR_SRC).get_kernel(
+        "mma_vs_fma", "const __nv_bfloat16 *a, const __nv_bfloat16 *b, "
+        "float *err, int rows, int d")
+    gen = torch.Generator().manual_seed(99)
+    rows, out = 128, {}
+    for d, slabs in ((16, 96), (32, 96), (64, B_TRAIN * H), (128, 96)):
+        a, b = (torch.randn(slabs, rows, d, generator=gen).to(dev,
+                                                               torch.bfloat16)
+                for _ in range(2))
+        err = torch.empty(slabs, rows, rows, device=dev)
+        kernel.launch((a, b, err, rows, d), dev, (rows // 16, rows // 8, slabs),
+                      (32,))
+        torch.cuda.synchronize()
+        flat = err.flatten()
+        out[d] = {"max": flat.max().item(),
+                  "p9999": flat.kthvalue(int(flat.numel() * 0.9999)
+                                         ).values.item(),
+                  "bound": MMA_ERR_BOUND, "pairs": flat.numel()}
+        log(f"mma_error: D={d}: tensor cores vs sequential FMAs, max "
+            f"{out[d]['max']:.3f}, 99.99% {out[d]['p9999']:.3f} x 2^-24 "
+            f"|a| |b| over {out[d]['pairs']} pairs (bound {MMA_ERR_BOUND})")
+    if any(r["max"] > r["bound"] for r in out.values()):
+        raise SystemExit(f"tensor-core sums exceed the bound B4/B5 assume: "
+                         f"{out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -688,10 +875,47 @@ def _sdpa_backward_ms(q, k, v, dout, kw):
     return device_ms(bwd), device_ms(bwd), cuda_ms(bwd)
 
 
+def _flash_backward_ms(q, k, v, dout, kw):
+    """The port's whole backward as training runs it: ``autograd.grad``
+    through one `flash_attention` forward, i.e. `_FlashAttention.backward`
+    (B4 with delta and the keep words, then B5).  Its kernels' device
+    time (`device_ms`) and its time by CUDA events."""
+    import torch
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, **kw)
+
+    def bwd():
+        return torch.autograd.grad(out, (qg, kg, vg), dout,
+                                   retain_graph=True)
+
+    return device_ms(bwd), cuda_ms(bwd)
+
+
+def _keep_words_ok(keep, kw, shape, dev):
+    """B4's keep words equal the plain packed mask on every live pair
+    (the kernel leaves the words of tiles it skips unwritten)."""
+    import torch
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    if keep is None:
+        return "dropout off"
+    b, h, t, _ = shape
+    causal = kw.get("causal", False)
+    live = fa._pack_bits(fa._live_pairs(b, t, kw.get("mask"), causal, dev)
+                         .expand(b, h, t, t))
+    plain = fa.keep_words_reference(kw["key"], b, h, t, kw["dropout"],
+                                    mask=kw.get("mask"), causal=causal,
+                                    device=dev)
+    return bool(torch.equal(keep & live, plain))
+
+
 def phase_bwd_vs_plain(dev):
     """B4 and B5 against `flash_attention_backward_reference` on the
     same saved forward and upstream gradient, and that forward (B3's out
-    and lse) against `flash_attention_reference`."""
+    and lse) against `flash_attention_reference`; B4's delta and keep
+    words against their plain versions, bit for bit; a second launch of
+    both bitwise equal to the first; the share of live pairs whose bf16
+    rounding each kernel derived again."""
     import torch
     from mxnet_tpu_torch.ops import flash_attention as fa
 
@@ -709,10 +933,25 @@ def phase_bwd_vs_plain(dev):
             args = fa._LaunchArgs(q, kw.get("causal", False), d ** -0.5,
                                   kw.get("mask"), kw.get("bias"),
                                   kw.get("dropout", 0.0), kw.get("key"))
-            delta = fa._delta(out, dout, None)
-            dq = fa._launch_dq(q, k, v, dout, lse, delta, args)
-            dk, dv = fa._launch_dkv(q, k, v, dout, lse, delta, args)
+
+            rederived = torch.zeros(2, dtype=torch.int64, device=dev)
+
+            def b4(stats=None):
+                return fa._launch_dq(q, k, v, out, dout, lse, None, args,
+                                     stats)
+
+            dq, delta, words = b4(rederived[:1])
+            dk, dv = fa._launch_dkv(q, k, v, dout, lse, delta, words, args,
+                                    rederived[1:])
+            dq2, delta2, words2 = b4()
+            dk2, dv2 = fa._launch_dkv(q, k, v, dout, lse, delta2, words2,
+                                      args)
             torch.cuda.synchronize()
+            repeat = all(torch.equal(x, y) for x, y in
+                         ((dq, dq2), (dk, dk2), (dv, dv2), (delta, delta2)))
+            # B4's delta is summed in torch's order, bit for bit the plain's
+            delta_equal = bool(torch.equal(delta, fa._delta(out, dout, None)))
+            share = [n / _live_pairs(kw, shape) for n in rederived.tolist()]
             ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
             _, fwd_ratio = _out_err(q, k, v, kw, out, ref_out, dname)
             live = ref_lse > fa._MASKED_ROW
@@ -725,8 +964,11 @@ def phase_bwd_vs_plain(dev):
                 errs[name] = diff.max().item()
                 ratio = max(ratio, (diff / (atol + rtol * ref.float().abs())
                                     ).max().item())
+            keep_ok = _keep_words_ok(words[0] if "dropout" in kw else None,
+                                     kw, shape, dev)
             ok = (ratio <= 1.0 and fwd_ratio <= 1.0 and
-                  lse_err <= TOL[dname]["lse"] and
+                  lse_err <= TOL[dname]["lse"] and repeat and delta_equal
+                  and keep_ok is not False and
                   all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv)))
             if "mask" in kw:
                 dead = (kw["mask"] == 0)[:, None, :].expand(b, h, t)
@@ -736,10 +978,13 @@ def phase_bwd_vs_plain(dev):
                     exact = exact and bool((dq[0] == 0).all()) and \
                         bool((out[0] == 0).all())
                 ok = ok and exact
-            dq_ms = cuda_ms(lambda: fa._launch_dq(q, k, v, dout, lse, delta,
-                                                  args))
-            dkv_ms = cuda_ms(lambda: fa._launch_dkv(q, k, v, dout, lse,
-                                                    delta, args))
+            dq_ms = cuda_ms(b4)
+            dkv_ms = cuda_ms(lambda: fa._launch_dkv(q, k, v, dout, lse, delta,
+                                                    words, args))
+            dq_dev = device_ms(b4)
+            dkv_dev = device_ms(lambda: fa._launch_dkv(q, k, v, dout, lse,
+                                                       delta, words, args))
+            bwd_dev, bwd_events = _flash_backward_ms(q, k, v, dout, kw)
             plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
                 q, k, v, out, lse, dout, **kw), iters=5)
             lib_a, lib_b, lib_events = _sdpa_backward_ms(q, k, v, dout, kw)
@@ -748,7 +993,13 @@ def phase_bwd_vs_plain(dev):
             row = {"dtype": dname, "case": case, "shape": shape,
                    "max_abs_err": errs, "err_over_tol": ratio,
                    "fwd_err_over_tol": fwd_ratio, "lse_max_abs_err": lse_err,
+                   "delta_equal": delta_equal, "keep_words_equal": keep_ok,
+                   "bitwise_repeat": repeat,
+                   "rederived_share": share,
                    "tol": [atol, rtol], "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                   "dq_device_ms": dq_dev, "dkv_device_ms": dkv_dev,
+                   "backward_device_ms": bwd_dev,
+                   "backward_events_ms": bwd_events,
                    "plain_ms": plain_ms, "library_ms": (lib_a + lib_b) / 2,
                    "library_ms_windows": [lib_a, lib_b],
                    "library_ms_events": lib_events,
@@ -759,14 +1010,20 @@ def phase_bwd_vs_plain(dev):
             log(f"kernel_bwd {dname:8s} {case:18s} {tuple(shape)} "
                 f"err dq={errs['dq']:.2e} dk={errs['dk']:.2e} "
                 f"dv={errs['dv']:.2e} ({ratio:.2f} of tol; fwd out "
-                f"{fwd_ratio:.2f} of tol, lse_err={lse_err:.2e}) "
-                f"dq_ms={dq_ms:.4f} (bound {dq_bound:.4f} {dq_by}) "
-                f"dkv_ms={dkv_ms:.4f} (bound {dkv_bound:.4f} {dkv_by}) "
+                f"{fwd_ratio:.2f} of tol, lse_err={lse_err:.2e}; delta "
+                f"equal {delta_equal}; keep words {keep_ok}; bitwise repeat "
+                f"{repeat}; derived again "
+                f"{share[0]:.4f} / {share[1]:.4f} of live pairs) "
+                f"dq_ms={dq_ms:.4f} (device "
+                f"{dq_dev:.4f}, bound {dq_bound:.4f} {dq_by}) "
+                f"dkv_ms={dkv_ms:.4f} (device {dkv_dev:.4f}, bound "
+                f"{dkv_bound:.4f} {dkv_by}) backward_device_ms="
+                f"{bwd_dev:.4f} (events {bwd_events:.4f}) "
                 f"plain_ms={plain_ms:.4f} sdpa_bwd_ms={lib_a:.4f}/"
                 f"{lib_b:.4f} (events {lib_events:.4f}) "
                 f"{'ok' if ok else 'FAILED'}")
             del q, k, v, kw, dout, out, lse, dq, dk, dv, plain, delta, args
-            del ref_out, ref_lse
+            del ref_out, ref_lse, words, dq2, dk2, dv2, delta2, words2, rederived
     torch.cuda.empty_cache()
     failed = [_case_name(r) for r in rows if not r["ok"]]
     if failed:
@@ -938,10 +1195,12 @@ def device_ms(fn, iters=20):
     return sum(_device_times(prof)[0].values()) / iters
 
 
-def profile_call(fn, label, back_to_back_ms):
+def profile_call(fn, label, back_to_back_ms, named=None):
     """Trace one call of ``fn`` with ``torch.profiler``: the device time
     summed over kernels, the share of ``back_to_back_ms`` the card was
-    idle, the kernel launches and the ten largest kernels."""
+    idle, the kernel launches and the ten largest kernels; and for each
+    ``named`` label, the device time of the kernels whose name holds its
+    substring."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -961,6 +1220,12 @@ def profile_call(fn, label, back_to_back_ms):
         f"{total:.3f} ms of it on the device in {launches} kernel launches")
     for name, ms in top:
         log(f"profile:   {ms:9.3f} ms  {name[:90]}")
+    if named:
+        out["named_device_ms"] = {
+            tag: sum(ms for name, ms in per_kernel.items() if sub in name)
+            for tag, sub in named.items()}
+        log(f"profile: {label}: device ms by kernel: "
+            + json.dumps(out["named_device_ms"]))
     return out
 
 
@@ -1193,7 +1458,10 @@ def phase_train(dev):
                          f"{counts_ok}")
     out["eager_vs_fused"] = _eager_vs_fused(mod, trainer, args)
     out["profile"] = phase_train_profile(
-        step, args, B_TRAIN, f"training step at ({B_TRAIN}, {T_TRAIN})")
+        step, args, B_TRAIN, f"training step at ({B_TRAIN}, {T_TRAIN})",
+        named={"B3 flash_fwd": "flash_fwd_kernel",
+               "B4 flash_bwd_dq": "flash_bwd_dq",
+               "B5 flash_bwd_dkv": "flash_bwd_dkv"})
     del step, trainer, mod, net
     torch.cuda.empty_cache()
     out["flash_vs_dense"] = _flash_vs_dense_grads(dev, args)
@@ -1224,7 +1492,7 @@ def _count_syncs(fn):
     return len(syncs), syncs[:3]
 
 
-def phase_train_profile(step, args, batch_size, label):
+def phase_train_profile(step, args, batch_size, label, named=None):
     import torch
 
     def one():
@@ -1242,7 +1510,7 @@ def phase_train_profile(step, args, batch_size, label):
         one()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 3 * 1e3
-    out = profile_call(one, label, step_ms)
+    out = profile_call(one, label, step_ms, named)
     out["host_syncs_per_step"] = n_syncs
     log(f"profile: {label}: {n_syncs} device-to-host syncs {examples}; "
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -2046,6 +2314,7 @@ def main():
     t_start = time.perf_counter()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
+    phase_mma_error(dev)
     rows = phase_kernel_vs_plain(dev)
     bwd_rows = phase_bwd_vs_plain(dev)
     served, net = phase_serve(dev)
@@ -2089,7 +2358,8 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:536",
         "launches": launches["flash_attention_bwd_dq"],
         "max_abs_err": bwd_case["max_abs_err"]["dq"],
-        "ms": bwd_case["dq_ms"], "plain_ms": bwd_case["plain_ms"],
+        "ms": bwd_case["dq_ms"], "device_ms": bwd_case["dq_device_ms"],
+        "plain_ms": bwd_case["plain_ms"],
         "bound_ms": bwd_case["dq_bound_ms"],
         "bound_by": bwd_case["dq_bound_by"],
         "library_ms": bwd_case["library_ms"],
@@ -2100,7 +2370,8 @@ def main():
         "launches": launches["flash_attention_bwd_dkv"],
         "max_abs_err": max(bwd_case["max_abs_err"]["dk"],
                            bwd_case["max_abs_err"]["dv"]),
-        "ms": bwd_case["dkv_ms"], "plain_ms": bwd_case["plain_ms"],
+        "ms": bwd_case["dkv_ms"], "device_ms": bwd_case["dkv_device_ms"],
+        "plain_ms": bwd_case["plain_ms"],
         "bound_ms": bwd_case["dkv_bound_ms"],
         "bound_by": bwd_case["dkv_bound_by"],
         "library_ms": bwd_case["library_ms"],

@@ -1,29 +1,38 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA C++: kernels B4 (dq) and
-// B5 (dk, dv).
+// Flash-attention backward for Hopper (sm_90a), CUDA C++: kernels B4 (dq)
+// and B5 (dk, dv).
 //
 // Replace the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
 // mxnet_tpu/ops/pallas_kernels.py (launched by `_flash_backward` through
 // `pl.pallas_call`).  They compute the same function, not a block-for-block
-// copy.  Inputs: q, k, v, dO (B, H, T, D) in f32 or bf16; the forward's lse
-// (B, H, T) f32; delta = rowsum(dO * out) - dlse (B, H, T) f32, reduced in
-// torch before the launch.  Both kernels recompute the probabilities from
-// the saved lse instead of storing them:
+// copy.  Inputs: q, k, v, dO, out (B, H, T, D) in f32 or bf16; the forward's
+// lse (B, H, T) f32 and, for `flash_attention_with_lse`, its cotangent dlse.
+// Both kernels recompute the probabilities from the saved lse instead of
+// storing them:
 //
+//   delta = rowsum(dO * out) - dlse               (B4, written for B5)
 //   s  = q k^T * scale (+ bias), then causal / key-padding fill -1e30
 //   p  = exp(s - lse)          (lse anchored at 0 where lse <= -1e29, so a
 //                               row with no valid key has p = 0, not NaN)
-//   dp = (dO v^T) * keep       (keep: the dropout keep/rescale factor,
-//                               regenerated from the forward's seed words)
+//   dp = (dO v^T) * keep       (keep: the dropout keep/rescale factor)
 //   ds = p * (dp - delta) * scale
 //   dq = ds @ k                               (B4, q-major)
 //   dv = (p * keep)^T @ dO,  dk = ds^T @ q    (B5, k-major)
 //
 // ds is rounded to the input type before it meets k or q, and p * keep to
 // dO's type before it meets dO, as the reference rounds them; the products
-// accumulate in f32 and dq, dk, dv are stored in the input type.  Dropout
-// bits come from the threefry2x32 device function that the forward uses
+// accumulate in f32 and dq, dk, dv are stored in the input type.
+//
+// The dropout bits are drawn once per backward.  B4, launched first, draws
+// them from the threefry2x32 device function the forward uses
 // (flash_attention_common.cuh), keyed by (seed, batch*head) with global
-// (q_pos, k_pos) counters, so all three kernels draw bit-identical masks.
+// (q_pos, k_pos) counters, and writes them packed: uint32 words (B, H, T,
+// ceil(T/32)), bit j of word w in row q = keep(q, 32w + j), the first plane
+// of a (2, B, H, T, ceil(T/32)) buffer whose second plane marks the pairs
+// whose rounding is derived again (below).  B5 reads both instead of running
+// threefry.  Pairs where p is exactly 0 (a padding key, a
+// causally hidden pair, a key past T) are not drawn: their bit is 0, and ds
+// and p * keep are 0 there whatever it is.  Words of tiles B4 skips are not
+// written; B5 skips the same pairs.
 //
 // Work skipped, as in the reference: B4 stops its K loop at the causal
 // diagonal and at the batch row's `kend` (1 + its last valid key); B5 starts
@@ -31,26 +40,55 @@
 // past `kend`.  Every dk/dv row is still written: rows of a skipped K tile
 // get exact zeros, as the reference's `_finish` writes its zero accumulator.
 //
-// What bounds it.  At the training path's shape (B=32, H=12, T=128, D=64,
-// bf16, about 3/4 of the keys valid) B4 moves ~25 MB (q, k, v, dO, dq, lse,
-// delta) and does 3 products of 2*D flops per live (query, key) pair, B5
-// ~31 MB and 4 products: on the data sheet both are bound by bytes, at a few
-// microseconds.  Like B3, these first kernels run the products as scalar f32
-// FMAs on the CUDA cores (67 TF/s peak), fed from shared memory, so the FMA
-// pipe bounds them; chip_smoke.py times them against their bound and
-// PERF.md keeps the numbers.
+// What bounds it.  At the BERT training path's shape (B=32, H=12, T=128,
+// D=64, bf16, about 3/4 of the keys valid, dropout 0.1) B4 moves ~25 MB and
+// B5 ~31 MB (7.5-9 us at 3.35 TB/s); their products, 3 and 4 of 2*D flops
+// per live pair, are ~2-3 us on the bf16 tensor cores.  Neither sets the
+// pace: the work per score element does.  Threefry2x32 is ~70 integer
+// instructions a pair (B4 draws ~5 M), and every element is recomputed from
+// the saved lse, masked, tested against its rounding tie (below) and
+// rounded, in both kernels; a block runs two tile steps at T = 128.
+// chip_smoke.py times both against their bound; PERF.md keeps the numbers.
 //
-// What the design does about it.  Each block owns one 64-row tile (queries
-// for B4, keys for B5) of one (batch, head) and keeps it and its partner
-// operand (dO for B4, v for B5) in shared memory for the whole loop, so the
-// (T, T) scores, probabilities and their gradients never leave the chip.  A
-// thread holds a 4 x 8 register tile of s and dp (both products share one
-// pass over D) and 4 x D/8 tiles of its outputs; the tile of ds (and of
-// p * keep for B5) goes through shared memory, rows padded by one float so
-// the lanes of a warp hit distinct banks, and each warp reads back only the
-// rows its own lanes wrote.  f32 inputs stay true f32 (no TF32); bf16 inputs
-// widen to f32 exactly.  Tensor cores (wgmma), TMA and a pipelined loop are
-// the next steps toward the bound.
+// What the design does about it.
+// - bf16: the products run on the tensor cores, mma.sync m16n8k16 (bf16 in,
+//   f32 accumulate), fed by ldmatrix from bf16 tiles kept in shared memory
+//   in their row-major (T, D) layout: s = q k^T and dp = dO v^T (B4), and
+//   st = k q^T and dpt = v dO^T (B5), take k, v, q, dO as the "col" operand
+//   straight from their rows; dq = ds k, dv = (p keep)^T dO and dk = ds^T q
+//   take k, dO and q through ldmatrix.trans.  ds and p * keep are rounded to
+//   bf16 in registers, straight from the accumulator fragments, and feed the
+//   next product as its A operand without a trip through shared memory.
+//   Rows are padded by 8 elements (16 bytes) so an ldmatrix hits distinct
+//   banks.  Four warps own a 64-row tile, 16 rows each.  Tiles arrive by
+//   16-byte cp.async, and the next K/V tile (B4) or Q/dO tile (B5) is
+//   prefetched into a second buffer while the current one is computed.  The
+//   MMA rate is not what bounds it, so wgmma and TMA are not used.  From
+//   D = 64 on, B4 takes 32-key and B5 32-query tiles, so that the
+//   accumulators and the score fragments leave room for three blocks an SM.
+// - The rounding points decide single bf16 values, so where s or dp comes
+//   out of the tensor cores a few f32 ulps away from a sequential f32 sum,
+//   ds or p * keep can round to the neighbouring bf16: one such term of
+//   0.1-1 moves a gradient by a few 1e-3, past chip_smoke.py's allowance
+//   against the plain version (BWD_TOL), which holds for an order of sums
+//   that matches the plain version's at the rounding points.  Each element
+//   whose f32 ds (or p * keep) lies within an error bound of a bf16
+//   rounding tie (bound: 6 * 2^-24 |q| |k| for s and |dO| |v| for dp, row
+//   norms taken from the tiles; chip_smoke.py measures the tensor cores'
+//   error against it) is derived again, with s and dp as sequential f32
+//   FMAs over d, in the plain version's order, and that value is rounded
+//   instead.  About 2 % of the elements are, through a per-warp queue in
+//   shared memory that all 32 lanes work off together.  B4 decides for both
+//   kernels, with twice the bound, and writes its decisions as packed words
+//   beside the keep bits; B5 reads them.  For the same reason B4 sums delta
+//   in the order of torch's CUDA sum over the last dim, which the plain
+//   version's delta takes.
+// - The dropout bits are drawn once (B4) and read as packed words (B5), and
+//   delta is a row sum inside B4, not torch passes over f32 copies.
+// - f32 stays true f32 (no TF32): its kernels keep scalar f32 FMAs on the
+//   CUDA cores, with 4 x 8 register tiles, f32 tiles in shared memory (rows
+//   padded by one float), and the same delta and keep-word contract.
+// - No atomics: dq is q-major, dk and dv k-major, so results repeat bitwise.
 
 #include "flash_attention_common.cuh"
 
@@ -59,24 +97,31 @@ namespace {
 using flash::BH_FOLD;
 using flash::MASKED_ROW;
 using flash::NEG_INF;
-using flash::from_f32;
-using flash::keep_scale;
-using flash::round_to;
+using flash::threefry2x32;
 using flash::to_f32;
 
-constexpr int BQ = 64;          // query rows per tile
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;          // query rows per B4 tile
 constexpr int BK = 64;          // keys per tile
 constexpr int NTHREADS = 128;   // 4 warps x 16 rows of the block's own tile
-constexpr int R = 4;            // tile rows per thread
-constexpr int C = 8;            // columns per thread of the other tile: cg + 8 * j
+constexpr int R = 4;            // f32 kernels: tile rows per thread
+constexpr int C = 8;            // f32 kernels: columns per thread, cg + 8 * j
+constexpr int PAD = 8;          // bf16 kernels: elements of padding per row
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const void* dout;
+  const void* out;       // B4: the forward's output, for delta
   const float* lse;      // (B, H, T) from the forward
-  const float* delta;    // (B, H, T) rowsum(dO * out) - dlse
+  const float* dlse;     // B4: (B, H, T) lse cotangent, or null
+  float* delta;          // (B, H, T) rowsum(dO * out) - dlse: B4 writes
+  uint32_t* keep;        // (2, B, H, T, W) words: B4 writes, B5 reads
+                         // [0] the dropout keep bits, [1] (bf16) the pairs
+                         // whose rounding is derived again
+  unsigned long long* stats;   // bf16: += elements derived again, or null
   void* dq;
   void* dk;
   void* dv;
@@ -86,6 +131,7 @@ struct Params {
   long long bias_sb;
   long long bias_sh;
   int B, H, T;
+  int W;                 // keep words per query row, ceil(T / 32)
   float scale;
   int causal;
   int dropout;
@@ -93,45 +139,938 @@ struct Params {
   float inv_keep;
 };
 
-// Copy rows [r0, r0 + 64) of a (T, D) slab into shared memory as f32 with
-// row stride D + 1; rows at or past T are zeros.
+// delta = rowsum(dO * out) - dlse of the block's query rows [q0, q0 + 64),
+// into sDel (zeros past T) and p.delta, two threads a row.  Summed in the
+// order of torch's CUDA sum over a contiguous last dim of D values (ATen's
+// Reduce.cuh): each of min(D, 32) lanes adds its elements in turn (D < 128:
+// i, i + 32, ...; D = 128: its 4-vector 4i .. 4i + 3), then a shuffle-down
+// tree over the lanes; each product is rounded on its own.  So delta equals
+// the plain version's `(dout.float() * out.float()).sum(-1)` bit for bit,
+// and ds meets its rounding point with the plain version's operands.
 template <typename S, int D>
-__device__ __forceinline__ void load_tile(float* dst, const S* src, int r0,
+__device__ __forceinline__ void block_delta(const Params& p, int bh, int q0,
+                                            float* sDel) {
+  constexpr int BW = D < 32 ? D : 32;   // lanes of torch's block row
+  constexpr int PER = D / BW;           // elements a lane adds
+  constexpr int HALF = BW / 2;          // lanes this thread stands for
+  // the thread's elements lie in PER runs of HALF (D < 128) or in one run
+  // of D / 2 (D = 128), each 16-byte aligned
+  constexpr int RUN = D >= 128 ? D / 2 : HALF;
+  constexpr int NRUN = D / 2 / RUN;
+  constexpr int V = 16 / sizeof(S);
+  const int r = threadIdx.x >> 1;
+  const int h = threadIdx.x & 1;
+  const int qpos = q0 + r;
+  const size_t row = static_cast<size_t>(bh) * p.T + (qpos < p.T ? qpos : 0);
+  const S* a = static_cast<const S*>(p.dout) + row * D;
+  const S* b = static_cast<const S*>(p.out) + row * D;
+  uint4 ra[D / 2 / V], rb[D / 2 / V];
+#pragma unroll
+  for (int k = 0; k < NRUN; ++k) {
+    const int start = D >= 128 ? h * RUN : h * HALF + BW * k;
+#pragma unroll
+    for (int c = 0; c < RUN / V; ++c) {
+      ra[k * RUN / V + c] = *reinterpret_cast<const uint4*>(a + start + c * V);
+      rb[k * RUN / V + c] = *reinterpret_cast<const uint4*>(b + start + c * V);
+    }
+  }
+  const S* xa = reinterpret_cast<const S*>(ra);
+  const S* xb = reinterpret_cast<const S*>(rb);
+  float v[HALF];
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      // element lane + BW j (D < 128) or PER lane + j (D = 128), lane =
+      // h HALF + i, as held in xa / xb
+      const int at = D >= 128 ? PER * i + j : RUN * j + i;
+      const float x = __fmul_rn(to_f32(xa[at]), to_f32(xb[at]));
+      v[i] = j == 0 ? x : __fadd_rn(v[i], x);
+    }
+  }
+  // the tree's first level pairs lane i with lane i + HALF: the partner
+  // thread's v[i]
+#pragma unroll
+  for (int i = 0; i < HALF; ++i)
+    v[i] = __fadd_rn(v[i], __shfl_xor_sync(0xffffffffu, v[i], 1));
+#pragma unroll
+  for (int o = HALF / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < o; ++i) v[i] = __fadd_rn(v[i], v[i + o]);
+  if (h == 0) {
+    float d = 0.f;
+    if (qpos < p.T) {
+      d = p.dlse != nullptr ? __fsub_rn(v[0], p.dlse[row]) : v[0];
+      p.delta[row] = d;
+    }
+    sDel[r] = d;
+  }
+}
+
+// The keep bit of pair (q_pos, k_pos), drawn as the forward draws it.
+__device__ __forceinline__ bool draw_keep(const Params& p, uint32_t key0,
+                                          int q_pos, int k_pos) {
+  return threefry2x32(key0, p.seed1, static_cast<uint32_t>(q_pos),
+                      static_cast<uint32_t>(k_pos)) < p.thr;
+}
+
+__device__ __forceinline__ size_t keep_at(const Params& p, int bh, int q_pos,
+                                          int word) {
+  return (static_cast<size_t>(bh) * p.T + q_pos) * p.W + word;
+}
+
+// The same word in the plane of pairs to derive again.
+__device__ __forceinline__ size_t redo_at(const Params& p, int bh, int q_pos,
+                                          int word) {
+  return static_cast<size_t>(p.B) * p.H * p.T * p.W +
+         keep_at(p, bh, q_pos, word);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 (or 4) bytes from global to shared memory, zero-filled when !valid
+// (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float bf16_value(uint32_t bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// An A operand (16 x 16) from accumulator fragments n-blocks 2kk, 2kk + 1.
+__device__ __forceinline__ void to_a_frag(uint32_t (&a)[4],
+                                          const float (&c0)[4],
+                                          const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Rows [r0, r0 + ROWS) of a (T, D) bf16 slab into shared memory at dst (row
+// stride D + PAD elements) by 16-byte cp.async; rows at or past T are zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const bf16* src,
+                                          int r0, int T) {
+  constexpr int CPR = D / 8;   // 16-byte chunks a row
+  static_assert(ROWS * CPR % NTHREADS == 0, "tile does not split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / NTHREADS; ++i) {
+    const int c = threadIdx.x + i * NTHREADS;
+    const int r = c / CPR;
+    const int col = (c % CPR) * 8;
+    const int row = r0 + r;
+    const bool ok = row < T;
+    cp_async16(dst + (r * (D + PAD) + col) * 2,
+               src + static_cast<size_t>(ok ? row : 0) * D + col, ok);
+  }
+}
+
+// Euclidean norms of the ROWS rows of two bf16 tiles in shared memory, two
+// threads a row (for the error bound of the products over them).
+template <int D, int ROWS>
+__device__ __forceinline__ void tile_norms(const bf16* a, const bf16* b,
+                                           float* na, float* nb) {
+  static_assert(2 * ROWS <= NTHREADS, "two threads a row");
+  const int r = threadIdx.x >> 1;
+  const int half = threadIdx.x & 1;
+  float sa = 0.f, sb = 0.f;
+  if (r < ROWS) {
+#pragma unroll
+    for (int d = half * D / 2; d < (half + 1) * D / 2; d += 2) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(a + r * (D + PAD) + d));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(b + r * (D + PAD) + d));
+      sa += x.x * x.x + x.y * x.y;
+      sb += y.x * y.x + y.y * y.y;
+    }
+  }
+  sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+  sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+  if (r < ROWS && half == 0) {
+    na[r] = sqrtf(sa);
+    nb[r] = sqrtf(sb);
+  }
+}
+
+// sum_d a[d] * b[d] as sequential f32 FMAs in d order from 0, as the plain
+// version's f32 matmul sums: the value the rounding points must see.
+template <int D>
+__device__ __forceinline__ float seq_dot(const bf16* a, const bf16* b) {
+  float acc = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(a + d);
+    const uint4 y = *reinterpret_cast<const uint4*>(b + d);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      acc = __fmaf_rn(__uint_as_float(xs[w] << 16),
+                      __uint_as_float(ys[w] << 16), acc);
+      acc = __fmaf_rn(__uint_as_float(xs[w] & 0xFFFF0000u),
+                      __uint_as_float(ys[w] & 0xFFFF0000u), acc);
+    }
+  }
+  return acc;
+}
+
+// Bound on |s (tensor cores) - s (sequential FMAs)| per unit of |a| |b|:
+// both sums of D exact bf16 products err by a few f32 ulps of the
+// products' magnitude, and sum_d |a_d b_d| <= |a| |b|
+// (chip_smoke.py phase 1b measures it on the card)
+constexpr float SUM_ERR = 6 * 5.9604645e-8f;   // 6 * 2^-24
+
+// Whether f32 x, known to within abs_err of the value the plain version
+// computes, could round to another bf16 than that value does: x lies within
+// abs_err (plus 4 ulps) of a bf16 rounding tie (low 16 bits 0x8000).
+__device__ __forceinline__ bool near_tie(float x, float abs_err) {
+  const float ax = fabsf(x);
+  const int dist =
+      abs(static_cast<int>(__float_as_uint(x) & 0xFFFFu) - 0x8000);
+  // ulp(x) >= |x| 2^-24, so abs_err spans at most abs_err 2^24 / |x| ulps
+  return ax != 0.f && static_cast<float>(dist) * ax <=
+                          abs_err * 16777216.f + 4.f * ax;
+}
+
+// Queue entry of an element to derive again: row within the warp's 16, column
+// within the tile, its keep bit.
+__device__ __forceinline__ uint32_t entry(int row, int col, bool kept) {
+  return static_cast<uint32_t>(col) | (static_cast<uint32_t>(row) << 7) |
+         (static_cast<uint32_t>(kept) << 11);
+}
+
+// Put the elements flagged in `risk` (bit e = slot e of this lane) into the
+// warp's queue, in slot order; returns the count.  slot_entry(e) is the
+// lane's entry for slot e.  Slots no lane flagged cost a test.
+template <int NSLOT, typename F>
+__device__ __forceinline__ int enqueue(uint32_t risk, uint32_t* queue,
+                                       F slot_entry) {
+  const uint32_t lane_lt = (1u << (threadIdx.x & 31)) - 1u;
+  const uint32_t any = __reduce_or_sync(0xffffffffu, risk);
+  int total = 0;
+#pragma unroll
+  for (int e = 0; e < NSLOT; ++e) {
+    if (!((any >> e) & 1u)) continue;
+    const bool rk = (risk >> e) & 1u;
+    const uint32_t bal = __ballot_sync(0xffffffffu, rk);
+    if (rk) queue[total + __popc(bal & lane_lt)] = slot_entry(e);
+    total += __popc(bal);
+  }
+  return total;
+}
+
+// The queue's results back to the lanes that flagged them, in the same
+// order: take(e, result) for each flagged slot e.
+template <int NSLOT, typename F>
+__device__ __forceinline__ void dequeue(uint32_t risk, const uint32_t* queue,
+                                        F take) {
+  const uint32_t lane_lt = (1u << (threadIdx.x & 31)) - 1u;
+  const uint32_t any = __reduce_or_sync(0xffffffffu, risk);
+  int total = 0;
+#pragma unroll
+  for (int e = 0; e < NSLOT; ++e) {
+    if (!((any >> e) & 1u)) continue;
+    const bool rk = (risk >> e) & 1u;
+    const uint32_t bal = __ballot_sync(0xffffffffu, rk);
+    if (rk) take(e, queue[total + __popc(bal & lane_lt)]);
+    total += __popc(bal);
+  }
+}
+
+// keys per B4 tile: narrower from D = 64 on, so that the score fragments
+// and the dq accumulators leave room for three blocks an SM
+template <int D>
+__host__ __device__ constexpr int dq_bk() {
+  return D >= 64 ? 32 : 64;
+}
+
+template <int D>
+constexpr size_t dq_bf16_smem_bytes() {
+  // q, dO, two K and two V tiles; lse, delta, q and dO norms; two buffers of
+  // K and V norms; the queue, 16 x KB entries a warp
+  return (2 * 64 + 4 * dq_bk<D>()) * (D + PAD) * 2 + 4 * 64 * 4 +
+         4 * dq_bk<D>() * 4 + 4 * 16 * dq_bk<D>() * 4;
+}
+
+// queries per B5 tile: narrower from D = 64 on, where the dk and dv
+// accumulators take 64 or more registers and the scores must leave room
+// for three blocks an SM
+template <int D>
+__host__ __device__ constexpr int dkv_bn() {
+  return D >= 64 ? 32 : 64;
+}
+
+template <int D>
+constexpr size_t dkv_bf16_smem_bytes() {
+  // K and V tiles; two buffers of q and dO tiles, lse, delta, keep words
+  // and the words of pairs to derive again; the queue, 16 x BN entries a
+  // warp
+  return (2 * 64 + 4 * dkv_bn<D>()) * (D + PAD) * 2 +
+         2 * dkv_bn<D>() * 24 + 4 * 16 * dkv_bn<D>() * 4;
+}
+
+// B4, bf16.  Grid: (ceil(T / BQ), B * H).  Warp w owns query rows
+// [16w, 16w + 16) of the tile, which walks K tiles of KB keys; lane = 4g + t
+// holds rows 16w + g and 16w + g + 8, score columns 8n + 2t, 8n + 2t + 1 of
+// each 8-key block n and dq columns likewise of each 8-wide block of D.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_bf16_kernel(const Params p) {
+  constexpr int KB = dq_bk<D>();
+  constexpr int NSLOT = KB / 2;     // score elements a lane holds
+  constexpr int RS = D + PAD;
+  constexpr uint32_t TILE_BYTES = KB * RS * 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* tQ = reinterpret_cast<bf16*>(smem);
+  bf16* tDO = tQ + 64 * RS;
+  bf16* tK = tDO + 64 * RS;                    // two buffers
+  bf16* tV = tK + 2 * KB * RS;                 // two buffers
+  float* sLse = reinterpret_cast<float*>(tV + 2 * KB * RS);
+  float* sDel = sLse + 64;
+  float* sQn = sDel + 64;
+  float* sOn = sQn + 64;
+  float* sKn = sOn + 64;                       // two buffers
+  float* sVn = sKn + 2 * KB;                   // two buffers
+  uint32_t* sQueue = reinterpret_cast<uint32_t*>(sVn + 2 * KB);
+  const uint32_t sQ = smem_u32(tQ);
+  const uint32_t sDO = smem_u32(tDO);
+  const uint32_t sK = smem_u32(tK);
+  const uint32_t sV = smem_u32(tV);
+
+  const int T = p.T;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  uint32_t* queue = sQueue + warp * 16 * KB;
+
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const bf16* K = static_cast<const bf16*>(p.k) + base;
+  const bf16* V = static_cast<const bf16*>(p.v) + base;
+  const bool masked = p.mask != nullptr;
+  const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+  const uint32_t key0 = p.seed0 ^ (static_cast<uint32_t>(bh) * BH_FOLD);
+
+  int kmax = T;
+  if (p.causal) kmax = min(kmax, q0 + BQ);
+  if (p.kend != nullptr) kmax = min(kmax, p.kend[b]);
+  const int n_tiles = (kmax + KB - 1) / KB;
+
+  copy_tile<D, 64>(sQ, static_cast<const bf16*>(p.q) + base, q0, T);
+  copy_tile<D, 64>(sDO, static_cast<const bf16*>(p.dout) + base, q0, T);
+  if (n_tiles > 0) {
+    copy_tile<D, KB>(sK, K, 0, T);
+    copy_tile<D, KB>(sV, V, 0, T);
+  }
+  cp_async_commit();
+  if (threadIdx.x < 64) {
+    const int qpos = q0 + threadIdx.x;
+    const size_t at = static_cast<size_t>(bh) * T + qpos;
+    float l = qpos < T ? p.lse[at] : 0.f;
+    if (masked && !(l > MASKED_ROW)) l = 0.f;
+    sLse[threadIdx.x] = l;
+  }
+  block_delta<bf16, D>(p, bh, q0, sDel);   // while the tiles arrive
+
+  int rows[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rows[i] = 16 * warp + g + 8 * i;
+
+  // ldmatrix lane addresses: A from (rows x k) storage; B from (n x k)
+  // storage; B from (k x n) storage through .trans
+  const int a_row = 16 * warp + (lane & 15);
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int t_col = (lane >> 4) * 8;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * KB;
+    const int nb = kt & 1;
+    const uint32_t buf = nb * TILE_BYTES;
+    if (kt + 1 < n_tiles) {       // prefetch the next K/V tile
+      copy_tile<D, KB>(sK + (TILE_BYTES - buf), K, k0 + KB, T);
+      copy_tile<D, KB>(sV + (TILE_BYTES - buf), V, k0 + KB, T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* cK = tK + nb * KB * RS;
+    const bf16* cV = tV + nb * KB * RS;
+    if (kt == 0) tile_norms<D, 64>(tQ, tDO, sQn, sOn);
+    tile_norms<D, KB>(cK, cV, sKn + nb * KB, sVn + nb * KB);
+    __syncthreads();
+
+    float s[KB / 8][4], dp[KB / 8][4];
+#pragma unroll
+    for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, sQ + (a_row * RS + ks * 16 + a_col) * 2);
+      ldsm_x4(oa, sDO + (a_row * RS + ks * 16 + a_col) * 2);
+#pragma unroll
+      for (int np = 0; np < KB / 16; ++np) {
+        const uint32_t off = ((np * 16 + b_row) * RS + ks * 16 + b_col) * 2;
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, sK + buf + off);
+        ldsm_x4(vb, sV + buf + off);
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
+        mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+      }
+    }
+
+    // ds into s; the keep bits and the pairs to derive again of this tile
+    // (words[i][w], redo[i][w] hold keys [32w, 32w + 32) of row i); the
+    // same for this lane's slots (risk, kept_bits), bit 4n + c for (n, c).
+    // A pair is derived again when its ds (B4, B5) or its p * keep (B5)
+    // lies near a rounding tie, by twice the bound of one kernel: B5 then
+    // reads the decision and rounds its own sums, equally near the plain
+    // version's, as settled wherever B4 did.
+    uint32_t words[2][KB / 32] = {}, redo[2][KB / 32] = {};
+    uint32_t risk = 0u, kept_bits = 0u;
+#pragma unroll
+    for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        const int qpos = q0 + rows[i];
+        const int kcol = n * 8 + 2 * t4 + (c & 1);
+        const int kpos = k0 + kcol;
+        float x = __fmul_rn(s[n][c], p.scale);
+        bool live = false;
+        if (kpos >= T) {
+          x = NEG_INF;   // ragged last tile: the key does not exist
+        } else {
+          if (brow != nullptr && qpos < T)
+            x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
+          if ((p.causal && qpos < kpos) || (masked && mrow[kpos] == 0))
+            x = NEG_INF;
+          else
+            live = qpos < T;
+        }
+        const float pj = expf(x - sLse[rows[i]]);
+        float dpj = dp[n][c];
+        float ksf = 1.f;
+        if (p.dropout) {
+          const bool kept = live && draw_keep(p, key0, qpos, kpos);
+          ksf = kept ? p.inv_keep : 0.f;
+          dpj = __fmul_rn(dpj, ksf);
+          words[i][n >> 2] |= static_cast<uint32_t>(kept) << (kcol & 31);
+          kept_bits |= static_cast<uint32_t>(kept) << (4 * n + c);
+        }
+        const float ds = pj * (dpj - sDel[rows[i]]) * p.scale;
+        const float pk = p.dropout ? __fmul_rn(pj, ksf) : pj;
+        if (live) {
+          const float ex = 2 * SUM_ERR * sQn[rows[i]] *
+                               sKn[nb * KB + kcol] * p.scale +
+                           fabsf(x) * 2.4e-7f;
+          const float edp = 2 * SUM_ERR * sOn[rows[i]] *
+                                sVn[nb * KB + kcol] * ksf +
+                            fabsf(dpj) * 2.4e-7f;
+          if (near_tie(ds, 1.01f * ex * fabsf(ds) + pj * p.scale * edp) ||
+              near_tie(pk, 1.01f * ex * fabsf(pk))) {
+            risk |= 1u << (4 * n + c);
+            redo[i][n >> 2] |= 1u << (kcol & 31);
+          }
+        }
+        s[n][c] = ds;   // rounded below
+      }
+
+    // ds again, in the plain version's order, where its rounding is in doubt
+    const int total = enqueue<NSLOT>(risk, queue, [&](int e) {
+      const int n = e >> 2, c = e & 3;
+      return entry(g + 8 * (c >> 1), n * 8 + 2 * t4 + (c & 1),
+                   (kept_bits >> e) & 1u);
+    });
+    if (total > 0) {
+      if (p.stats != nullptr && lane == 0)
+        atomicAdd(p.stats, static_cast<unsigned long long>(total));
+      __syncwarp();
+      for (int j = lane; j < total; j += 32) {
+        const uint32_t en = queue[j];
+        const int row = 16 * warp + ((en >> 7) & 15);
+        const int kcol = en & 127;
+        const int qpos = q0 + row;
+        const int kpos = k0 + kcol;
+        const float sv = seq_dot<D>(tQ + row * RS, cK + kcol * RS);
+        float dpv = seq_dot<D>(tDO + row * RS, cV + kcol * RS);
+        float x = __fmul_rn(sv, p.scale);
+        if (brow != nullptr)
+          x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
+        const float pj = expf(__fsub_rn(x, sLse[row]));
+        if (p.dropout)
+          dpv = __fmul_rn(dpv, (en >> 11) & 1u ? p.inv_keep : 0.f);
+        queue[j] = bf16_bits(__fmul_rn(
+            __fmul_rn(pj, __fsub_rn(dpv, sDel[row])), p.scale));
+      }
+      __syncwarp();
+      dequeue<NSLOT>(risk, queue, [&](int e, uint32_t r) {
+        s[e >> 2][e & 3] = bf16_value(r);
+      });
+    }
+
+    {
+      // gather each word from the four lanes of its row; lane t writes
+      // word t of the lane group's 2 * KB / 32 words, row-major
+      constexpr int NW = KB / 32;
+      uint32_t word = 0u, rword = 0u;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          if (p.dropout) {
+            words[i][w] |= __shfl_xor_sync(0xffffffffu, words[i][w], 1);
+            words[i][w] |= __shfl_xor_sync(0xffffffffu, words[i][w], 2);
+          }
+          redo[i][w] |= __shfl_xor_sync(0xffffffffu, redo[i][w], 1);
+          redo[i][w] |= __shfl_xor_sync(0xffffffffu, redo[i][w], 2);
+          if (t4 == i * NW + w) {
+            word = words[i][w];
+            rword = redo[i][w];
+          }
+        }
+      const int i = t4 / NW;
+      const int qpos = q0 + rows[i < 2 ? i : 1];
+      const int widx = (k0 >> 5) + t4 % NW;
+      if (i < 2 && qpos < T && widx < p.W) {
+        if (p.dropout) p.keep[keep_at(p, bh, qpos, widx)] = word;
+        p.keep[redo_at(p, bh, qpos, widx)] = rword;
+      }
+    }
+
+    // dq += ds k: ds meets k in k's type (the reference casts ds to k.dtype)
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      uint32_t da[4];
+      to_a_frag(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t kb[4];
+        ldsm_x4_t(kb, sK + buf + ((kk * 16 + t_row) * RS + n2 * 16 + t_col) * 2);
+        mma_bf16(acc[2 * n2], da, kb[0], kb[1]);
+        mma_bf16(acc[2 * n2 + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+  bf16* DQ = static_cast<bf16*>(p.dq) + base;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = q0 + rows[i];
+    if (qpos >= T) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(DQ + static_cast<size_t>(qpos) * D + n * 8 +
+                                   2 * t4) =
+          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// B5, bf16.  Grid: (ceil(T / BK), B * H).  The same fragment layout in
+// transposed (k-major) score space: warp w owns key rows [16w, 16w + 16) of
+// the tile, each Q tile is BN queries wide.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_bf16_kernel(const Params p) {
+  constexpr int BN = dkv_bn<D>();
+  constexpr int NSLOT = BN / 2;     // score elements a lane holds
+  constexpr int RS = D + PAD;
+  constexpr uint32_t KTILE = 64 * RS * 2;
+  constexpr uint32_t QTILE = BN * RS * 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* tK = reinterpret_cast<bf16*>(smem);
+  bf16* tV = tK + 64 * RS;
+  bf16* tQ = tV + 64 * RS;                     // two buffers
+  bf16* tDO = tQ + 2 * BN * RS;                // two buffers
+  float* sLse = reinterpret_cast<float*>(tDO + 2 * BN * RS);   // two buffers
+  float* sDel = sLse + 2 * BN;                                 // each, from
+  uint32_t* sKeep = reinterpret_cast<uint32_t*>(sDel + 2 * BN);   // here:
+  uint32_t* sRedo = sKeep + 4 * BN;            // [2][BN][2] words each
+  uint32_t* sQueue = sRedo + 4 * BN;
+  const uint32_t sK = smem_u32(tK);
+  const uint32_t sV = smem_u32(tV);
+  const uint32_t sQ = smem_u32(tQ);
+  const uint32_t sDO = smem_u32(tDO);
+
+  const int T = p.T;
+  const int k0 = blockIdx.x * BK;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  uint32_t* queue = sQueue + warp * 16 * BN;
+
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const bf16* Q = static_cast<const bf16*>(p.q) + base;
+  const bf16* DO = static_cast<const bf16*>(p.dout) + base;
+  const bool masked = p.mask != nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+
+  // a key that does not exist (ragged last tile) or is padding
+  int rows[2];
+  bool dead[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = 16 * warp + g + 8 * i;
+    const int kpos = k0 + rows[i];
+    dead[i] = kpos >= T ||
+              (masked && p.mask[static_cast<size_t>(b) * T + kpos] == 0);
+  }
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+
+  // A K tile at or past kend sees no query: it keeps its zero accumulators.
+  const bool alive = p.kend == nullptr || k0 < p.kend[b];
+  // Causal: Q tiles wholly before the diagonal see nothing of this K tile.
+  const int first_qt = p.causal ? k0 / BN : 0;
+  const int n_qt = alive ? (T + BN - 1) / BN : 0;
+
+  // Q tile qt (q, dO, lse, delta and this K tile's two keep words and two
+  // words of pairs to derive again a query) into buffer `buf`
+  auto stage = [&](int qt, int buf) {
+    const int q0 = qt * BN;
+    copy_tile<D, BN>(sQ + buf * QTILE, Q, q0, T);
+    copy_tile<D, BN>(sDO + buf * QTILE, DO, q0, T);
+    for (int i = threadIdx.x; i < BN; i += NTHREADS) {
+      const int qpos = q0 + i;
+      const bool ok = qpos < T;
+      const size_t at = static_cast<size_t>(bh) * T + (ok ? qpos : 0);
+      cp_async4(smem_u32(sLse + buf * BN + i), p.lse + at, ok);
+      cp_async4(smem_u32(sDel + buf * BN + i), p.delta + at, ok);
+    }
+    for (int i = threadIdx.x; i < 2 * BN; i += NTHREADS) {
+      const int qpos = q0 + (i >> 1);
+      const int widx = (k0 >> 5) + (i & 1);
+      const bool ok = qpos < T && widx < p.W;
+      if (p.dropout)
+        cp_async4(smem_u32(sKeep + buf * 2 * BN + i),
+                  p.keep + (ok ? keep_at(p, bh, qpos, widx) : 0), ok);
+      cp_async4(smem_u32(sRedo + buf * 2 * BN + i),
+                p.keep + (ok ? redo_at(p, bh, qpos, widx) : 0), ok);
+    }
+  };
+
+  if (first_qt < n_qt) {
+    copy_tile<D, 64>(sK, static_cast<const bf16*>(p.k) + base, k0, T);
+    copy_tile<D, 64>(sV, static_cast<const bf16*>(p.v) + base, k0, T);
+    stage(first_qt, 0);
+    cp_async_commit();
+  }
+
+  const int a_row = 16 * warp + (lane & 15);
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int t_col = (lane >> 4) * 8;
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    const int buf = (qt - first_qt) & 1;
+    if (qt + 1 < n_qt) {           // prefetch the next Q tile
+      stage(qt + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = qt * BN;
+    const bf16* cQ = tQ + buf * BN * RS;
+    const bf16* cDO = tDO + buf * BN * RS;
+    const float* lse = sLse + buf * BN;
+    const float* del = sDel + buf * BN;
+    const uint32_t* keep = sKeep + buf * 2 * BN;
+    const uint32_t* redo = sRedo + buf * 2 * BN;
+    const uint32_t qb_base = sQ + buf * QTILE;
+    const uint32_t ob_base = sDO + buf * QTILE;
+
+    float st[BN / 8][4], dpt[BN / 8][4];
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, sK + (a_row * RS + ks * 16 + a_col) * 2);
+      ldsm_x4(va, sV + (a_row * RS + ks * 16 + a_col) * 2);
+#pragma unroll
+      for (int np = 0; np < BN / 16; ++np) {
+        const uint32_t off = ((np * 16 + b_row) * RS + ks * 16 + b_col) * 2;
+        uint32_t qb[4], ob[4];
+        ldsm_x4(qb, qb_base + off);
+        ldsm_x4(ob, ob_base + off);
+        mma_bf16(st[2 * np], ka, qb[0], qb[1]);
+        mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
+        mma_bf16(dpt[2 * np], va, ob[0], ob[1]);
+        mma_bf16(dpt[2 * np + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    // p * keep into st, ds into dpt (both rounded below); the elements B4
+    // marked to derive again (risk) and their keep bits, bit 4n + c for
+    // slot (n, c).  Words of tiles B4 skipped are not written, but their
+    // pairs are not live.
+    uint32_t risk = 0u, kept_bits = 0u;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        const int kpos = k0 + rows[i];
+        const int qc = n * 8 + 2 * t4 + (c & 1);
+        const int qpos = q0 + qc;
+        float x = __fmul_rn(st[n][c], p.scale);
+        bool live = false;
+        if (qpos >= T || kpos >= T) {
+          x = NEG_INF;   // ragged last tiles: the query or key does not exist
+        } else {
+          if (brow != nullptr)
+            x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
+          if ((p.causal && qpos < kpos) || dead[i])
+            x = NEG_INF;
+          else
+            live = true;
+        }
+        float l = lse[qc];
+        if (masked && !(l > MASKED_ROW)) l = 0.f;
+        const float pj = expf(x - l);
+        float ksf = 1.f;
+        float dpj = dpt[n][c];
+        if (p.dropout) {
+          const bool kept =
+              (keep[2 * qc + (rows[i] >> 5)] >> (rows[i] & 31)) & 1u;
+          ksf = kept ? p.inv_keep : 0.f;
+          dpj = __fmul_rn(dpj, ksf);
+          kept_bits |= static_cast<uint32_t>(kept) << (4 * n + c);
+        }
+        if (live && ((redo[2 * qc + (rows[i] >> 5)] >> (rows[i] & 31)) & 1u))
+          risk |= 1u << (4 * n + c);
+        st[n][c] = p.dropout ? __fmul_rn(pj, ksf) : pj;
+        const float ds = pj * (dpj - del[qc]) * p.scale;
+        dpt[n][c] = ds;
+      }
+
+    // p * keep and ds again, in the plain version's order, where a
+    // rounding is in doubt; the queue returns both rounded, (ds << 16) | pk
+    const int total = enqueue<NSLOT>(risk, queue, [&](int e) {
+      const int n = e >> 2, c = e & 3;
+      return entry(g + 8 * (c >> 1), n * 8 + 2 * t4 + (c & 1),
+                   (kept_bits >> e) & 1u);
+    });
+    if (total > 0) {
+      if (p.stats != nullptr && lane == 0)
+        atomicAdd(p.stats, static_cast<unsigned long long>(total));
+      __syncwarp();
+      for (int j = lane; j < total; j += 32) {
+        const uint32_t en = queue[j];
+        const int kr = 16 * warp + ((en >> 7) & 15);
+        const int qc = en & 127;
+        const int qpos = q0 + qc;
+        const int kpos = k0 + kr;
+        const float sv = seq_dot<D>(cQ + qc * RS, tK + kr * RS);
+        float dpv = seq_dot<D>(cDO + qc * RS, tV + kr * RS);
+        float x = __fmul_rn(sv, p.scale);
+        if (brow != nullptr)
+          x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
+        float l = lse[qc];
+        if (masked && !(l > MASKED_ROW)) l = 0.f;
+        const float pj = expf(__fsub_rn(x, l));
+        float pk = pj;
+        if (p.dropout) {
+          const float ksf = (en >> 11) & 1u ? p.inv_keep : 0.f;
+          pk = __fmul_rn(pj, ksf);
+          dpv = __fmul_rn(dpv, ksf);
+        }
+        const float ds =
+            __fmul_rn(__fmul_rn(pj, __fsub_rn(dpv, del[qc])), p.scale);
+        queue[j] = bf16_bits(pk) | (bf16_bits(ds) << 16);
+      }
+      __syncwarp();
+      dequeue<NSLOT>(risk, queue, [&](int e, uint32_t r) {
+        st[e >> 2][e & 3] = bf16_value(r & 0xFFFFu);
+        dpt[e >> 2][e & 3] = bf16_value(r >> 16);
+      });
+    }
+
+    // dv += (p keep)^T dO in dO's type, dk += ds^T q in q's type
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      to_a_frag(pa, st[2 * kk], st[2 * kk + 1]);
+      to_a_frag(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        const uint32_t off = ((kk * 16 + t_row) * RS + n2 * 16 + t_col) * 2;
+        uint32_t ob[4], qb[4];
+        ldsm_x4_t(ob, ob_base + off);
+        mma_bf16(dv[2 * n2], pa, ob[0], ob[1]);
+        mma_bf16(dv[2 * n2 + 1], pa, ob[2], ob[3]);
+        ldsm_x4_t(qb, qb_base + off);
+        mma_bf16(dk[2 * n2], da, qb[0], qb[1]);
+        mma_bf16(dk[2 * n2 + 1], da, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+  bf16* DK = static_cast<bf16*>(p.dk) + base;
+  bf16* DV = static_cast<bf16*>(p.dv) + base;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = k0 + rows[i];
+    if (kpos >= T) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const size_t at = static_cast<size_t>(kpos) * D + n * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(DK + at) =
+          pack_bf16(dk[n][2 * i], dk[n][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(DV + at) =
+          pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMAs (true f32)
+// ---------------------------------------------------------------------------
+
+// Copy rows [r0, r0 + 64) of a (T, D) slab into shared memory with row
+// stride D + 1; rows at or past T are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
                                           int T) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += NTHREADS) {
     const int r = idx / D;
     const int c = idx - r * D;
     const int row = r0 + r;
-    dst[r * (D + 1) + c] =
-        row < T ? to_f32(src[static_cast<size_t>(row) * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = row < T ? src[static_cast<size_t>(row) * D + c]
+                                   : 0.f;
   }
 }
 
 template <int D>
-constexpr size_t dq_smem_floats() {
-  return 4 * 64 * (D + 1) + BQ * (BK + 1);
+constexpr size_t dq_f32_smem_bytes() {
+  return (4 * 64 * (D + 1) + BQ * (BK + 1) + BQ) * 4;
 }
 
 template <int D>
-constexpr size_t dkv_smem_floats() {
-  return 4 * 64 * (D + 1) + 2 * BQ + 2 * BK * (BQ + 1);
+constexpr size_t dkv_f32_smem_bytes() {
+  return (4 * 64 * (D + 1) + 2 * BQ + 2 * BK * (BQ + 1) + 2 * BQ) * 4;
 }
 
-// B4.  Grid: (ceil(T / BQ), B * H).  Warp w owns query rows [16w, 16w + 16)
-// of the tile; lane = 8 * rg + cg owns rows 16w + 4rg + i (i < 4), score
-// columns cg + 8j (j < 8) and dq columns cg + 8j (j < D/8).
-template <typename S, int D>
+// B4, f32.  Grid: (ceil(T / BQ), B * H).  Warp w owns query rows
+// [16w, 16w + 16) of the tile; lane = 8 * rg + cg owns rows 16w + 4rg + i
+// (i < 4), score columns cg + 8j (j < 8) and dq columns cg + 8j (j < D/8).
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const Params p) {
+flash_bwd_dq_f32_kernel(const Params p) {
   constexpr int RS = D + 1;
   constexpr int PS = BK + 1;
   constexpr int DC = D / 8;
-  extern __shared__ float smem[];
-  float* sQ = smem;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
   float* sDO = sQ + BQ * RS;
   float* sK = sDO + BQ * RS;
   float* sV = sK + BK * RS;
   float* sDS = sV + BK * RS;
+  float* sDel = sDS + BQ * PS;
 
   const int T = p.T;
   const int q0 = blockIdx.x * BQ;
@@ -143,16 +1082,18 @@ flash_bwd_dq_kernel(const Params p) {
   const int row0 = (threadIdx.x >> 5) * 16 + (lane >> 3) * R;
 
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const S* K = static_cast<const S*>(p.k) + base;
-  const S* V = static_cast<const S*>(p.v) + base;
+  const float* K = static_cast<const float*>(p.k) + base;
+  const float* V = static_cast<const float*>(p.v) + base;
   const bool masked = p.mask != nullptr;
   const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
                              : nullptr;
   const uint32_t key0 = p.seed0 ^ (static_cast<uint32_t>(bh) * BH_FOLD);
 
-  load_tile<S, D>(sQ, static_cast<const S*>(p.q) + base, q0, T);
-  load_tile<S, D>(sDO, static_cast<const S*>(p.dout) + base, q0, T);
+  load_tile<D>(sQ, static_cast<const float*>(p.q) + base, q0, T);
+  load_tile<D>(sDO, static_cast<const float*>(p.dout) + base, q0, T);
+  block_delta<float, D>(p, bh, q0, sDel);
+  __syncthreads();
 
   float lse[R], delta[R], acc[R][DC];
 #pragma unroll
@@ -160,7 +1101,7 @@ flash_bwd_dq_kernel(const Params p) {
     const int qpos = q0 + row0 + i;
     const size_t at = static_cast<size_t>(bh) * T + qpos;
     lse[i] = qpos < T ? p.lse[at] : 0.f;
-    delta[i] = qpos < T ? p.delta[at] : 0.f;
+    delta[i] = sDel[row0 + i];
     if (masked && !(lse[i] > MASKED_ROW)) lse[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
@@ -174,8 +1115,8 @@ flash_bwd_dq_kernel(const Params p) {
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // every warp is done with the previous sK / sV
-    load_tile<S, D>(sK, K, k0, T);
-    load_tile<S, D>(sV, V, k0, T);
+    load_tile<D>(sK, K, k0, T);
+    load_tile<D>(sV, V, k0, T);
     __syncthreads();
 
     float s[R][C], dp[R][C];
@@ -205,29 +1146,57 @@ flash_bwd_dq_kernel(const Params p) {
         }
     }
 
+    // words[i][w]: this lane's keep bits of row i, keys [32w, 32w + 32)
+    uint32_t words[R][2];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
+      words[i][0] = words[i][1] = 0u;
       const int qpos = q0 + row0 + i;
 #pragma unroll
       for (int j = 0; j < C; ++j) {
         const int kpos = k0 + cg + 8 * j;
         float x = s[i][j] * p.scale;
+        bool live = false;
         if (kpos >= T) {
           x = NEG_INF;   // ragged last tile: the key does not exist
         } else {
           if (brow != nullptr && qpos < T)
             x += brow[static_cast<size_t>(qpos) * T + kpos];
-          if (p.causal && qpos < kpos) x = NEG_INF;
-          if (masked && mrow[kpos] == 0) x = NEG_INF;
+          if ((p.causal && qpos < kpos) || (masked && mrow[kpos] == 0))
+            x = NEG_INF;
+          else
+            live = qpos < T;
         }
         const float pj = expf(x - lse[i]);
         float dpj = dp[i][j];
-        if (p.dropout)
-          dpj *= keep_scale(key0, p.seed1, qpos, kpos, p.thr, p.inv_keep);
-        // ds meets k in k's type (the reference casts ds to k.dtype)
-        sDS[(row0 + i) * PS + cg + 8 * j] =
-            round_to<S>(pj * (dpj - delta[i]) * p.scale);
+        if (p.dropout) {
+          const bool kept = live && draw_keep(p, key0, qpos, kpos);
+          dpj *= kept ? p.inv_keep : 0.f;
+          words[i][j >> 2] |= static_cast<uint32_t>(kept)
+                              << (cg + 8 * (j & 3));
+        }
+        sDS[(row0 + i) * PS + cg + 8 * j] = pj * (dpj - delta[i]) * p.scale;
       }
+    }
+    if (p.dropout) {
+      // gather each word from the 8 lanes of its rows; lane cg writes
+      // (row cg / 2, word cg % 2)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int w = 0; w < 2; ++w)
+#pragma unroll
+          for (int x = 1; x < 8; x <<= 1)
+            words[i][w] |= __shfl_xor_sync(0xffffffffu, words[i][w], x);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int qpos = q0 + row0 + i;
+          const int widx = (k0 >> 5) + w;
+          if (cg == 2 * i + w && qpos < T && widx < p.W)
+            p.keep[keep_at(p, bh, qpos, widx)] = words[i][w];
+        }
     }
     // A warp reads back only the ds rows its own lanes wrote.
     __syncwarp();
@@ -246,29 +1215,29 @@ flash_bwd_dq_kernel(const Params p) {
     }
   }
 
-  S* DQ = static_cast<S*>(p.dq) + base;
+  float* DQ = static_cast<float*>(p.dq) + base;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int qpos = q0 + row0 + i;
     if (qpos >= T) continue;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      DQ[static_cast<size_t>(qpos) * D + cg + 8 * j] = from_f32<S>(acc[i][j]);
+      DQ[static_cast<size_t>(qpos) * D + cg + 8 * j] = acc[i][j];
   }
 }
 
-// B5.  Grid: (ceil(T / BK), B * H).  The same thread layout in transposed
-// (k-major) score space: warp w owns key rows [16w, 16w + 16) of the tile;
-// lane = 8 * rg + cg owns key rows 16w + 4rg + i (i < 4), query columns
-// cg + 8j (j < 8) and dk/dv columns cg + 8j (j < D/8).
-template <typename S, int D>
+// B5, f32.  Grid: (ceil(T / BK), B * H).  The same thread layout in
+// transposed (k-major) score space: warp w owns key rows [16w, 16w + 16) of
+// the tile; lane = 8 * rg + cg owns key rows 16w + 4rg + i (i < 4), query
+// columns cg + 8j (j < 8) and dk/dv columns cg + 8j (j < D/8).
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const Params p) {
+flash_bwd_dkv_f32_kernel(const Params p) {
   constexpr int RS = D + 1;
   constexpr int PS = BQ + 1;
   constexpr int DC = D / 8;
-  extern __shared__ float smem[];
-  float* sK = smem;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
   float* sV = sK + BK * RS;
   float* sQ = sV + BK * RS;
   float* sDO = sQ + BQ * RS;
@@ -276,6 +1245,7 @@ flash_bwd_dkv_kernel(const Params p) {
   float* sDEL = sLSE + BQ;
   float* sP = sDEL + BQ;
   float* sDS = sP + BK * PS;
+  uint32_t* sKeep = reinterpret_cast<uint32_t*>(sDS + BK * PS);   // [BQ][2]
 
   const int T = p.T;
   const int k0 = blockIdx.x * BK;
@@ -287,14 +1257,13 @@ flash_bwd_dkv_kernel(const Params p) {
   const int row0 = (threadIdx.x >> 5) * 16 + (lane >> 3) * R;
 
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const S* Q = static_cast<const S*>(p.q) + base;
-  const S* DO = static_cast<const S*>(p.dout) + base;
+  const float* Q = static_cast<const float*>(p.q) + base;
+  const float* DO = static_cast<const float*>(p.dout) + base;
   const float* LSE = p.lse + static_cast<size_t>(bh) * T;
   const float* DEL = p.delta + static_cast<size_t>(bh) * T;
   const bool masked = p.mask != nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
                              : nullptr;
-  const uint32_t key0 = p.seed0 ^ (static_cast<uint32_t>(bh) * BH_FOLD);
 
   // a key that does not exist (ragged last tile) or is padding
   bool dead[R];
@@ -318,21 +1287,29 @@ flash_bwd_dkv_kernel(const Params p) {
   const int n_qt = alive ? (T + BQ - 1) / BQ : 0;
 
   if (alive) {
-    load_tile<S, D>(sK, static_cast<const S*>(p.k) + base, k0, T);
-    load_tile<S, D>(sV, static_cast<const S*>(p.v) + base, k0, T);
+    load_tile<D>(sK, static_cast<const float*>(p.k) + base, k0, T);
+    load_tile<D>(sV, static_cast<const float*>(p.v) + base, k0, T);
   }
 
   for (int qt = first_qt; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();   // every warp is done with the previous sQ / sDO
-    load_tile<S, D>(sQ, Q, q0, T);
-    load_tile<S, D>(sDO, DO, q0, T);
+    load_tile<D>(sQ, Q, q0, T);
+    load_tile<D>(sDO, DO, q0, T);
     for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
       const int qpos = q0 + r;
       float l = qpos < T ? LSE[qpos] : 0.f;
       if (masked && !(l > MASKED_ROW)) l = 0.f;
       sLSE[r] = l;
       sDEL[r] = qpos < T ? DEL[qpos] : 0.f;
+    }
+    if (p.dropout) {
+      for (int i = threadIdx.x; i < 2 * BQ; i += NTHREADS) {
+        const int qpos = q0 + (i >> 1);
+        const int widx = (k0 >> 5) + (i & 1);
+        sKeep[i] = qpos < T && widx < p.W ? p.keep[keep_at(p, bh, qpos, widx)]
+                                          : 0u;
+      }
     }
     __syncthreads();
 
@@ -365,7 +1342,8 @@ flash_bwd_dkv_kernel(const Params p) {
 
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int kpos = k0 + row0 + i;
+      const int kr = row0 + i;
+      const int kpos = k0 + kr;
 #pragma unroll
       for (int j = 0; j < C; ++j) {
         const int qc = cg + 8 * j;
@@ -379,13 +1357,13 @@ flash_bwd_dkv_kernel(const Params p) {
           if (dead[i]) x = NEG_INF;
         }
         const float pj = expf(x - sLSE[qc]);
-        const float ks = p.dropout ? keep_scale(key0, p.seed1, qpos, kpos,
-                                                p.thr, p.inv_keep)
-                                   : 1.f;
-        // p * keep meets dO in dO's type, ds meets q in q's type
-        sP[(row0 + i) * PS + qc] = round_to<S>(pj * ks);
-        sDS[(row0 + i) * PS + qc] =
-            round_to<S>(pj * (dpt[i][j] * ks - sDEL[qc]) * p.scale);
+        const float ks =
+            p.dropout ? ((sKeep[2 * qc + (kr >> 5)] >> (kr & 31)) & 1u
+                             ? p.inv_keep
+                             : 0.f)
+                      : 1.f;
+        sP[kr * PS + qc] = pj * ks;
+        sDS[kr * PS + qc] = pj * (dpt[i][j] * ks - sDEL[qc]) * p.scale;
       }
     }
     // A warp reads back only the rows its own lanes wrote.
@@ -414,8 +1392,8 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   }
 
-  S* DK = static_cast<S*>(p.dk) + base;
-  S* DV = static_cast<S*>(p.dv) + base;
+  float* DK = static_cast<float*>(p.dk) + base;
+  float* DV = static_cast<float*>(p.dv) + base;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int kpos = k0 + row0 + i;
@@ -423,17 +1401,17 @@ flash_bwd_dkv_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const size_t at = static_cast<size_t>(kpos) * D + cg + 8 * j;
-      DK[at] = from_f32<S>(dk[i][j]);
-      DV[at] = from_f32<S>(dv[i][j]);
+      DK[at] = dk[i][j];
+      DV[at] = dv[i][j];
     }
   }
 }
 
-template <typename S, int D, bool DQ>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = DQ ? flash_bwd_dq_kernel<S, D> : flash_bwd_dkv_kernel<S, D>;
-  const size_t smem =
-      (DQ ? dq_smem_floats<D>() : dkv_smem_floats<D>()) * sizeof(float);
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+cudaError_t launch_kernel(void (*kernel)(Params), size_t smem,
+                          const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -443,29 +1421,36 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, bool DQ>
+cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
+  if (dtype == 0)
+    return DQ ? launch_kernel(flash_bwd_dq_f32_kernel<D>,
+                              dq_f32_smem_bytes<D>(), p, stream)
+              : launch_kernel(flash_bwd_dkv_f32_kernel<D>,
+                              dkv_f32_smem_bytes<D>(), p, stream);
+  if (dtype == 1)
+    return DQ ? launch_kernel(flash_bwd_dq_bf16_kernel<D>,
+                              dq_bf16_smem_bytes<D>(), p, stream)
+              : launch_kernel(flash_bwd_dkv_bf16_kernel<D>,
+                              dkv_bf16_smem_bytes<D>(), p, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <bool DQ>
 cudaError_t launch_any(const Params& p, int dtype, int d,
                        cudaStream_t stream) {
-  if (dtype == 0) {
-    switch (d) {
-      case 16: return launch<float, 16, DQ>(p, stream);
-      case 32: return launch<float, 32, DQ>(p, stream);
-      case 64: return launch<float, 64, DQ>(p, stream);
-      case 128: return launch<float, 128, DQ>(p, stream);
-    }
-  } else if (dtype == 1) {
-    switch (d) {
-      case 16: return launch<__nv_bfloat16, 16, DQ>(p, stream);
-      case 32: return launch<__nv_bfloat16, 32, DQ>(p, stream);
-      case 64: return launch<__nv_bfloat16, 64, DQ>(p, stream);
-      case 128: return launch<__nv_bfloat16, 128, DQ>(p, stream);
-    }
+  switch (d) {
+    case 16: return launch<16, DQ>(p, dtype, stream);
+    case 32: return launch<32, DQ>(p, dtype, stream);
+    case 64: return launch<64, DQ>(p, dtype, stream);
+    case 128: return launch<128, DQ>(p, dtype, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
+                   const void* dout, const float* lse, float* delta,
+                   uint32_t* keep, unsigned long long* stats,
                    const int32_t* mask, const int32_t* kend,
                    const float* bias, long long bias_sb, long long bias_sh,
                    int batch, int heads, int seq, float scale, int causal,
@@ -476,8 +1461,12 @@ Params make_params(const void* q, const void* k, const void* v,
   p.k = k;
   p.v = v;
   p.dout = dout;
+  p.out = nullptr;
   p.lse = lse;
+  p.dlse = nullptr;
   p.delta = delta;
+  p.keep = keep;
+  p.stats = stats;
   p.dq = p.dk = p.dv = nullptr;
   p.mask = mask;
   p.kend = kend;
@@ -487,6 +1476,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.B = batch;
   p.H = heads;
   p.T = seq;
+  p.W = (seq + 31) / 32;
   p.scale = scale;
   p.causal = causal;
   p.dropout = dropout;
@@ -499,19 +1489,27 @@ Params make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Every pointer is a device pointer; mask,
-// kend and bias may be null.  Each launches on `stream` and does not
-// synchronise; it returns the CUDA error of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  Every pointer is a device pointer;
+// dlse, mask, kend, bias and stats may be null.  B4 writes dq, delta
+// (B, H, T) f32 and the words (2, B, H, T, ceil(T/32)) uint32 (the keep bits
+// with dropout; the pairs derived again in bf16) that B5 then reads.  stats, when given,
+// counts the bf16 elements whose rounding was derived again.  Each launches
+// on `stream` and does not synchronise; it returns the CUDA error of the
+// launch (0 on success).
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, const int32_t* mask,
-    const int32_t* kend, const float* bias, long long bias_sb,
-    long long bias_sh, int batch, int heads, int seq, int head_dim,
-    int dtype, float scale, int causal, int dropout, unsigned int seed0,
-    unsigned int seed1, unsigned int thr, float inv_keep, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, mask, kend, bias, bias_sb,
-                         bias_sh, batch, heads, seq, scale, causal, dropout,
-                         seed0, seed1, thr, inv_keep);
+    const void* out, const float* lse, const float* dlse, float* delta,
+    unsigned int* keep, void* dq, unsigned long long* stats,
+    const int32_t* mask, const int32_t* kend, const float* bias,
+    long long bias_sb, long long bias_sh, int batch, int heads, int seq,
+    int head_dim, int dtype, float scale, int causal, int dropout,
+    unsigned int seed0, unsigned int seed1, unsigned int thr, float inv_keep,
+    void* stream) {
+  Params p = make_params(q, k, v, dout, lse, delta, keep, stats, mask, kend,
+                         bias, bias_sb, bias_sh, batch, heads, seq, scale,
+                         causal, dropout, seed0, seed1, thr, inv_keep);
+  p.out = out;
+  p.dlse = dlse;
   p.dq = dq;
   return static_cast<int>(launch_any<true>(
       p, dtype, head_dim, static_cast<cudaStream_t>(stream)));
@@ -519,15 +1517,15 @@ extern "C" int flash_attention_bwd_dq(
 
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv,
-    const int32_t* mask, const int32_t* kend, const float* bias,
-    long long bias_sb, long long bias_sh, int batch, int heads, int seq,
-    int head_dim, int dtype, float scale, int causal, int dropout,
-    unsigned int seed0, unsigned int seed1, unsigned int thr, float inv_keep,
-    void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, mask, kend, bias, bias_sb,
-                         bias_sh, batch, heads, seq, scale, causal, dropout,
-                         seed0, seed1, thr, inv_keep);
+    const float* lse, float* delta, unsigned int* keep, void* dk, void* dv,
+    unsigned long long* stats, const int32_t* mask, const int32_t* kend,
+    const float* bias, long long bias_sb, long long bias_sh, int batch,
+    int heads, int seq, int head_dim, int dtype, float scale, int causal,
+    int dropout, unsigned int seed0, unsigned int seed1, unsigned int thr,
+    float inv_keep, void* stream) {
+  Params p = make_params(q, k, v, dout, lse, delta, keep, stats, mask, kend,
+                         bias, bias_sb, bias_sh, batch, heads, seq, scale,
+                         causal, dropout, seed0, seed1, thr, inv_keep);
   p.dk = dk;
   p.dv = dv;
   return static_cast<int>(launch_any<false>(

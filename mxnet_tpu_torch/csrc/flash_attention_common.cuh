@@ -11,6 +11,8 @@ namespace flash {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float MASKED_ROW = -1e29f;
+// threefry key word 0 of a (batch, head): seed0 ^ (batch*head * BH_FOLD), as
+// the reference's `_keep_scale` folds it
 constexpr uint32_t BH_FOLD = 0x9E3779B9u;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -25,11 +27,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     float x) {
   return __float2bfloat16_rn(x);
-}
-
-// x rounded to S and widened back: the value a product in S would see
-template <typename S> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<S>(x));
 }
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -58,17 +55,6 @@ __device__ __forceinline__ uint32_t threefry2x32(uint32_t k0, uint32_t k1,
     x1 += inj[i][1] + static_cast<uint32_t>(i + 1);
   }
   return x0;
-}
-
-// Dropout keep/rescale factor of score element (q_pos, k_pos) of one
-// (batch, head): inv_keep where its bits fall below thr, else 0.  key0 is
-// seed0 ^ (batch*head * BH_FOLD), as the reference's `_keep_scale` folds it.
-__device__ __forceinline__ float keep_scale(uint32_t key0, uint32_t seed1,
-                                            int q_pos, int k_pos,
-                                            uint32_t thr, float inv_keep) {
-  const uint32_t bits = threefry2x32(key0, seed1, static_cast<uint32_t>(q_pos),
-                                     static_cast<uint32_t>(k_pos));
-  return bits < thr ? inv_keep : 0.f;
 }
 
 // Max / sum over the 8 lanes of a shuffle group (lanes 8g .. 8g+7).

@@ -8,7 +8,9 @@ hand-written CUDA kernel in `csrc/flash_attention_fwd.cu` (B3), and
 `csrc/flash_attention_bwd.cu` (B4, B5); each source's header says what
 bounds it and how it is built.  This module holds their wrappers and,
 beside them, the plain PyTorch versions of the same functions,
-`flash_attention_reference` and `flash_attention_backward_reference`.
+`flash_attention_reference`, `flash_attention_backward_reference` (B4
+and B5 together), and, for the contract between B4 and B5,
+`keep_words_reference` and `flash_attention_bwd_dkv_reference`.
 
 A tensor on the card launches the kernels, or the wrapper raises: there
 is no fallback.  A tensor on the CPU takes the plain versions; that is
@@ -22,8 +24,9 @@ then the bias is added, then the causal and key-padding masks fill
 gradients) and an lse below ``_MASKED_ROW``.  Dropout zeroes softmax
 weights at rate ``dropout`` and rescales survivors by 1/keep, with bits
 from a stateless threefry2x32 hash of (seed, batch*head, q_pos, k_pos),
-which the backward regenerates; the lse is that of the undropped
-softmax.  f32 stays true f32; with bf16 inputs p is rounded to bf16
+which the backward draws again once: B4, launched first, writes them as
+packed words with the row sums delta = rowsum(dO * out) - dlse, and B5
+reads both.  The lse is that of the undropped softmax.  f32 stays true f32; with bf16 inputs p is rounded to bf16
 before the PV product, and in the backward ds and p*keep are rounded to
 bf16 before their products, which accumulate in f32.
 
@@ -49,7 +52,9 @@ from ._build import Kernel, stream_of
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_backward_reference",
-           "attn_dropout_mask", "FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV"]
+           "flash_attention_bwd_dkv_reference", "attn_dropout_mask",
+           "keep_words_reference", "FLASH_FWD", "FLASH_BWD_DQ",
+           "FLASH_BWD_DKV"]
 
 _NEG_INF = -1e30
 _MASKED_ROW = -1e29
@@ -57,6 +62,7 @@ _BH_FOLD = 0x9E3779B9
 _M32 = 0xFFFFFFFF
 _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TYPE_NAMES = {0: "float32", 1: "bfloat16"}
 
 
 FLASH_FWD = Kernel("flash_attention_fwd")
@@ -122,6 +128,53 @@ def attn_dropout_mask(key, b, h, t_q, t_k, dropout, device="cpu"):
     mask = torch.where(bits < _keep_threshold(keep), inv_keep.to(device),
                        torch.zeros((), dtype=torch.float32, device=device))
     return mask.reshape(b, h, t_q, t_k)
+
+
+def _words(t):
+    """Keep words per query row: ceil(t / 32)."""
+    return (t + 31) // 32
+
+
+def _pack_bits(bits):
+    """bool (..., T_q, T_k) -> int32 words (..., T_q, ceil(T_k/32)), bit
+    j of word w = bits[..., 32w + j] (the uint32 pattern held in int32)."""
+    t_k = bits.shape[-1]
+    padded = torch.zeros(*bits.shape[:-1], _words(t_k) * 32,
+                         dtype=torch.int64, device=bits.device)
+    padded[..., :t_k] = bits.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (padded.reshape(*bits.shape[:-1], -1, 32) << shifts).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def _unpack_bits(words, t_k):
+    """The inverse of `_pack_bits`: bool (..., T_q, T_k)."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64).unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :t_k].bool()
+
+
+def _live_pairs(b, t, mask, causal, device):
+    """(B, 1, T, T) bool: the (query, key) pairs whose p can be nonzero,
+    a valid key and, when causal, not after the query."""
+    live = torch.ones(b, 1, t, t, dtype=torch.bool, device=device)
+    if causal:
+        live = live & torch.ones(t, t, dtype=torch.bool, device=device).tril()
+    if mask is not None:
+        live = live & _norm_mask(mask).bool().reshape(b, 1, 1, t)
+    return live
+
+
+def keep_words_reference(key, b, h, t, dropout, mask=None, causal=False,
+                         device="cpu"):
+    """The packed keep mask B4 writes and B5 reads (the first plane of
+    B4's words): int32 words (B, H, T, ceil(T/32)), bit j of word w in
+    row q = keep(q, 32w + j), the bits of
+    `attn_dropout_mask`; 0 for pairs whose p is exactly 0 (a padding
+    key, a causally hidden pair), which the kernels do not draw."""
+    keep = attn_dropout_mask(key, b, h, t, t, dropout, device=device) != 0
+    return _pack_bits(keep & _live_pairs(b, t, mask, causal, device))
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +314,35 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout, mask=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_dkv_reference(q, k, v, lse, dout, delta, keep,
+                                      mask=None, bias=None, causal=False,
+                                      scale=None, dropout=0.0):
+    """Plain PyTorch version of B5's function: ``(dk, dv)`` from the
+    forward's lse and B4's delta (B, H, T) and keep words (`keep_words_
+    reference`'s layout; None without dropout), rounded as the kernel
+    rounds them."""
+    _check(q, k, v, dropout)
+    b, h, t, d = q.shape
+    sc = d ** -0.5 if scale is None else scale
+    s = _masked_scores(q, k, sc, causal, mask, bias)
+    lse = lse.float().unsqueeze(-1)
+    if mask is not None:
+        lse = torch.where(lse > _MASKED_ROW, lse, torch.zeros_like(lse))
+    p = torch.exp(s - lse)
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    pk = p
+    if dropout:
+        inv_keep = torch.tensor(1.0 / (1.0 - dropout), dtype=torch.float32)
+        ks = _unpack_bits(keep, t) * inv_keep.to(q.device)
+        dp = dp * ks
+        pk = p * ks
+    ds = (p * (dp - delta.float().unsqueeze(-1)) * sc).to(q.dtype).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(pk.to(dout.dtype).float().transpose(-1, -2),
+                      dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -276,9 +358,9 @@ def _declare_bwd(lib):
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     ll = ctypes.c_longlong
     tail = [p, p, p, ll, ll, i, i, i, i, i, f, i, i, u, u, u, f, p]
-    lib.flash_attention_bwd_dq.argtypes = [p] * 7 + tail
+    lib.flash_attention_bwd_dq.argtypes = [p] * 11 + tail
     lib.flash_attention_bwd_dq.restype = ctypes.c_int
-    lib.flash_attention_bwd_dkv.argtypes = [p] * 8 + tail
+    lib.flash_attention_bwd_dkv.argtypes = [p] * 10 + tail
     lib.flash_attention_bwd_dkv.restype = ctypes.c_int
 
 
@@ -294,6 +376,9 @@ class _LaunchArgs:
 
     def __init__(self, q, causal, sc, mask, bias, dropout, key):
         b, h, t, d = q.shape
+        if q.dtype not in _DTYPES:
+            raise TypeError(f"the CUDA kernels take float32 or bfloat16; "
+                            f"got {q.dtype}")
         if d not in _HEAD_DIMS:
             raise ValueError(f"the CUDA kernels take head_dim in "
                              f"{_HEAD_DIMS}; got {d}")
@@ -362,49 +447,88 @@ def _launch_fwd(q, k, v, args):
     return out, lse
 
 
-def _bwd_head(q, k, v, dout, lse, delta):
-    if dout.shape != q.shape or dout.dtype != q.dtype or \
-            dout.device != q.device:
-        raise ValueError(f"dout must be {tuple(q.shape)} {q.dtype} on "
-                         f"{q.device}; got {tuple(dout.shape)} {dout.dtype} "
-                         f"on {dout.device}")
-    _contiguous(q=q, k=k, v=v, dout=dout)
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
+def _bwd_operands(args, device, **tensors):
+    """The backward's (B, H, T, D) operands as the kernels take them:
+    of the forward's shape and type on its device, contiguous, and
+    16-byte aligned (the kernels copy rows 16 bytes at a time; a view
+    that starts elsewhere is copied)."""
+    b, h, t, d, dt = args.dims
+    out = []
+    for name, x in tensors.items():
+        if tuple(x.shape) != (b, h, t, d) or _DTYPES.get(x.dtype) != dt or \
+                x.device != device:
+            raise ValueError(
+                f"{name} must be ({b}, {h}, {t}, {d}) {_TYPE_NAMES[dt]} on "
+                f"{device}; got {tuple(x.shape)} {x.dtype} on {x.device}")
+        _contiguous(**{name: x})
+        out.append(x if x.data_ptr() % 16 == 0 else x.clone())
+    return out
 
 
-def _launch_dq(q, k, v, dout, lse, delta, args):
-    """B4 on the current stream: dq from the saved lse and delta."""
+def _rows(x):
+    """A (B, H, T) f32 operand, contiguous, or None."""
+    return None if x is None else x.float().contiguous()
+
+
+def _launch_dq(q, k, v, out, dout, lse, dlse, args, stats=None):
+    """B4 on the current stream: ``(dq, delta, words)``, with delta =
+    rowsum(dout * out) - dlse (B, H, T) f32, summed as torch sums it,
+    and words (2, B, H, T, ceil(T/32)) int32: ``words[0]`` the dropout
+    bits it drew, ``words[1]`` (bf16) the pairs whose rounding B4 and B5
+    derive again; both for B5.  ``stats``, an int64 tensor of one
+    element, counts the bf16 elements whose rounding the kernel derived
+    again."""
     from . import _build
 
+    b, h, t, _, _ = args.dims
+    q, k, v, out, dout = _bwd_operands(args, q.device, q=q, k=k, v=v,
+                                       out=out, dout=dout)
+    lse, dlse = _rows(lse), _rows(dlse)
     lib = _build.load("flash_attention_bwd", _declare_bwd)
-    head = _bwd_head(q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    words = torch.empty((2, b, h, t, _words(t)), dtype=torch.int32,
+                        device=q.device)
     stream = stream_of(q)
-    err = lib.flash_attention_bwd_dq(*head, dq.data_ptr(), *args.tail(stream))
+    err = lib.flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), _ptr(dlse), delta.data_ptr(),
+        words.data_ptr(), dq.data_ptr(), _ptr(stats), *args.tail(stream))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
                            f"error {err}")
     FLASH_BWD_DQ.launches += 1
-    return dq
+    return dq, delta, words
 
 
-def _launch_dkv(q, k, v, dout, lse, delta, args):
-    """B5 on the current stream: (dk, dv).  The kernel writes every row
-    (exact zeros where it skipped the work), so empty outputs are safe."""
+def _launch_dkv(q, k, v, dout, lse, delta, words, args, stats=None):
+    """B5 on the current stream: ``(dk, dv)`` from the saved lse and B4's
+    delta and words.  The kernel writes every row (exact zeros where it
+    skipped the work), so empty outputs are safe."""
     from . import _build
 
+    q, k, v, dout = _bwd_operands(args, q.device, q=q, k=k, v=v, dout=dout)
+    if delta is None or words is None:
+        raise ValueError("B5 needs the delta and the words B4 wrote")
     lib = _build.load("flash_attention_bwd", _declare_bwd)
-    head = _bwd_head(q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = stream_of(q)
-    err = lib.flash_attention_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(),
-                                      *args.tail(stream))
+    err = lib.flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        _rows(lse).data_ptr(), delta.data_ptr(), words.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _ptr(stats), *args.tail(stream))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
                            f"error {err}")
     FLASH_BWD_DKV.launches += 1
     return dk, dv
+
+
+def _launch_backward(q, k, v, out, lse, dout, dlse, args):
+    """B4, then B5 on B4's delta and words: ``(dq, dk, dv)``."""
+    dq, delta, words = _launch_dq(q, k, v, out, dout, lse, dlse, args)
+    dk, dv = _launch_dkv(q, k, v, dout, lse, delta, words, args)
+    return dq, dk, dv
 
 
 def _forward(q, k, v, causal, sc, mask, bias, dropout, key):
@@ -442,10 +566,9 @@ class _FlashAttention(torch.autograd.Function):
         if dout is None:
             dout = torch.zeros_like(out)
         if ctx.launch_args is not None:
-            dout = dout.contiguous()
-            delta = _delta(out, dout, dlse).contiguous()
-            dq = _launch_dq(q, k, v, dout, lse, delta, ctx.launch_args)
-            dk, dv = _launch_dkv(q, k, v, dout, lse, delta, ctx.launch_args)
+            dq, dk, dv = _launch_backward(q, k, v, out, lse,
+                                          dout.contiguous(), dlse,
+                                          ctx.launch_args)
         else:
             mask, bias, causal, sc, dropout, key = ctx.plain_args
             dq, dk, dv = flash_attention_backward_reference(
