@@ -11,11 +11,12 @@ the package is missing.  Phases, each fatal on failure:
 1. **Build.**  Compiles every CUDA kernel source in
    ``mxnet_tpu_torch/csrc`` (one ``nvcc`` each, all started together)
    for ``sm_90a`` and prints the build time, the compiler's register
-   and spill report, and the card's name and power limit; for each bf16
-   backward kernel (B4, B5 at each head dim) its registers, spill bytes
-   and tensor-core instructions (``HMMA``/``HGMMA`` in ``cuobjdump
-   -sass``, or "not measured" without that tool).  Fails if B4 or B5
-   spills at D = 64 or runs no HMMA there.
+   and spill report, and the card's name and power limit; for each
+   tensor-core kernel (B3, B4, B5 in bf16 and f16 at each head dim they
+   are built for, B2 in bf16) its registers, spill bytes and tensor-core
+   instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass``, or "not
+   measured" without that tool).  Fails if B3, B4 or B5 spills at D = 64
+   or runs no HMMA there, or B2 does.
 1b. **Tensor-core sums vs sequential FMAs.**  A kernel compiled by NVRTC
    chains ``mma.sync`` over k as B4 and B5 do and measures, on random
    normal bf16 rows at each head dim, how far its dot products fall from
@@ -27,15 +28,18 @@ the package is missing.  Phases, each fatal on failure:
    batch row, causal, an additive (H, T, T) bias, and dropout 0.1 with
    fixed seed words, and the mask and causal cases again at T = 305,
    off the kernel's tile grid; at the training path's shape (32, 12,
-   128, 64) with the training batch's mask and dropout 0.1; and at the
-   other head dims the kernels take (16, 32, 128) at (2, 3, 200, D) with
-   every option at once.  Holds out and lse against the plain PyTorch
-   version on the same inputs; times the kernel, the plain version and
-   one library call of the same function
-   (``scaled_dot_product_attention``, timed here only), beside the least
-   time the card could take.
+   128, 64) with the training batch's mask and dropout 0.1; at head dims
+   16, 32, 48, 96 and 128 at (2, 3, 200, D) with every option at once;
+   and at (70000, 1, 16, 16), batch*heads past one grid dimension; in
+   f16 the serving and training main cases, the head dims and the fold.
+   Holds out and lse against the plain PyTorch version on the same
+   inputs; times the main cases (the kernel by CUDA events and by device
+   time, the plain version, and one library call of the same function,
+   ``scaled_dot_product_attention``, timed here only, also by device
+   time) beside the least time the card could take.
 2b. **Backward kernels vs plain.**  B4 (dq) and B5 (dk, dv) on the same
-   cases, and on mask, causal, bias and dropout alone at the training
+   cases (head dims other than 16, 32, 64, 128 zero-padded by the
+   wrapper), and on mask, causal, bias and dropout alone at the training
    shape; held against the plain backward on the same saved forward and
    upstream gradient (and that forward, B3's out and lse, against the
    plain forward), with exact zeros required for the fully masked row's
@@ -43,7 +47,8 @@ the package is missing.  Phases, each fatal on failure:
    the plain row sum bit for bit, and its keep words against the plain
    packed mask on every live pair; a second launch of
    B4 and B5 bitwise equal to the first; the share of live pairs whose
-   bf16 rounding each kernel derived again.  Each kernel timed alone by CUDA events and by its device time
+   16-bit rounding each kernel derived again.  The main cases' kernels
+   timed alone by CUDA events and by their device time
    (``torch.profiler``), beside its bound; the whole backward as training
    runs it (``autograd.grad`` through `flash_attention`: B4, then B5) by
    device time, beside the plain backward and SDPA's backward alone
@@ -76,18 +81,29 @@ the package is missing.  Phases, each fatal on failure:
    time, idle share, launches, top kernels, the device time of B3, B4
    and B5 by name, and the device-to-host syncs torch's sync debug mode
    reports.
+3c. **BERT at other head dims and in f16.**  Full width, 2 layers,
+   ``use_flash=True``: head_dim 96 (units 768, 8 heads) in bf16 and
+   BERT-base in f16, one forward and one eager Adam step each: finite
+   outputs, loss and weights, B3/B4/B5 once a layer.
+3d. **Flash vs dense crossover.**  (8, 12, T, 64) bf16 at T = 128 ..
+   2048: device ms of flash and of the model's dense attention, forward
+   alone and forward plus backward (``flash_crossover:`` lines).
 5. **B1 vs plain.**  The BatchNorm-backward reduction at ResNet-50's
    nine batch-128 BatchNorm shapes and an odd one (C = 3, M = 2331),
    f32 made on the card from a seed: worst error against an allowance
    from the two summation orders, kernel, plain and library
    (``torch.batch_norm_backward_reduce``) times beside the bound; the
    stem case twice, which must agree bitwise.
-6. **B2 vs plain.**  The space-to-depth stem's (M, 192) @ (192, 64)
-   product at batch 128 in f32 and bf16, and an odd case (M = 765,
-   C_out = 24): against the plain product, and the packed stem through
-   B2 against cuDNN's 7x7/stride-2 conv of the unpacked input with the
-   same weight; times beside the bound, the cuBLAS product's and the
-   cuDNN conv's.
+6. **B2 vs plain.**  The space-to-depth stem conv, (128, 12, 112, 112)
+   packed input to (128, 64, 112, 112) NCHW at batch 128 in f32 and
+   bf16, and an odd case (3, 12, 15, 17) with C_out = 40: against the
+   plain version (patches times the folded weight), B2's first design
+   (the matmul over prebuilt patches) against its own, and the packed
+   stem through B2 against cuDNN's 7x7/stride-2 conv of the unpacked
+   input with the same weight; times (events and device) beside the
+   bound, cuDNN's conv of the packed input (the library call), the
+   first design, cuBLAS's product over prebuilt patches and cuDNN's
+   7x7 stem.
 7. **ResNet-50 v1 training** as ``bench.py`` builds it: Xavier, bf16,
    SoftmaxCrossEntropyLoss, SGD lr 0.1 momentum 0.9 through ``Trainer``
    and ``FusedTrainStep`` at batch 128 on one fixed seeded batch: 3
@@ -124,15 +140,19 @@ the package is missing.  Phases, each fatal on failure:
    SoftmaxCrossEntropyLoss;
    ``save_parameters`` + ``save_states``, loaded into a fresh net and
    trainer, whose next step must equal the running net's bitwise (cuDNN
-   pinned deterministic); one step traced.
+   pinned deterministic); one step traced.  Then the same eager loop
+   with SoftmaxCrossEntropyLoss in the head's place, from the same
+   weights and batch, on the f32 and on the bf16 logits: the three loss
+   curves side by side (``resnet_custom: loss curves``).
 
 Every measurement is printed on a line of its own (``kernel``,
 ``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``kernel_rtc``,
-``serve:``, ``train:``, ``resnet:``, ``resnet_s2d:``, ``rtc:``,
-``resnet_custom:``, ``profile:``).  The last three lines are a
-``{"kernels": [...]}`` object (B3 at the serving path's main case,
-bf16 with a key-padding mask, with its launches over the served
-traffic; B4 and B5 at the BERT training path's main case, with their
+``serve:``, ``train:``, ``odd_bert:``, ``flash_crossover:``,
+``resnet:``, ``resnet_s2d:``, ``rtc:``, ``resnet_custom:``,
+``profile:``).  The last three lines are a ``{"kernels": [...]}``
+object (B3 at the serving path's main case, bf16 with a key-padding
+mask, with its launches over the served traffic, and at the training
+case with its launches over the 30 timed steps; B4 and B5 at the BERT training path's main case, with their
 launches over its 30 timed steps; B1 at the stem BatchNorm's shape,
 with its launches over the 20 timed ResNet steps; B2 at the bf16 stem,
 with its launches over the 15 timed space-to-depth steps; B6 as
@@ -152,7 +172,7 @@ import time
 
 # H100 SXM data sheet (dense): HBM bandwidth and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 B, H, T, D = 8, 12, 512, 64
 # A length off the 64-row tile grid: the kernel's last K and Q tiles are
@@ -171,9 +191,16 @@ B_TRAIN, T_TRAIN = 32, 128
 # cancel (few live keys, large v: the training shape with dropout).
 # Then both round out to bf16: one more ulp, at most 2^-7 |plain| (rtol).
 # atol covers f32 summation order and the ulp of that ulp.  lse is f32 in
-# both (values of 5-10).
+# both (values of 5-10).  f16 rounds at the same points with 11
+# significant bits instead of 8: two half-ulps of a normal p * keep are
+# 2^-10 of it (ptol) and out's own rounding one ulp, at most 2^-10
+# |plain| (rtol).  Below 2^-14 f16 is subnormal with a fixed ulp of
+# 2^-24, so a p * keep there may differ by 2^-24 outright: with l >= 1,
+# keep <= 1/0.9, |v| < 6 and at most 512 such keys a row, 2.0e-4 more of
+# out, on top of bf16's atol: 4e-4.
 TOL = {"float32": {"out": (1e-4, 0.0, 0.0), "lse": 1e-4},
-       "bfloat16": {"out": (2e-4, 2.0 ** -7, 2.0 ** -7), "lse": 1e-4}}
+       "bfloat16": {"out": (2e-4, 2.0 ** -7, 2.0 ** -7), "lse": 1e-4},
+       "float16": {"out": (4e-4, 2.0 ** -10, 2.0 ** -10), "lse": 1e-4}}
 # B4/B5 vs the plain backward, |kernel - plain| <= atol + rtol |plain| for
 # dq, dk and dv.  f32: both true f32, summation order only; the plain f32
 # backward differs from a float64 one by under 7e-7 at (1, 4, 512, 64)
@@ -181,22 +208,41 @@ TOL = {"float32": {"out": (1e-4, 0.0, 0.0), "lse": 1e-4},
 # bf16 at the same points and the result to bf16, so where their f32
 # values straddle a rounding step they differ by one bf16 ulp of the
 # result (rtol 1e-2 covers it) or of one ds term (some 1e-5 of a sum;
-# atol 1e-3 covers many).
-BWD_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-3, 1e-2)}
+# atol 1e-3 covers many).  f16: the same rounding points with 3 more
+# significant bits, so each straddle moves a result by 2^-3 of the bf16
+# amount (one f16 ulp of the result is 2^-10 ~ 9.8e-4 of it: rtol
+# 1.25e-3; atol 1.25e-4); ds and p*keep below 2^-14 are f16 subnormals,
+# whose ties (a fixed ulp of 2^-24) the kernels test like any other.
+BWD_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-3, 1e-2),
+           "float16": (1.25e-4, 1.25e-3)}
 # Kernel cases, (case, B, H, T, D): the serving path's largest shape, the
 # same off the tile grid, the training path's shape with its own mask
-# and dropout, and the other head dims the kernels take at a small shape
-# off the grid with every option at once ("all")
+# and dropout, the other head dims at a small shape off the grid with
+# every option at once ("all": 16, 32, 128 natively, 48 and 96 through
+# B3's rounding up to 16 and B4/B5's zero padding), and batch*heads past
+# one grid dimension's 65535 (folded over two)
 _SERVE_CASES = [(c, B, H, T, D) for c in ("ragged_mask", "causal", "bias",
                                           "dropout")] \
     + [(c, B, H, T_RAGGED, D) for c in ("ragged_mask", "causal")]
 _TRAIN_CASE = ("train_mask_dropout", B_TRAIN, H, T_TRAIN, D)
-_HEAD_DIM_CASES = [("all", 2, 3, 200, d) for d in (16, 32, 128)]
-CASES = _SERVE_CASES + [_TRAIN_CASE] + _HEAD_DIM_CASES
+_HEAD_DIM_CASES = [("all", 2, 3, 200, d) for d in (16, 32, 48, 96, 128)]
+_FOLD_CASE = ("ragged_mask", 70000, 1, 16, 16)
+CASES = _SERVE_CASES + [_TRAIN_CASE] + _HEAD_DIM_CASES + [_FOLD_CASE]
 BWD_CASES = _SERVE_CASES \
     + [(c, B_TRAIN, H, T_TRAIN, D) for c in ("ragged_mask", "causal",
                                              "bias", "dropout")] \
-    + [_TRAIN_CASE] + _HEAD_DIM_CASES
+    + [_TRAIN_CASE] + _HEAD_DIM_CASES + [_FOLD_CASE]
+# f16 on the main cases, the padded head dims and the fold
+F16_CASES = [(c, *shape) for c, *shape in CASES
+             if (c, *shape) in (("ragged_mask", B, H, T, D), _TRAIN_CASE,
+                                _FOLD_CASE) or c == "all"]
+# cases timed (the rest are checked only): in the forward, the serving and
+# training main cases in every type, also by device time (torch.profiler),
+# and every bf16 case at those two shapes; in the backward, the training
+# case in every type and the same bf16 cases
+DEVICE_TIMED = (("ragged_mask", B, H, T, D), _TRAIN_CASE)
+BWD_TIMED = (_TRAIN_CASE,)
+BWD_TIMED_BF16 = ((B, H, T, D), (B_TRAIN, H, T_TRAIN, D))
 # BERT-base pretraining as `benchmark/bert_pretrain_bench.py` builds it
 TRAIN_CFG = dict(vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512, dropout=0.1,
@@ -224,11 +270,17 @@ BN_CASES = [((128, 64, 12544), 1), ((128, 64, 3136), 6),
             ((128, 1024, 196), 7), ((128, 512, 49), 6), ((128, 2048, 49), 4),
             ((7, 3, 333), 0)]
 # B2: ResNet-50's packed stem at batch 128 (B, 4 * C_in, H/2, W/2) with
-# C_out 64, and an odd case (M = 765, no multiple of the 128-row tile;
-# C_out = 24, a partial column tile)
+# C_out 64, and an odd case (H2 = 15 and W2 = 17 off every tile, W2 not a
+# multiple of 8, M = 765; C_out = 40, a partial channel tile)
 STEM_CASES = [("float32", (128, 12, 112, 112), 64),
               ("bfloat16", (128, 12, 112, 112), 64),
-              ("bfloat16", (3, 12, 15, 17), 24)]
+              ("bfloat16", (3, 12, 15, 17), 40)]
+# the flash-vs-dense crossover: (8, 12, T, 64) bf16 at these T
+CROSSOVER_T = (128, 256, 512, 1024, 2048)
+# BERT with head_dim 96 (units 768, 8 heads) and BERT-base in f16, with
+# use_flash=True: one forward and one training step each, cut to 2 layers
+ODD_BERTS = [("d96_bf16", dict(num_heads=8), "bfloat16"),
+             ("base_f16", {}, "float16")]
 # ResNet-50 v1 training as `bench.py` builds it
 RESNET_BATCH, RESNET_IMAGE = 128, 224
 RESNET_WARMUP, RESNET_STEPS = 3, 20
@@ -503,30 +555,42 @@ def _mma_counts(lib_path):
     return out
 
 
-def _bf16_bwd_kernels(path, ptxas):
+# tensor-core kernels by mangled name: (kernel id, type, head dim)
+_TC_KERNELS = (
+    (r"flash_fwd_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B3"),
+    (r"flash_bwd_dq_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B4"),
+    (r"flash_bwd_dkv_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B5"),
+    (r"stem_conv_tc_kernelI\w*?(Bf16|F16)E()", "B2"),
+)
+
+
+def _tc_kernels(path, ptxas):
     """Registers, spill bytes and tensor-core instruction counts of the
-    bf16 backward kernels (B4, B5) at each head dim."""
+    16-bit tensor-core kernels of one library: B3 at each head dim it is
+    built for, B4 and B5 at each head dim, B2."""
     regs = _ptxas_by_kernel(ptxas)
     mma = _mma_counts(path)
     rows = []
     for name, (n_regs, spill) in sorted(regs.items()):
-        m = re.search(r"flash_bwd_(dq|dkv)_bf16_kernelILi(\d+)E", name)
-        if not m:
-            continue
-        hmma, hgmma = (mma.get(name, (0, 0)) if mma is not None
-                       else ("not measured", "not measured"))
-        rows.append({"kernel": "B4" if m.group(1) == "dq" else "B5",
-                     "head_dim": int(m.group(2)), "registers": n_regs,
-                     "spill_store_bytes": spill, "hmma": hmma,
-                     "hgmma": hgmma})
+        for pattern, kid in _TC_KERNELS:
+            m = re.search(pattern, name)
+            if not m:
+                continue
+            hmma, hgmma = (mma.get(name, (0, 0)) if mma is not None
+                           else ("not measured", "not measured"))
+            rows.append({"kernel": kid,
+                         "type": "bf16" if m.group(1) == "Bf16" else "f16",
+                         "head_dim": int(m.group(2)) if m.group(2) else None,
+                         "registers": n_regs, "spill_store_bytes": spill,
+                         "hmma": hmma, "hgmma": hgmma})
     return rows
 
 
 def phase_build():
     """Build every kernel source, one nvcc for each, all started
-    together; report the bf16 backward kernels' registers, spills and
-    tensor-core instructions, and fail if B4 or B5 spills at D = 64 or
-    runs no HMMA there."""
+    together; report the tensor-core kernels' registers, spills and
+    tensor-core instructions, and fail if B3, B4 or B5 (at D = 64) or B2
+    spills or runs no HMMA."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mxnet_tpu_torch.ops import _build
@@ -534,7 +598,7 @@ def phase_build():
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         paths = list(pool.map(_build.build, SOURCES))
     seconds = time.perf_counter() - t0
-    bwd = []
+    tc = []
     for name, path in zip(SOURCES, paths):
         ptxas = _build.BUILD_LOG.get(name, {}).get("ptxas", "")
         regs = sorted({line.split("Used ")[1].split(",")[0]
@@ -543,19 +607,22 @@ def phase_build():
             r"(\d+) bytes spill stores", ptxas)), default=0)
         log(f"build: {path.name} (nvcc {' '.join(_build.NVCC_FLAGS)}); "
             f"ptxas: {'; '.join(regs)}; most spill stores: {spill} bytes")
-        if name == "flash_attention_bwd":
-            bwd = _bf16_bwd_kernels(path, ptxas)
-    for r in bwd:
-        log(f"build: {r['kernel']} bf16 D={r['head_dim']}: "
+        tc += _tc_kernels(path, ptxas)
+    for r in tc:
+        at = "" if r["head_dim"] is None else f" D={r['head_dim']}"
+        log(f"build: {r['kernel']} {r['type']}{at}: "
             f"{r['registers']} registers, {r['spill_store_bytes']} bytes "
             f"spill stores, HMMA {r['hmma']}, HGMMA {r['hgmma']}")
     log(f"build: {len(SOURCES)} sources in {seconds:.1f} s")
-    at_64 = [r for r in bwd if r["head_dim"] == D]
-    if len(at_64) != 2 or any(
-            r["spill_store_bytes"] or r["hmma"] == 0 for r in at_64):
-        raise SystemExit(f"bf16 backward kernels at D={D}: expected no "
-                         f"spills and HMMA instructions, got {at_64}")
-    return bwd
+    gated = [r for r in tc if r["head_dim"] in (D, None)]
+    if sorted((r["kernel"], r["type"]) for r in gated) != sorted(
+            [(k, t) for k in ("B3", "B4", "B5") for t in ("bf16", "f16")]
+            + [("B2", "bf16")]) or any(
+            r["spill_store_bytes"] or r["hmma"] == 0 for r in gated):
+        raise SystemExit(f"tensor-core kernels (B3, B4, B5 at D={D}, B2): "
+                         f"expected no spills and HMMA instructions, got "
+                         f"{gated}")
+    return tc
 
 
 # ---------------------------------------------------------------------------
@@ -789,9 +856,10 @@ def phase_kernel_vs_plain(dev):
 
     gen = torch.Generator().manual_seed(1234)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, cases in ((torch.bfloat16, CASES), (torch.float32, CASES),
+                         (torch.float16, F16_CASES)):
         dname = str(dtype).split(".")[1]
-        for case, *shape in CASES:
+        for case, *shape in cases:
             q, k, v, kw = _attention_inputs(dtype, case, shape, gen, dev)
             out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -804,22 +872,37 @@ def phase_kernel_vs_plain(dev):
             if _row0_masked(kw):
                 ok = ok and bool((out[0] == 0).all()) and \
                     bool((lse[0] < fa._MASKED_ROW).all())
-            ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, **kw))
-            plain_ms = cuda_ms(
-                lambda: fa.flash_attention_reference(q, k, v, **kw), iters=5)
-            library_ms = cuda_ms(_sdpa_call(q, k, v, kw))
+            call = functools.partial(fa.flash_attention_with_lse, q, k, v,
+                                     **kw)
+            ms = dev_ms = plain_ms = library_ms = library_dev_ms = None
+            if (case, *shape) in DEVICE_TIMED or (
+                    dname == "bfloat16" and tuple(shape) in BWD_TIMED_BF16):
+                ms = cuda_ms(call)
+                plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, **kw), iters=5)
+                library_ms = cuda_ms(_sdpa_call(q, k, v, kw))
+            if (case, *shape) in DEVICE_TIMED:
+                dev_ms = device_ms(call)
+                library_dev_ms = device_ms(_sdpa_call(q, k, v, kw))
             bound_ms, bound_by = _bound(dname, kw, shape, q.element_size())
             row = {"dtype": dname, "case": case, "shape": shape,
                    "max_abs_err": err_out, "err_over_tol": err_ratio,
                    "lse_max_abs_err": err_lse,
-                   "tol": TOL[dname], "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound_ms,
+                   "tol": TOL[dname], "ms": ms, "device_ms": dev_ms,
+                   "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "library_device_ms": library_dev_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "ok": ok}
             rows.append(row)
+            timing = "not timed " if ms is None else (
+                f"kernel_ms={ms:.4f}" +
+                ("" if dev_ms is None else f" (device {dev_ms:.4f})") +
+                f" plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}" +
+                ("" if library_dev_ms is None
+                 else f" (device {library_dev_ms:.4f})") + " ")
             log(f"kernel {dname:8s} {case:18s} {tuple(shape)} "
                 f"out_err={err_out:.3e} ({err_ratio:.2f} of tol) "
-                f"lse_err={err_lse:.3e} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                f"lse_err={err_lse:.3e} " + timing +
                 f"bound_ms={bound_ms:.4f} ({bound_by}) "
                 f"{'ok' if ok else 'FAILED'}")
             del q, k, v, kw, out, lse, ref_out, ref_lse
@@ -892,6 +975,28 @@ def _flash_backward_ms(q, k, v, dout, kw):
     return device_ms(bwd), cuda_ms(bwd)
 
 
+def _bwd_times(q, k, v, out, lse, dout, kw, b4, delta, words, args):
+    """B4 and B5 each by CUDA events and by device time, the whole
+    backward through autograd, the plain backward and SDPA's backward
+    (where its kernels take batch*heads)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    def b5():
+        return fa._launch_dkv(q, k, v, dout, lse, delta, words, args)
+
+    out_ = {"dq": cuda_ms(b4), "dkv": cuda_ms(b5), "dq_dev": device_ms(b4),
+            "dkv_dev": device_ms(b5)}
+    out_["bwd_dev"], out_["bwd_events"] = _flash_backward_ms(q, k, v, dout,
+                                                             kw)
+    out_["plain"] = cuda_ms(lambda: fa.flash_attention_backward_reference(
+        q, k, v, out, lse, dout, **kw), iters=5)
+    b, h = q.shape[:2]
+    out_["lib_a"], out_["lib_b"], out_["lib_events"] = (
+        _sdpa_backward_ms(q, k, v, dout, kw) if b * h <= 65535
+        else (None, None, None))
+    return out_
+
+
 def _keep_words_ok(keep, kw, shape, dev):
     """B4's keep words equal the plain packed mask on every live pair
     (the kernel leaves the words of tiles it skips unwritten)."""
@@ -921,10 +1026,12 @@ def phase_bwd_vs_plain(dev):
 
     gen = torch.Generator().manual_seed(4321)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, cases in ((torch.bfloat16, BWD_CASES),
+                         (torch.float32, BWD_CASES),
+                         (torch.float16, F16_CASES)):
         dname = str(dtype).split(".")[1]
         atol, rtol = BWD_TOL[dname]
-        for case, *shape in BWD_CASES:
+        for case, *shape in cases:
             b, h, t, d = shape
             q, k, v, kw = _attention_inputs(dtype, case, shape, gen, dev)
             dout = torch.randn(*shape, generator=gen).to(dev, dtype)
@@ -978,16 +1085,15 @@ def phase_bwd_vs_plain(dev):
                     exact = exact and bool((dq[0] == 0).all()) and \
                         bool((out[0] == 0).all())
                 ok = ok and exact
-            dq_ms = cuda_ms(b4)
-            dkv_ms = cuda_ms(lambda: fa._launch_dkv(q, k, v, dout, lse, delta,
-                                                    words, args))
-            dq_dev = device_ms(b4)
-            dkv_dev = device_ms(lambda: fa._launch_dkv(q, k, v, dout, lse,
-                                                       delta, words, args))
-            bwd_dev, bwd_events = _flash_backward_ms(q, k, v, dout, kw)
-            plain_ms = cuda_ms(lambda: fa.flash_attention_backward_reference(
-                q, k, v, out, lse, dout, **kw), iters=5)
-            lib_a, lib_b, lib_events = _sdpa_backward_ms(q, k, v, dout, kw)
+            times = dict.fromkeys(("dq", "dkv", "dq_dev", "dkv_dev",
+                                   "bwd_dev", "bwd_events", "plain",
+                                   "lib_a", "lib_b", "lib_events"))
+            if (case, *shape) in BWD_TIMED or (
+                    dname == "bfloat16" and tuple(shape) in BWD_TIMED_BF16):
+                times = _bwd_times(q, k, v, out, lse, dout, kw, b4, delta,
+                                   words, args)
+            dq_ms, dkv_ms, dq_dev, dkv_dev, bwd_dev, bwd_events, plain_ms, \
+                lib_a, lib_b, lib_events = times.values()
             (dq_bound, dq_by), (dkv_bound, dkv_by) = _bwd_bounds(
                 dname, kw, shape, q.element_size())
             row = {"dtype": dname, "case": case, "shape": shape,
@@ -1000,27 +1106,29 @@ def phase_bwd_vs_plain(dev):
                    "dq_device_ms": dq_dev, "dkv_device_ms": dkv_dev,
                    "backward_device_ms": bwd_dev,
                    "backward_events_ms": bwd_events,
-                   "plain_ms": plain_ms, "library_ms": (lib_a + lib_b) / 2,
+                   "plain_ms": plain_ms,
+                   "library_ms": None if lib_a is None else (lib_a + lib_b) / 2,
                    "library_ms_windows": [lib_a, lib_b],
                    "library_ms_events": lib_events,
                    "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
                    "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by,
                    "ok": ok}
             rows.append(row)
+            timing = "not timed " if dq_ms is None else (
+                f"dq_ms={dq_ms:.4f} (device {dq_dev:.4f}, bound "
+                f"{dq_bound:.4f} {dq_by}) dkv_ms={dkv_ms:.4f} (device "
+                f"{dkv_dev:.4f}, bound {dkv_bound:.4f} {dkv_by}) "
+                f"backward_device_ms={bwd_dev:.4f} (events "
+                f"{bwd_events:.4f}) plain_ms={plain_ms:.4f} sdpa_bwd_ms=" +
+                ("n/a " if lib_a is None else
+                 f"{lib_a:.4f}/{lib_b:.4f} (events {lib_events:.4f}) "))
             log(f"kernel_bwd {dname:8s} {case:18s} {tuple(shape)} "
                 f"err dq={errs['dq']:.2e} dk={errs['dk']:.2e} "
                 f"dv={errs['dv']:.2e} ({ratio:.2f} of tol; fwd out "
                 f"{fwd_ratio:.2f} of tol, lse_err={lse_err:.2e}; delta "
                 f"equal {delta_equal}; keep words {keep_ok}; bitwise repeat "
                 f"{repeat}; derived again "
-                f"{share[0]:.4f} / {share[1]:.4f} of live pairs) "
-                f"dq_ms={dq_ms:.4f} (device "
-                f"{dq_dev:.4f}, bound {dq_bound:.4f} {dq_by}) "
-                f"dkv_ms={dkv_ms:.4f} (device {dkv_dev:.4f}, bound "
-                f"{dkv_bound:.4f} {dkv_by}) backward_device_ms="
-                f"{bwd_dev:.4f} (events {bwd_events:.4f}) "
-                f"plain_ms={plain_ms:.4f} sdpa_bwd_ms={lib_a:.4f}/"
-                f"{lib_b:.4f} (events {lib_events:.4f}) "
+                f"{share[0]:.4f} / {share[1]:.4f} of live pairs) " + timing +
                 f"{'ok' if ok else 'FAILED'}")
             del q, k, v, kw, dout, out, lse, dq, dk, dv, plain, delta, args
             del ref_out, ref_lse, words, dq2, dk2, dv2, delta2, words2, rederived
@@ -1459,12 +1567,118 @@ def phase_train(dev):
     out["eager_vs_fused"] = _eager_vs_fused(mod, trainer, args)
     out["profile"] = phase_train_profile(
         step, args, B_TRAIN, f"training step at ({B_TRAIN}, {T_TRAIN})",
-        named={"B3 flash_fwd": "flash_fwd_kernel",
+        named={"B3 flash_fwd": "flash_fwd_",
                "B4 flash_bwd_dq": "flash_bwd_dq",
                "B5 flash_bwd_dkv": "flash_bwd_dkv"})
     del step, trainer, mod, net
     torch.cuda.empty_cache()
     out["flash_vs_dense"] = _flash_vs_dense_grads(dev, args)
+    return out
+
+
+def _dense_attention(q, k, v):
+    """The model's dense attention (`MultiHeadAttention`'s use_flash=False
+    path, no mask) on (B, H, T, D): scores, softmax, weighted sum."""
+    import math
+
+    import torch
+    from mxnet_tpu_torch import npx
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    return torch.matmul(npx.softmax(scores, axis=-1), v)
+
+
+def phase_flash_crossover(dev):
+    """Flash (B3; B4 and B5 in the backward) against the model's dense
+    attention at (8, 12, T, 64) bf16, no mask, for each T of
+    `CROSSOVER_T`: device ms of the forward alone and of forward plus
+    backward (``autograd.grad`` of a cotangent).  Measured, not acted
+    on: the auto policy keeps the reference's crossovers."""
+    import torch
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(8)
+    rows = []
+    for t in CROSSOVER_T:
+        q, k, v, dout = (torch.randn(B, H, t, D, generator=gen).to(
+            dev, torch.bfloat16) for _ in range(4))
+        row = {"shape": [B, H, t, D]}
+        for name, fn in (("flash", fa.flash_attention),
+                         ("dense", _dense_attention)):
+            with torch.no_grad():
+                row[f"{name}_fwd_ms"] = device_ms(lambda: fn(q, k, v))
+            qg, kg, vg = (x.detach().clone().requires_grad_()
+                          for x in (q, k, v))
+
+            def fwd_bwd():
+                return torch.autograd.grad(fn(qg, kg, vg), (qg, kg, vg),
+                                           dout)
+
+            row[f"{name}_fwd_bwd_ms"] = device_ms(fwd_bwd)
+            del qg, kg, vg
+        rows.append(row)
+        log("flash_crossover: " + json.dumps(row))
+        del q, k, v, dout
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_odd_berts(dev):
+    """BERT at full width with head_dim 96 (units 768, 8 heads) in bf16
+    and BERT-base in f16, use_flash=True, cut to 2 layers: one forward
+    and one eager training step (Adam) each, on the training batch.
+    Every output, loss and updated weight finite; B3, B4 and B5 launched
+    once a layer."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.models import BertForPretraining
+
+    args = train_batch(dev, TRAIN_CFG["vocab_size"])
+    out = {}
+    for name, overrides, dtype in ODD_BERTS:
+        cfg = dict(TRAIN_CFG, num_layers=2, **overrides)
+        net = BertForPretraining(**cfg).initialize(
+            ctx=dev, generator=torch.Generator().manual_seed(5))
+        net.cast(dtype)
+        mod = pretrain_loss(net)
+        trainer = Trainer(mod.collect_params(), "adam",
+                          {"learning_rate": 1e-4})
+        _reset_counts()
+        with torch.no_grad():
+            mlm, nsp = net(args[0], args[1], args[3])
+        fwd_ok = bool(torch.isfinite(mlm).all() and torch.isfinite(nsp).all())
+        fwd_counts = _launch_counts()
+        _reset_counts()
+        with autograd.record(generator=torch.Generator().manual_seed(6)):
+            loss = mod(*args)
+        loss.backward()
+        trainer.step(B_TRAIN)
+        torch.cuda.synchronize()
+        step_counts = _launch_counts()
+        weights_ok = all(bool(torch.isfinite(p.data()).all())
+                         for p in mod.collect_params().values())
+        n = cfg["num_layers"]
+        counts_ok = (fwd_counts == {"flash_attention_fwd": n,
+                                    "flash_attention_bwd_dq": 0,
+                                    "flash_attention_bwd_dkv": 0} and
+                     all(c == n for c in step_counts.values()))
+        out[name] = {"units": cfg["units"], "num_heads": cfg["num_heads"],
+                     "head_dim": cfg["units"] // cfg["num_heads"],
+                     "dtype": dtype, "layers": n,
+                     "forward_finite": fwd_ok, "loss": loss.item(),
+                     "weights_finite": weights_ok,
+                     "launches_forward": fwd_counts,
+                     "launches_step": step_counts, "ok": (
+                         fwd_ok and weights_ok and counts_ok and
+                         loss.item() == loss.item() and
+                         abs(loss.item()) != float("inf"))}
+        log(f"odd_bert: {name}: " + json.dumps(out[name]))
+        del net, mod, trainer, mlm, nsp, loss
+        torch.cuda.empty_cache()
+    failed = [k for k, r in out.items() if not r["ok"]]
+    if failed:
+        raise SystemExit(f"BERT with use_flash=True failed on the card: "
+                         f"{failed}")
     return out
 
 
@@ -1603,15 +1817,23 @@ def phase_bn_reduce(dev):
 # phase 6: B2 (space-to-depth stem matmul) vs plain
 # ---------------------------------------------------------------------------
 def phase_stem(dev):
-    """B2 against `stem_matmul_reference` on the stem's im2col patches,
-    and the packed stem (`stem_conv_auto`, through B2) against cuDNN's
+    """B2 (`stem_conv_b2`, the packed stem conv without patches) against
+    its plain version `stem_conv_b2_reference` (patches times the folded
+    weight, f32) on the packed input; the first design (`stem_matmul`
+    over the patches) against its own plain version, timed beside it; the
+    packed stem (`stem_conv_auto`, through B2) against cuDNN's
     7x7/stride-2 conv of the unpacked input with the same weight.
     Allowances: f32 sums of K products err by at most K * 2^-24 * the
-    sum of |products| (computed as |A| @ |W|), for either side; in bf16
-    each side then rounds once to nearest, which moves a value v by at
-    most half a bf16 ulp, 2^-8 |round(v)|: so the kernel and the plain
-    product may differ by 2^-8 (|kernel| + |plain|) more, and the kernel
-    and the unrounded f32 conv by 2^-8 |kernel|."""
+    sum of |products| (computed as |patches| @ |W|), for either side; in
+    bf16 each side then rounds once to nearest, which moves a value v by
+    at most half a bf16 ulp, 2^-8 |round(v)|: so the kernel and the plain
+    version may differ by 2^-8 (|kernel| + |plain|) more, and the kernel
+    and the unrounded f32 conv by 2^-8 |kernel|.  Times: the kernel by
+    CUDA events and by device time, its plain version, cuDNN's conv of
+    the packed input with the folded weight (the same function in one
+    library call), and as context cuBLAS's product over prebuilt patches
+    and cuDNN's 7x7 stem; the bound reads xs and the weight once and
+    writes the output once."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import stem
@@ -1624,20 +1846,27 @@ def phase_stem(dev):
              * 2 - 1).to(dt)
         w7 = (torch.randn(c_out, c // 4, 7, 7, generator=gen, device=dev)
               * 0.05).to(dt)
-        xs = stem.space_to_depth2(x)
+        xs = stem.space_to_depth2(x).contiguous()
+        wf = stem.fold_stem_kernel(w7).contiguous()
         flat = stem.stem_patches(xs)
-        w2d = stem.fold_stem_kernel(w7).reshape(c_out, -1).t().contiguous()
+        w2d = wf.reshape(c_out, -1).t().contiguous()
         m, k = flat.shape
-        out = stem.stem_matmul(flat, w2d)
+        out = stem.stem_conv_b2(xs, wf)
+        old = stem.stem_matmul(flat, w2d)
         torch.cuda.synchronize()
-        ref = stem.stem_matmul_reference(flat, w2d).float()
+        ref = stem.stem_conv_b2_reference(xs, wf).float()
+        ref_old = stem.stem_matmul_reference(flat, w2d).float()
         absprod = torch.matmul(flat.float().abs(), w2d.float().abs())
-        allow = 2 * k * EPS32 * absprod + 1e-30
+        allow_old = 2 * k * EPS32 * absprod + 1e-30
+        allow = allow_old.reshape(b, h2, w2, c_out).permute(0, 3, 1, 2)
         if dt == torch.bfloat16:
             allow = allow + 2.0 ** -8 * (ref.abs() + out.float().abs())
+            allow_old = allow_old + 2.0 ** -8 * (ref_old.abs() +
+                                                 old.float().abs())
         diff = (out.float() - ref).abs()
         err, ratio = diff.max().item(), (diff / allow).max().item()
-        del absprod, allow, diff, ref
+        old_ratio = ((old.float() - ref_old).abs() / allow_old).max().item()
+        del absprod, allow, allow_old, diff, ref, ref_old, old
         packed = stem.stem_conv_auto(xs, w7).float()
         conv = F.conv2d(x.float(), w7.float(), stride=2, padding=3)
         allow = 2 * k * EPS32 * F.conv2d(x.float().abs(), w7.float().abs(),
@@ -1647,35 +1876,50 @@ def phase_stem(dev):
         conv_diff = (packed - conv).abs()
         conv_err = conv_diff.max().item()
         conv_ratio = (conv_diff / allow).max().item()
-        ok = (ratio <= 1.0 and conv_ratio <= 1.0 and
-              tuple(packed.shape) == (b, c_out, h2, w2) and
-              bool(torch.isfinite(out).all()))
+        ok = (ratio <= 1.0 and old_ratio <= 1.0 and conv_ratio <= 1.0 and
+              tuple(out.shape) == (b, c_out, h2, w2) and
+              out.is_contiguous() and bool(torch.isfinite(out).all()))
         del packed, conv, allow, conv_diff
-        ms = cuda_ms(lambda: stem.stem_matmul(flat, w2d))
-        plain_ms = cuda_ms(lambda: stem.stem_matmul_reference(flat, w2d),
+        ms = cuda_ms(lambda: stem.stem_conv_b2(xs, wf))
+        dev_ms = device_ms(lambda: stem.stem_conv_b2(xs, wf))
+        plain_ms = cuda_ms(lambda: stem.stem_conv_b2_reference(xs, wf),
                            iters=5)
-        library_ms = cuda_ms(lambda: torch.matmul(flat, w2d))
+        library_ms = cuda_ms(
+            lambda: F.conv2d(xs, wf, padding=2)[..., :h2, :w2])
+        old_ms = cuda_ms(lambda: stem.stem_matmul(flat, w2d))
+        cublas_ms = cuda_ms(lambda: torch.matmul(flat, w2d))
         conv_ms = cuda_ms(lambda: F.conv2d(x, w7, stride=2, padding=3))
-        esize = flat.element_size()
-        bound_ms, bound_by = _bound_ms(dname, (m * k + k * c_out + m * c_out)
-                                       * esize, 2 * m * k * c_out)
+        esize = xs.element_size()
+        bound_ms, bound_by = _bound_ms(
+            dname, (xs.numel() + wf.numel() + b * c_out * h2 * w2) * esize,
+            2 * m * k * c_out)
+        old_bound_ms, _ = _bound_ms(dname, (m * k + k * c_out + m * c_out)
+                                    * esize, 2 * m * k * c_out)
         row = {"dtype": dname, "packed_input": [b, c, h2, w2],
                "c_out": c_out, "m": m, "k": k, "max_abs_err": err,
-               "err_over_tol": ratio, "conv7x7_max_abs_err": conv_err,
+               "err_over_tol": ratio, "first_design_err_over_tol": old_ratio,
+               "conv7x7_max_abs_err": conv_err,
                "conv7x7_err_over_tol": conv_ratio, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "cudnn_conv7x7_ms": conv_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "ok": ok}
+               "device_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "first_design_ms": old_ms,
+               "first_design_bound_ms": old_bound_ms,
+               "cublas_patches_ms": cublas_ms, "cudnn_conv7x7_ms": conv_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "ok": ok}
         rows.append(row)
-        log(f"kernel_stem {dname:8s} (M, K, N)={(m, k, c_out)} err={err:.3e} "
-            f"({ratio:.3f} of tol) vs 7x7 conv err={conv_err:.3e} "
-            f"({conv_ratio:.3f} of tol) kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"cudnn_conv7x7_ms={conv_ms:.4f} bound_ms={bound_ms:.4f} "
-            f"({bound_by}) {'ok' if ok else 'FAILED'}")
-        del x, w7, xs, flat, w2d, out
+        log(f"kernel_stem {dname:8s} xs={(b, c, h2, w2)} C_out={c_out} "
+            f"err={err:.3e} ({ratio:.3f} of tol; first design "
+            f"{old_ratio:.3f}) vs 7x7 conv err={conv_err:.3e} "
+            f"({conv_ratio:.3f} of tol) kernel_ms={ms:.4f} (device "
+            f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (cuDNN, packed input) "
+            f"first_design_ms={old_ms:.4f} cublas_patches_ms="
+            f"{cublas_ms:.4f} cudnn_conv7x7_ms={conv_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"{'ok' if ok else 'FAILED'}")
+        del x, w7, xs, wf, flat, w2d, out
     torch.cuda.empty_cache()
-    failed = [f"{r['dtype']}/{r['m']}" for r in rows if not r["ok"]]
+    failed = [f"{r['dtype']}/{r['packed_input']}" for r in rows
+              if not r["ok"]]
     if failed:
         raise SystemExit(f"B2 disagrees with its plain version or the 7x7 "
                          f"conv: {failed}")
@@ -1730,15 +1974,15 @@ def resnet_batch(dev):
 
 def _cnn_counts():
     from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
-    from mxnet_tpu_torch.ops.stem import STEM_MATMUL
+    from mxnet_tpu_torch.ops.stem import STEM_CONV
     return {"bn_bwd_reduce": BN_BWD_REDUCE.launches,
-            "stem_matmul": STEM_MATMUL.launches}
+            "stem_conv": STEM_CONV.launches}
 
 
 def _reset_cnn_counts():
     from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
-    from mxnet_tpu_torch.ops.stem import STEM_MATMUL
-    BN_BWD_REDUCE.launches = STEM_MATMUL.launches = 0
+    from mxnet_tpu_torch.ops.stem import STEM_CONV
+    BN_BWD_REDUCE.launches = STEM_CONV.launches = 0
 
 
 def _train_steps(step, args, n_steps, expect):
@@ -1834,7 +2078,7 @@ def phase_resnet(dev):
             for _ in range(RESNET_WARMUP)]
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_matmul": 0}
+    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_conv": 0}
     losses, wall, launches, counts_ok = _train_steps(step, args,
                                                      RESNET_STEPS, expect)
     vals, finite, falling = _loss_gates(warm + losses)
@@ -1891,7 +2135,7 @@ def phase_resnet_s2d(dev):
                       kvstore="device")
     step = FusedTrainStep(mod, trainer)
     warm = [step(*args, batch_size=RESNET_BATCH) for _ in range(S2D_WARMUP)]
-    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_matmul": 1}
+    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_conv": 1}
     losses, wall, launches, counts_ok = _train_steps(step, args, S2D_STEPS,
                                                      expect)
     vals, finite, falling = _loss_gates(warm + losses)
@@ -2133,6 +2377,37 @@ def _ce_step(net, trainer, x, y, f32_logits):
     trainer.step(RESNET_BATCH)
 
 
+def _ce_curve(dev, f32_logits):
+    """The custom-head phase's eager loop with SoftmaxCrossEntropyLoss in
+    the head's place, from the same weights (`resnet50`, seed 0) and the
+    same batch, for the same warm-up and timed steps: the mean loss of
+    each step (on the f32 logits, as the head takes them, or on the bf16
+    logits, as phase 7's fused step does)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    net = resnet50(dev)
+    x, y = resnet_batch(dev)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      kvstore="device")
+    losses = []
+    for _ in range(CUSTOM_WARMUP + CUSTOM_STEPS):
+        with mx.autograd.record():
+            logits = net(x)
+            loss = SoftmaxCrossEntropyLoss()(
+                logits.float() if f32_logits else logits, y)
+        mx.autograd.backward(loss)
+        trainer.step(RESNET_BATCH)
+        losses.append(loss.detach().float().mean())
+    vals = torch.stack(losses).cpu().tolist()
+    del net, trainer, x, y
+    torch.cuda.empty_cache()
+    return vals
+
+
 def _weight_diff(mine, theirs):
     """The largest absolute difference over every parameter, and how
     many parameters differ at all."""
@@ -2289,6 +2564,15 @@ def phase_resnet_custom(dev):
         f"batch {RESNET_BATCH}")
     del net, trainer, x, y
     torch.cuda.empty_cache()
+    # the same eager loop with cross entropy in the head's place: whether
+    # the gap to phase 7's fused curve belongs to the head or to the loop
+    curves = {"softmax_rtc_head_eager": vals,
+              "cross_entropy_f32_logits_eager": _ce_curve(dev, True),
+              "cross_entropy_bf16_logits_eager": _ce_curve(dev, False)}
+    out["loss_curves"] = curves
+    log("resnet_custom: loss curves (warm-up and timed steps): " +
+        json.dumps({k: {"first": v[0], "last5_mean": sum(v[-5:]) / 5,
+                        "curve": v} for k, v in curves.items()}))
     return out
 
 
@@ -2322,6 +2606,8 @@ def main():
     del net
     torch.cuda.empty_cache()
     trained = phase_train(dev)
+    phase_odd_berts(dev)
+    phase_flash_crossover(dev)
     bn_rows = phase_bn_reduce(dev)
     stem_rows = phase_stem(dev)
     resnet = phase_resnet(dev)
@@ -2333,6 +2619,9 @@ def main():
     main_case = next(r for r in rows
                      if r["dtype"] == "bfloat16" and r["case"] == "ragged_mask"
                      and r["shape"] == [B, H, T, D])
+    train_case = next(r for r in rows
+                      if r["dtype"] == "bfloat16" and
+                      r["case"] == "train_mask_dropout")
     bwd_case = next(r for r in bwd_rows
                     if r["dtype"] == "bfloat16" and
                     r["case"] == "train_mask_dropout")
@@ -2349,9 +2638,16 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:366",
         "launches": served["flash_launches"],
         "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "ms": main_case["ms"], "device_ms": main_case["device_ms"],
+        "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "library_device_ms": main_case["library_device_ms"],
+        "training_case": {
+            "launches": launches["flash_attention_fwd"],
+            **{k: train_case[k] for k in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")}},
     }, {
         "name": "flash_attention_bwd_dq", "route": "cuda",
         "source": bwd_src,
@@ -2385,14 +2681,16 @@ def main():
         "bound_ms": bn_case["bound_ms"], "bound_by": bn_case["bound_by"],
         "library_ms": bn_case["library_ms"],
     }, {
-        "name": "stem_matmul", "route": "cuda",
+        "name": "stem_conv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/stem_matmul.cu",
         "replaces": "mxnet_tpu/ops/stem.py:120",
-        "launches": resnet_s2d["launches"]["stem_matmul"],
+        "launches": resnet_s2d["launches"]["stem_conv"],
         "max_abs_err": stem_case["max_abs_err"],
-        "ms": stem_case["ms"], "plain_ms": stem_case["plain_ms"],
+        "ms": stem_case["ms"], "device_ms": stem_case["device_ms"],
+        "plain_ms": stem_case["plain_ms"],
         "bound_ms": stem_case["bound_ms"], "bound_by": stem_case["bound_by"],
         "library_ms": stem_case["library_ms"],
+        "first_design_ms": stem_case["first_design_ms"],
     }] + [{
         "name": f"rtc:{name}", "route": "cuda",
         "source": "chip_smoke.py:USER_KERNELS_SRC",

@@ -4,7 +4,9 @@
 // Replace the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
 // mxnet_tpu/ops/pallas_kernels.py (launched by `_flash_backward` through
 // `pl.pallas_call`).  They compute the same function, not a block-for-block
-// copy.  Inputs: q, k, v, dO, out (B, H, T, D) in f32 or bf16; the forward's
+// copy.  Inputs: q, k, v, dO, out (B, H, T, D) in f32, bf16 or f16 (D of
+// 16, 32, 64 or 128: the wrapper zero-pads other head dims, which adds
+// exact zeros to every product, sum and row norm); the forward's
 // lse (B, H, T) f32 and, for `flash_attention_with_lse`, its cotangent dlse.
 // Both kernels recompute the probabilities from the saved lse instead of
 // storing them:
@@ -51,14 +53,17 @@
 // chip_smoke.py times both against their bound; PERF.md keeps the numbers.
 //
 // What the design does about it.
-// - bf16: the products run on the tensor cores, mma.sync m16n8k16 (bf16 in,
-//   f32 accumulate), fed by ldmatrix from bf16 tiles kept in shared memory
+// - bf16 and f16 (one kernel each, templated on a traits struct of
+//   hopper_mma.cuh: the MMA, packing and the type's rounding tie): the
+//   products run on the tensor cores, mma.sync m16n8k16 (16-bit in, f32
+//   accumulate), fed by ldmatrix from 16-bit tiles kept in shared memory
 //   in their row-major (T, D) layout: s = q k^T and dp = dO v^T (B4), and
 //   st = k q^T and dpt = v dO^T (B5), take k, v, q, dO as the "col" operand
 //   straight from their rows; dq = ds k, dv = (p keep)^T dO and dk = ds^T q
 //   take k, dO and q through ldmatrix.trans.  ds and p * keep are rounded to
-//   bf16 in registers, straight from the accumulator fragments, and feed the
-//   next product as its A operand without a trip through shared memory.
+//   the input type in registers, straight from the accumulator fragments,
+//   and feed the next product as its A operand without a trip through
+//   shared memory.
 //   Rows are padded by 8 elements (16 bytes) so an ldmatrix hits distinct
 //   banks.  Four warps own a 64-row tile, 16 rows each.  Tiles arrive by
 //   16-byte cp.async, and the next K/V tile (B4) or Q/dO tile (B5) is
@@ -66,14 +71,15 @@
 //   MMA rate is not what bounds it, so wgmma and TMA are not used.  From
 //   D = 64 on, B4 takes 32-key and B5 32-query tiles, so that the
 //   accumulators and the score fragments leave room for three blocks an SM.
-// - The rounding points decide single bf16 values, so where s or dp comes
+// - The rounding points decide single 16-bit values, so where s or dp comes
 //   out of the tensor cores a few f32 ulps away from a sequential f32 sum,
-//   ds or p * keep can round to the neighbouring bf16: one such term of
+//   ds or p * keep can round to the neighbouring value: one such term of
 //   0.1-1 moves a gradient by a few 1e-3, past chip_smoke.py's allowance
 //   against the plain version (BWD_TOL), which holds for an order of sums
 //   that matches the plain version's at the rounding points.  Each element
-//   whose f32 ds (or p * keep) lies within an error bound of a bf16
-//   rounding tie (bound: 6 * 2^-24 |q| |k| for s and |dO| |v| for dp, row
+//   whose f32 ds (or p * keep) lies within an error bound of a rounding tie
+//   of the type (bf16: low 16 bits 0x8000; f16: half an ulp of the value's
+//   own f16 ulp, fixed at 2^-24 below 2^-14) (bound: 6 * 2^-24 |q| |k| for s and |dO| |v| for dp, row
 //   norms taken from the tiles; chip_smoke.py measures the tensor cores'
 //   error against it) is derived again, with s and dp as sequential f32
 //   FMAs over d, in the plain version's order, and that value is rounded
@@ -89,25 +95,28 @@
 //   CUDA cores, with 4 x 8 register tiles, f32 tiles in shared memory (rows
 //   padded by one float), and the same delta and keep-word contract.
 // - No atomics: dq is q-major, dk and dv k-major, so results repeat bitwise.
+// - batch*heads is folded over the grid's y and z dimensions, so it may
+//   exceed the 65535 one dimension takes.
 
 #include "flash_attention_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
 using flash::BH_FOLD;
 using flash::MASKED_ROW;
 using flash::NEG_INF;
+using flash::fold_grid;
+using flash::folded_bh;
 using flash::threefry2x32;
 using flash::to_f32;
-
-using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;          // query rows per B4 tile
 constexpr int BK = 64;          // keys per tile
 constexpr int NTHREADS = 128;   // 4 warps x 16 rows of the block's own tile
 constexpr int R = 4;            // f32 kernels: tile rows per thread
 constexpr int C = 8;            // f32 kernels: columns per thread, cg + 8 * j
-constexpr int PAD = 8;          // bf16 kernels: elements of padding per row
+constexpr int PAD = 8;          // 16-bit kernels: elements of padding per row
 
 struct Params {
   const void* q;
@@ -119,9 +128,9 @@ struct Params {
   const float* dlse;     // B4: (B, H, T) lse cotangent, or null
   float* delta;          // (B, H, T) rowsum(dO * out) - dlse: B4 writes
   uint32_t* keep;        // (2, B, H, T, W) words: B4 writes, B5 reads
-                         // [0] the dropout keep bits, [1] (bf16) the pairs
-                         // whose rounding is derived again
-  unsigned long long* stats;   // bf16: += elements derived again, or null
+                         // [0] the dropout keep bits, [1] (bf16 / f16) the
+                         // pairs whose rounding is derived again
+  unsigned long long* stats;   // 16-bit: += elements derived again, or null
   void* dq;
   void* dk;
   void* dv;
@@ -132,6 +141,7 @@ struct Params {
   long long bias_sh;
   int B, H, T;
   int W;                 // keep words per query row, ceil(T / 32)
+  int Dt;                // the head dim before zero-padding to D (delta's)
   float scale;
   int causal;
   int dropout;
@@ -147,9 +157,18 @@ struct Params {
 // tree over the lanes; each product is rounded on its own.  So delta equals
 // the plain version's `(dout.float() * out.float()).sum(-1)` bit for bit,
 // and ds meets its rounding point with the plain version's operands.
+// Rows zero-padded from head dim Dt < D take `block_delta_padded`.
+template <typename S, int D>
+__device__ __forceinline__ void block_delta_padded(const Params& p, int bh,
+                                                   int q0, float* sDel);
+
 template <typename S, int D>
 __device__ __forceinline__ void block_delta(const Params& p, int bh, int q0,
                                             float* sDel) {
+  if (p.Dt != D) {
+    block_delta_padded<S, D>(p, bh, q0, sDel);
+    return;
+  }
   constexpr int BW = D < 32 ? D : 32;   // lanes of torch's block row
   constexpr int PER = D / BW;           // elements a lane adds
   constexpr int HALF = BW / 2;          // lanes this thread stands for
@@ -207,6 +226,65 @@ __device__ __forceinline__ void block_delta(const Params& p, int bh, int q0,
   }
 }
 
+// delta where the rows are zero-padded from head dim Dt (< 128) to D: torch
+// sums the unpadded rows, so its lanes follow Dt.  With fewer than 128
+// elements it does not vectorize: min(last_pow2(Dt), 32) lanes, lane i
+// adding elements i, i + lanes, ... < Dt in turn, then the same tree.  Two
+// threads a row, each standing for half the lanes; element by element (this
+// runs only for head dims the kernels do not take natively).
+template <typename S, int D>
+__device__ __forceinline__ void block_delta_padded(const Params& p, int bh,
+                                                   int q0, float* sDel) {
+  const int dt = p.Dt;
+  int bw = 1;
+  while (2 * bw <= dt && bw < 32) bw *= 2;
+  const int half = bw >> 1;
+  const int r = threadIdx.x >> 1;
+  const int h = threadIdx.x & 1;
+  const int qpos = q0 + r;
+  const size_t row = static_cast<size_t>(bh) * p.T + (qpos < p.T ? qpos : 0);
+  const S* a = static_cast<const S*>(p.dout) + row * D;
+  const S* b = static_cast<const S*>(p.out) + row * D;
+  // lanes [first, first + nl) are this thread's
+  const int nl = bw >= 2 ? half : (h == 0 ? 1 : 0);
+  const int first = h * half;
+  float v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    v[i] = 0.f;
+    if (i < nl) {
+      const int lane = first + i;
+      float acc = __fmul_rn(to_f32(a[lane]), to_f32(b[lane]));
+      for (int j = lane + bw; j < dt; j += bw)
+        acc = __fadd_rn(acc, __fmul_rn(to_f32(a[j]), to_f32(b[j])));
+      v[i] = acc;
+    }
+  }
+  if (bw >= 2) {
+    // the tree's first level pairs lane i with lane i + half: the partner
+    // thread's v[i]; then offsets half / 2, ..., 1 inside the thread
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[i], 1);
+      if (i < half) v[i] = __fadd_rn(v[i], o);
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+      if (o < half)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (i < o) v[i] = __fadd_rn(v[i], v[i + o]);
+  }
+  if (h == 0) {
+    float d = 0.f;
+    if (qpos < p.T) {
+      d = p.dlse != nullptr ? __fsub_rn(v[0], p.dlse[row]) : v[0];
+      p.delta[row] = d;
+    }
+    sDel[r] = d;
+  }
+}
+
 // The keep bit of pair (q_pos, k_pos), drawn as the forward draws it.
 __device__ __forceinline__ bool draw_keep(const Params& p, uint32_t key0,
                                           int q_pos, int k_pos) {
@@ -227,94 +305,23 @@ __device__ __forceinline__ size_t redo_at(const Params& p, int bh, int q_pos,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 / f16: tensor cores (helpers and type traits in hopper_mma.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
+using hopper::cp_async4;
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::ldsm_x4;
+using hopper::ldsm_x4_t;
+using hopper::smem_u32;
+using hopper::to_a_frag;
 
-// 16 (or 4) bytes from global to shared memory, zero-filled when !valid
-// (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float bf16_value(uint32_t bits) {
-  return __uint_as_float(bits << 16);
-}
-
-// An A operand (16 x 16) from accumulator fragments n-blocks 2kk, 2kk + 1.
-__device__ __forceinline__ void to_a_frag(uint32_t (&a)[4],
-                                          const float (&c0)[4],
-                                          const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Rows [r0, r0 + ROWS) of a (T, D) bf16 slab into shared memory at dst (row
-// stride D + PAD elements) by 16-byte cp.async; rows at or past T are zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_tile(uint32_t dst, const bf16* src,
-                                          int r0, int T) {
+// Rows [r0, r0 + ROWS) of a (T, D) 16-bit slab into shared memory at dst
+// (row stride D + PAD elements) by 16-byte cp.async; rows at or past T are
+// zeros.
+template <int D, int ROWS, typename S>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const S* src, int r0,
+                                          int T) {
   constexpr int CPR = D / 8;   // 16-byte chunks a row
   static_assert(ROWS * CPR % NTHREADS == 0, "tile does not split evenly");
 #pragma unroll
@@ -329,11 +336,12 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const bf16* src,
   }
 }
 
-// Euclidean norms of the ROWS rows of two bf16 tiles in shared memory, two
+// Euclidean norms of the ROWS rows of two 16-bit tiles in shared memory, two
 // threads a row (for the error bound of the products over them).
-template <int D, int ROWS>
-__device__ __forceinline__ void tile_norms(const bf16* a, const bf16* b,
-                                           float* na, float* nb) {
+template <typename TR, int D, int ROWS>
+__device__ __forceinline__ void tile_norms(const typename TR::T* a,
+                                           const typename TR::T* b, float* na,
+                                           float* nb) {
   static_assert(2 * ROWS <= NTHREADS, "two threads a row");
   const int r = threadIdx.x >> 1;
   const int half = threadIdx.x & 1;
@@ -341,10 +349,10 @@ __device__ __forceinline__ void tile_norms(const bf16* a, const bf16* b,
   if (r < ROWS) {
 #pragma unroll
     for (int d = half * D / 2; d < (half + 1) * D / 2; d += 2) {
-      const float2 x = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(a + r * (D + PAD) + d));
-      const float2 y = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(b + r * (D + PAD) + d));
+      const float2 x = TR::unpack(
+          *reinterpret_cast<const uint32_t*>(a + r * (D + PAD) + d));
+      const float2 y = TR::unpack(
+          *reinterpret_cast<const uint32_t*>(b + r * (D + PAD) + d));
       sa += x.x * x.x + x.y * x.y;
       sb += y.x * y.x + y.y * y.y;
     }
@@ -359,8 +367,9 @@ __device__ __forceinline__ void tile_norms(const bf16* a, const bf16* b,
 
 // sum_d a[d] * b[d] as sequential f32 FMAs in d order from 0, as the plain
 // version's f32 matmul sums: the value the rounding points must see.
-template <int D>
-__device__ __forceinline__ float seq_dot(const bf16* a, const bf16* b) {
+template <typename TR, int D>
+__device__ __forceinline__ float seq_dot(const typename TR::T* a,
+                                         const typename TR::T* b) {
   float acc = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; d += 8) {
@@ -370,10 +379,10 @@ __device__ __forceinline__ float seq_dot(const bf16* a, const bf16* b) {
     const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-      acc = __fmaf_rn(__uint_as_float(xs[w] << 16),
-                      __uint_as_float(ys[w] << 16), acc);
-      acc = __fmaf_rn(__uint_as_float(xs[w] & 0xFFFF0000u),
-                      __uint_as_float(ys[w] & 0xFFFF0000u), acc);
+      const float2 xv = TR::unpack(xs[w]);
+      const float2 yv = TR::unpack(ys[w]);
+      acc = __fmaf_rn(xv.x, yv.x, acc);
+      acc = __fmaf_rn(xv.y, yv.y, acc);
     }
   }
   return acc;
@@ -384,18 +393,6 @@ __device__ __forceinline__ float seq_dot(const bf16* a, const bf16* b) {
 // products' magnitude, and sum_d |a_d b_d| <= |a| |b|
 // (chip_smoke.py phase 1b measures it on the card)
 constexpr float SUM_ERR = 6 * 5.9604645e-8f;   // 6 * 2^-24
-
-// Whether f32 x, known to within abs_err of the value the plain version
-// computes, could round to another bf16 than that value does: x lies within
-// abs_err (plus 4 ulps) of a bf16 rounding tie (low 16 bits 0x8000).
-__device__ __forceinline__ bool near_tie(float x, float abs_err) {
-  const float ax = fabsf(x);
-  const int dist =
-      abs(static_cast<int>(__float_as_uint(x) & 0xFFFFu) - 0x8000);
-  // ulp(x) >= |x| 2^-24, so abs_err spans at most abs_err 2^24 / |x| ulps
-  return ax != 0.f && static_cast<float>(dist) * ax <=
-                          abs_err * 16777216.f + 4.f * ax;
-}
 
 // Queue entry of an element to derive again: row within the warp's 16, column
 // within the tile, its keep bit.
@@ -450,7 +447,7 @@ __host__ __device__ constexpr int dq_bk() {
 }
 
 template <int D>
-constexpr size_t dq_bf16_smem_bytes() {
+constexpr size_t dq_tc_smem_bytes() {
   // q, dO, two K and two V tiles; lse, delta, q and dO norms; two buffers of
   // K and V norms; the queue, 16 x KB entries a warp
   return (2 * 64 + 4 * dq_bk<D>()) * (D + PAD) * 2 + 4 * 64 * 4 +
@@ -466,7 +463,7 @@ __host__ __device__ constexpr int dkv_bn() {
 }
 
 template <int D>
-constexpr size_t dkv_bf16_smem_bytes() {
+constexpr size_t dkv_tc_smem_bytes() {
   // K and V tiles; two buffers of q and dO tiles, lse, delta, keep words
   // and the words of pairs to derive again; the queue, 16 x BN entries a
   // warp
@@ -474,22 +471,23 @@ constexpr size_t dkv_bf16_smem_bytes() {
          2 * dkv_bn<D>() * 24 + 4 * 16 * dkv_bn<D>() * 4;
 }
 
-// B4, bf16.  Grid: (ceil(T / BQ), B * H).  Warp w owns query rows
+// B4, bf16 / f16.  Grid: (ceil(T / BQ), folded B * H).  Warp w owns query rows
 // [16w, 16w + 16) of the tile, which walks K tiles of KB keys; lane = 4g + t
 // holds rows 16w + g and 16w + g + 8, score columns 8n + 2t, 8n + 2t + 1 of
 // each 8-key block n and dq columns likewise of each 8-wide block of D.
-template <int D>
+template <typename TR, int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_bf16_kernel(const Params p) {
+flash_bwd_dq_tc_kernel(const Params p) {
   constexpr int KB = dq_bk<D>();
   constexpr int NSLOT = KB / 2;     // score elements a lane holds
   constexpr int RS = D + PAD;
   constexpr uint32_t TILE_BYTES = KB * RS * 2;
+  using S = typename TR::T;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* tQ = reinterpret_cast<bf16*>(smem);
-  bf16* tDO = tQ + 64 * RS;
-  bf16* tK = tDO + 64 * RS;                    // two buffers
-  bf16* tV = tK + 2 * KB * RS;                 // two buffers
+  S* tQ = reinterpret_cast<S*>(smem);
+  S* tDO = tQ + 64 * RS;
+  S* tK = tDO + 64 * RS;                    // two buffers
+  S* tV = tK + 2 * KB * RS;                 // two buffers
   float* sLse = reinterpret_cast<float*>(tV + 2 * KB * RS);
   float* sDel = sLse + 64;
   float* sQn = sDel + 64;
@@ -504,7 +502,8 @@ flash_bwd_dq_bf16_kernel(const Params p) {
 
   const int T = p.T;
   const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int warp = threadIdx.x >> 5;
@@ -514,8 +513,8 @@ flash_bwd_dq_bf16_kernel(const Params p) {
   uint32_t* queue = sQueue + warp * 16 * KB;
 
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const bf16* K = static_cast<const bf16*>(p.k) + base;
-  const bf16* V = static_cast<const bf16*>(p.v) + base;
+  const S* K = static_cast<const S*>(p.k) + base;
+  const S* V = static_cast<const S*>(p.v) + base;
   const bool masked = p.mask != nullptr;
   const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
@@ -527,8 +526,8 @@ flash_bwd_dq_bf16_kernel(const Params p) {
   if (p.kend != nullptr) kmax = min(kmax, p.kend[b]);
   const int n_tiles = (kmax + KB - 1) / KB;
 
-  copy_tile<D, 64>(sQ, static_cast<const bf16*>(p.q) + base, q0, T);
-  copy_tile<D, 64>(sDO, static_cast<const bf16*>(p.dout) + base, q0, T);
+  copy_tile<D, 64>(sQ, static_cast<const S*>(p.q) + base, q0, T);
+  copy_tile<D, 64>(sDO, static_cast<const S*>(p.dout) + base, q0, T);
   if (n_tiles > 0) {
     copy_tile<D, KB>(sK, K, 0, T);
     copy_tile<D, KB>(sV, V, 0, T);
@@ -541,7 +540,7 @@ flash_bwd_dq_bf16_kernel(const Params p) {
     if (masked && !(l > MASKED_ROW)) l = 0.f;
     sLse[threadIdx.x] = l;
   }
-  block_delta<bf16, D>(p, bh, q0, sDel);   // while the tiles arrive
+  block_delta<S, D>(p, bh, q0, sDel);   // while the tiles arrive
 
   int rows[2];
 #pragma unroll
@@ -575,10 +574,10 @@ flash_bwd_dq_bf16_kernel(const Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* cK = tK + nb * KB * RS;
-    const bf16* cV = tV + nb * KB * RS;
-    if (kt == 0) tile_norms<D, 64>(tQ, tDO, sQn, sOn);
-    tile_norms<D, KB>(cK, cV, sKn + nb * KB, sVn + nb * KB);
+    const S* cK = tK + nb * KB * RS;
+    const S* cV = tV + nb * KB * RS;
+    if (kt == 0) tile_norms<TR, D, 64>(tQ, tDO, sQn, sOn);
+    tile_norms<TR, D, KB>(cK, cV, sKn + nb * KB, sVn + nb * KB);
     __syncthreads();
 
     float s[KB / 8][4], dp[KB / 8][4];
@@ -597,10 +596,10 @@ flash_bwd_dq_bf16_kernel(const Params p) {
         uint32_t kb[4], vb[4];
         ldsm_x4(kb, sK + buf + off);
         ldsm_x4(vb, sV + buf + off);
-        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
-        mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
-        mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+        TR::mma(s[2 * np], qa, kb[0], kb[1]);
+        TR::mma(s[2 * np + 1], qa, kb[2], kb[3]);
+        TR::mma(dp[2 * np], oa, vb[0], vb[1]);
+        TR::mma(dp[2 * np + 1], oa, vb[2], vb[3]);
       }
     }
 
@@ -652,8 +651,8 @@ flash_bwd_dq_bf16_kernel(const Params p) {
           const float edp = 2 * SUM_ERR * sOn[rows[i]] *
                                 sVn[nb * KB + kcol] * ksf +
                             fabsf(dpj) * 2.4e-7f;
-          if (near_tie(ds, 1.01f * ex * fabsf(ds) + pj * p.scale * edp) ||
-              near_tie(pk, 1.01f * ex * fabsf(pk))) {
+          if (TR::near_tie(ds, 1.01f * ex * fabsf(ds) + pj * p.scale * edp) ||
+              TR::near_tie(pk, 1.01f * ex * fabsf(pk))) {
             risk |= 1u << (4 * n + c);
             redo[i][n >> 2] |= 1u << (kcol & 31);
           }
@@ -677,20 +676,20 @@ flash_bwd_dq_bf16_kernel(const Params p) {
         const int kcol = en & 127;
         const int qpos = q0 + row;
         const int kpos = k0 + kcol;
-        const float sv = seq_dot<D>(tQ + row * RS, cK + kcol * RS);
-        float dpv = seq_dot<D>(tDO + row * RS, cV + kcol * RS);
+        const float sv = seq_dot<TR, D>(tQ + row * RS, cK + kcol * RS);
+        float dpv = seq_dot<TR, D>(tDO + row * RS, cV + kcol * RS);
         float x = __fmul_rn(sv, p.scale);
         if (brow != nullptr)
           x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
         const float pj = expf(__fsub_rn(x, sLse[row]));
         if (p.dropout)
           dpv = __fmul_rn(dpv, (en >> 11) & 1u ? p.inv_keep : 0.f);
-        queue[j] = bf16_bits(__fmul_rn(
+        queue[j] = TR::bits(__fmul_rn(
             __fmul_rn(pj, __fsub_rn(dpv, sDel[row])), p.scale));
       }
       __syncwarp();
       dequeue<NSLOT>(risk, queue, [&](int e, uint32_t r) {
-        s[e >> 2][e & 3] = bf16_value(r);
+        s[e >> 2][e & 3] = TR::value(r);
       });
     }
 
@@ -727,20 +726,20 @@ flash_bwd_dq_bf16_kernel(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < KB / 16; ++kk) {
       uint32_t da[4];
-      to_a_frag(da, s[2 * kk], s[2 * kk + 1]);
+      to_a_frag<TR>(da, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n2 = 0; n2 < D / 16; ++n2) {
         uint32_t kb[4];
         ldsm_x4_t(kb, sK + buf + ((kk * 16 + t_row) * RS + n2 * 16 + t_col) * 2);
-        mma_bf16(acc[2 * n2], da, kb[0], kb[1]);
-        mma_bf16(acc[2 * n2 + 1], da, kb[2], kb[3]);
+        TR::mma(acc[2 * n2], da, kb[0], kb[1]);
+        TR::mma(acc[2 * n2 + 1], da, kb[2], kb[3]);
       }
     }
     __syncthreads();   // every warp is done with this buffer
   }
   cp_async_wait<0>();
 
-  bf16* DQ = static_cast<bf16*>(p.dq) + base;
+  S* DQ = static_cast<S*>(p.dq) + base;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qpos = q0 + rows[i];
@@ -749,26 +748,27 @@ flash_bwd_dq_bf16_kernel(const Params p) {
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(DQ + static_cast<size_t>(qpos) * D + n * 8 +
                                    2 * t4) =
-          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+          TR::pack(acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
-// B5, bf16.  Grid: (ceil(T / BK), B * H).  The same fragment layout in
+// B5, bf16 / f16.  Grid: (ceil(T / BK), folded B * H).  The same fragment layout in
 // transposed (k-major) score space: warp w owns key rows [16w, 16w + 16) of
 // the tile, each Q tile is BN queries wide.
-template <int D>
+template <typename TR, int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_bf16_kernel(const Params p) {
+flash_bwd_dkv_tc_kernel(const Params p) {
   constexpr int BN = dkv_bn<D>();
   constexpr int NSLOT = BN / 2;     // score elements a lane holds
   constexpr int RS = D + PAD;
   constexpr uint32_t KTILE = 64 * RS * 2;
   constexpr uint32_t QTILE = BN * RS * 2;
+  using S = typename TR::T;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* tK = reinterpret_cast<bf16*>(smem);
-  bf16* tV = tK + 64 * RS;
-  bf16* tQ = tV + 64 * RS;                     // two buffers
-  bf16* tDO = tQ + 2 * BN * RS;                // two buffers
+  S* tK = reinterpret_cast<S*>(smem);
+  S* tV = tK + 64 * RS;
+  S* tQ = tV + 64 * RS;                     // two buffers
+  S* tDO = tQ + 2 * BN * RS;                // two buffers
   float* sLse = reinterpret_cast<float*>(tDO + 2 * BN * RS);   // two buffers
   float* sDel = sLse + 2 * BN;                                 // each, from
   uint32_t* sKeep = reinterpret_cast<uint32_t*>(sDel + 2 * BN);   // here:
@@ -781,7 +781,8 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
 
   const int T = p.T;
   const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y;
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int warp = threadIdx.x >> 5;
@@ -791,8 +792,8 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
   uint32_t* queue = sQueue + warp * 16 * BN;
 
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const bf16* Q = static_cast<const bf16*>(p.q) + base;
-  const bf16* DO = static_cast<const bf16*>(p.dout) + base;
+  const S* Q = static_cast<const S*>(p.q) + base;
+  const S* DO = static_cast<const S*>(p.dout) + base;
   const bool masked = p.mask != nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
                              : nullptr;
@@ -846,8 +847,8 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
   };
 
   if (first_qt < n_qt) {
-    copy_tile<D, 64>(sK, static_cast<const bf16*>(p.k) + base, k0, T);
-    copy_tile<D, 64>(sV, static_cast<const bf16*>(p.v) + base, k0, T);
+    copy_tile<D, 64>(sK, static_cast<const S*>(p.k) + base, k0, T);
+    copy_tile<D, 64>(sV, static_cast<const S*>(p.v) + base, k0, T);
     stage(first_qt, 0);
     cp_async_commit();
   }
@@ -870,8 +871,8 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
     }
     __syncthreads();
     const int q0 = qt * BN;
-    const bf16* cQ = tQ + buf * BN * RS;
-    const bf16* cDO = tDO + buf * BN * RS;
+    const S* cQ = tQ + buf * BN * RS;
+    const S* cDO = tDO + buf * BN * RS;
     const float* lse = sLse + buf * BN;
     const float* del = sDel + buf * BN;
     const uint32_t* keep = sKeep + buf * 2 * BN;
@@ -895,10 +896,10 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
         uint32_t qb[4], ob[4];
         ldsm_x4(qb, qb_base + off);
         ldsm_x4(ob, ob_base + off);
-        mma_bf16(st[2 * np], ka, qb[0], qb[1]);
-        mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
-        mma_bf16(dpt[2 * np], va, ob[0], ob[1]);
-        mma_bf16(dpt[2 * np + 1], va, ob[2], ob[3]);
+        TR::mma(st[2 * np], ka, qb[0], qb[1]);
+        TR::mma(st[2 * np + 1], ka, qb[2], qb[3]);
+        TR::mma(dpt[2 * np], va, ob[0], ob[1]);
+        TR::mma(dpt[2 * np + 1], va, ob[2], ob[3]);
       }
     }
 
@@ -963,8 +964,8 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
         const int qc = en & 127;
         const int qpos = q0 + qc;
         const int kpos = k0 + kr;
-        const float sv = seq_dot<D>(cQ + qc * RS, tK + kr * RS);
-        float dpv = seq_dot<D>(cDO + qc * RS, tV + kr * RS);
+        const float sv = seq_dot<TR, D>(cQ + qc * RS, tK + kr * RS);
+        float dpv = seq_dot<TR, D>(cDO + qc * RS, tV + kr * RS);
         float x = __fmul_rn(sv, p.scale);
         if (brow != nullptr)
           x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
@@ -979,12 +980,12 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
         }
         const float ds =
             __fmul_rn(__fmul_rn(pj, __fsub_rn(dpv, del[qc])), p.scale);
-        queue[j] = bf16_bits(pk) | (bf16_bits(ds) << 16);
+        queue[j] = TR::bits(pk) | (TR::bits(ds) << 16);
       }
       __syncwarp();
       dequeue<NSLOT>(risk, queue, [&](int e, uint32_t r) {
-        st[e >> 2][e & 3] = bf16_value(r & 0xFFFFu);
-        dpt[e >> 2][e & 3] = bf16_value(r >> 16);
+        st[e >> 2][e & 3] = TR::value(r & 0xFFFFu);
+        dpt[e >> 2][e & 3] = TR::value(r >> 16);
       });
     }
 
@@ -992,26 +993,26 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t pa[4], da[4];
-      to_a_frag(pa, st[2 * kk], st[2 * kk + 1]);
-      to_a_frag(da, dpt[2 * kk], dpt[2 * kk + 1]);
+      to_a_frag<TR>(pa, st[2 * kk], st[2 * kk + 1]);
+      to_a_frag<TR>(da, dpt[2 * kk], dpt[2 * kk + 1]);
 #pragma unroll
       for (int n2 = 0; n2 < D / 16; ++n2) {
         const uint32_t off = ((kk * 16 + t_row) * RS + n2 * 16 + t_col) * 2;
         uint32_t ob[4], qb[4];
         ldsm_x4_t(ob, ob_base + off);
-        mma_bf16(dv[2 * n2], pa, ob[0], ob[1]);
-        mma_bf16(dv[2 * n2 + 1], pa, ob[2], ob[3]);
+        TR::mma(dv[2 * n2], pa, ob[0], ob[1]);
+        TR::mma(dv[2 * n2 + 1], pa, ob[2], ob[3]);
         ldsm_x4_t(qb, qb_base + off);
-        mma_bf16(dk[2 * n2], da, qb[0], qb[1]);
-        mma_bf16(dk[2 * n2 + 1], da, qb[2], qb[3]);
+        TR::mma(dk[2 * n2], da, qb[0], qb[1]);
+        TR::mma(dk[2 * n2 + 1], da, qb[2], qb[3]);
       }
     }
     __syncthreads();   // every warp is done with this buffer
   }
   cp_async_wait<0>();
 
-  bf16* DK = static_cast<bf16*>(p.dk) + base;
-  bf16* DV = static_cast<bf16*>(p.dv) + base;
+  S* DK = static_cast<S*>(p.dk) + base;
+  S* DV = static_cast<S*>(p.dv) + base;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kpos = k0 + rows[i];
@@ -1020,9 +1021,9 @@ flash_bwd_dkv_bf16_kernel(const Params p) {
     for (int n = 0; n < D / 8; ++n) {
       const size_t at = static_cast<size_t>(kpos) * D + n * 8 + 2 * t4;
       *reinterpret_cast<uint32_t*>(DK + at) =
-          pack_bf16(dk[n][2 * i], dk[n][2 * i + 1]);
+          TR::pack(dk[n][2 * i], dk[n][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(DV + at) =
-          pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+          TR::pack(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
@@ -1074,7 +1075,8 @@ flash_bwd_dq_f32_kernel(const Params p) {
 
   const int T = p.T;
   const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int lane = threadIdx.x & 31;
@@ -1249,7 +1251,8 @@ flash_bwd_dkv_f32_kernel(const Params p) {
 
   const int T = p.T;
   const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y;
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int lane = threadIdx.x & 31;
@@ -1416,8 +1419,8 @@ cudaError_t launch_kernel(void (*kernel)(Params), size_t smem,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.T + 63) / 64, p.B * p.H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  kernel<<<fold_grid((p.T + 63) / 64, p.B * p.H), NTHREADS, smem, stream>>>(
+      p);
   return cudaGetLastError();
 }
 
@@ -1429,10 +1432,15 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
               : launch_kernel(flash_bwd_dkv_f32_kernel<D>,
                               dkv_f32_smem_bytes<D>(), p, stream);
   if (dtype == 1)
-    return DQ ? launch_kernel(flash_bwd_dq_bf16_kernel<D>,
-                              dq_bf16_smem_bytes<D>(), p, stream)
-              : launch_kernel(flash_bwd_dkv_bf16_kernel<D>,
-                              dkv_bf16_smem_bytes<D>(), p, stream);
+    return DQ ? launch_kernel(flash_bwd_dq_tc_kernel<hopper::Bf16, D>,
+                              dq_tc_smem_bytes<D>(), p, stream)
+              : launch_kernel(flash_bwd_dkv_tc_kernel<hopper::Bf16, D>,
+                              dkv_tc_smem_bytes<D>(), p, stream);
+  if (dtype == 2)
+    return DQ ? launch_kernel(flash_bwd_dq_tc_kernel<hopper::F16, D>,
+                              dq_tc_smem_bytes<D>(), p, stream)
+              : launch_kernel(flash_bwd_dkv_tc_kernel<hopper::F16, D>,
+                              dkv_tc_smem_bytes<D>(), p, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1453,7 +1461,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    uint32_t* keep, unsigned long long* stats,
                    const int32_t* mask, const int32_t* kend,
                    const float* bias, long long bias_sb, long long bias_sh,
-                   int batch, int heads, int seq, float scale, int causal,
+                   int batch, int heads, int seq, int true_dim, float scale,
+                   int causal,
                    int dropout, unsigned int seed0, unsigned int seed1,
                    unsigned int thr, float inv_keep) {
   Params p;
@@ -1477,6 +1486,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.H = heads;
   p.T = seq;
   p.W = (seq + 31) / 32;
+  p.Dt = true_dim;
   p.scale = scale;
   p.causal = causal;
   p.dropout = dropout;
@@ -1489,7 +1499,10 @@ Params make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Every pointer is a device pointer;
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim is the row length
+// of q, k, v, dout and out in device memory (16, 32, 64 or 128), true_dim the
+// head dim before the wrapper's zero padding, over which delta is summed.
+// Every pointer is a device pointer;
 // dlse, mask, kend, bias and stats may be null.  B4 writes dq, delta
 // (B, H, T) f32 and the words (2, B, H, T, ceil(T/32)) uint32 (the keep bits
 // with dropout; the pairs derived again in bf16) that B5 then reads.  stats, when given,
@@ -1502,12 +1515,14 @@ extern "C" int flash_attention_bwd_dq(
     unsigned int* keep, void* dq, unsigned long long* stats,
     const int32_t* mask, const int32_t* kend, const float* bias,
     long long bias_sb, long long bias_sh, int batch, int heads, int seq,
-    int head_dim, int dtype, float scale, int causal, int dropout,
-    unsigned int seed0, unsigned int seed1, unsigned int thr, float inv_keep,
-    void* stream) {
+    int head_dim, int true_dim, int dtype, float scale, int causal,
+    int dropout, unsigned int seed0, unsigned int seed1, unsigned int thr,
+    float inv_keep, void* stream) {
+  if (true_dim < 1 || true_dim > head_dim)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, dout, lse, delta, keep, stats, mask, kend,
-                         bias, bias_sb, bias_sh, batch, heads, seq, scale,
-                         causal, dropout, seed0, seed1, thr, inv_keep);
+                         bias, bias_sb, bias_sh, batch, heads, seq, true_dim,
+                         scale, causal, dropout, seed0, seed1, thr, inv_keep);
   p.out = out;
   p.dlse = dlse;
   p.dq = dq;
@@ -1520,12 +1535,14 @@ extern "C" int flash_attention_bwd_dkv(
     const float* lse, float* delta, unsigned int* keep, void* dk, void* dv,
     unsigned long long* stats, const int32_t* mask, const int32_t* kend,
     const float* bias, long long bias_sb, long long bias_sh, int batch,
-    int heads, int seq, int head_dim, int dtype, float scale, int causal,
-    int dropout, unsigned int seed0, unsigned int seed1, unsigned int thr,
-    float inv_keep, void* stream) {
+    int heads, int seq, int head_dim, int true_dim, int dtype, float scale,
+    int causal, int dropout, unsigned int seed0, unsigned int seed1,
+    unsigned int thr, float inv_keep, void* stream) {
+  if (true_dim < 1 || true_dim > head_dim)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, dout, lse, delta, keep, stats, mask, kend,
-                         bias, bias_sb, bias_sh, batch, heads, seq, scale,
-                         causal, dropout, seed0, seed1, thr, inv_keep);
+                         bias, bias_sb, bias_sh, batch, heads, seq, true_dim,
+                         scale, causal, dropout, seed0, seed1, thr, inv_keep);
   p.dk = dk;
   p.dv = dv;
   return static_cast<int>(launch_any<false>(

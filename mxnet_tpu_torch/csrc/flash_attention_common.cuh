@@ -1,10 +1,12 @@
 // Device helpers shared by the flash-attention kernels (forward B3 in
 // flash_attention_fwd.cu, backward B4/B5 in flash_attention_bwd.cu), so that
-// all three draw bit-identical dropout masks and round at the same points.
+// all three draw bit-identical dropout masks and fold batch*heads over the
+// grid alike.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace flash {
@@ -19,14 +21,18 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
-template <typename S> __device__ __forceinline__ S from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
+// batch*head folded over gridDim.y x gridDim.z, so that it may exceed the
+// 65535 one grid dimension takes: block (x, y, z) works on (batch, head)
+// z * gridDim.y + y; blocks at or past batch*head have no work.
+__device__ __forceinline__ int folded_bh() {
+  return static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
+
+inline dim3 fold_grid(int gx, int bh) {
+  const int gz = (bh + 65534) / 65535;
+  return dim3(gx, (bh + gz - 1) / gz, gz);
 }
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {

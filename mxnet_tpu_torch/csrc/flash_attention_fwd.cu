@@ -2,15 +2,16 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` of mxnet_tpu/ops/pallas_kernels.py
 // (launched by `_flash_forward` through `pl.pallas_call`).  It computes the
-// same function: q, k, v (B, H, T, D) in f32 or bf16 -> out (B, H, T, D) in
-// the input type and lse (B, H, T) in f32, with an online softmax whose
+// same function: q, k, v (B, H, T, D) in f32, bf16 or f16 -> out (B, H, T, D)
+// in the input type and lse (B, H, T) in f32, with an online softmax whose
 // running max, running sum and output accumulator are f32.  Options: causal
 // (with the tile skip past the diagonal), a (B, T) key-padding mask (with the
 // per-batch-row `kend` tile skip, and element masking inside the last tiles),
 // an additive f32 bias broadcast over (B|1, H|1, T, T), and threefry2x32
 // attention dropout in which `l` sums the undropped mass and only the PV
-// product sees the dropped, rescaled p.  Rows with no valid key give exact
-// zeros and an lse below the -1e29 sentinel.
+// product sees the dropped, rescaled p, rounded to v's type.  Rows with no
+// valid key give exact zeros and an lse below the -1e29 sentinel.  Any
+// batch*head: it is folded over the grid's y and z dimensions.
 //
 // What bounds it.  At the serving path's largest bucket (B=8, H=12, T=512,
 // D=64, bf16) the function moves 25.2 MB unmasked (q, k, v, out; 7.5 us at
@@ -18,44 +19,57 @@
 // cores): on the data sheet it is bound by bytes.  With a key-padding mask it
 // needs only the valid keys' k and v rows and attends only to them, which
 // at chip_smoke.py's mask (about half the keys valid) leaves a bound of
-// 5.7 us.  This first kernel does not reach either line: it runs the
-// products as scalar f32 FMAs on the CUDA cores (67 TF/s peak), so the FMA
-// pipe and the shared-memory loads that feed it bound it; with that mask it
-// takes about 0.24 ms on an H100 SXM at 700 W, some 42x the bound (PERF.md).
+// 5.7 us.  What the card can reach with mma.sync is below the data sheet's
+// rate, and the per-element work (scale, masks, exp, dropout bits) runs on
+// the CUDA cores beside it; PERF.md keeps the measured times.
 //
-// What the design does about it.  Each block owns a 64-row query tile of one
-// (batch, head) and keeps it in shared memory for the whole K loop, so q is
-// read from device memory once and k/v once per query tile; the (T, T)
-// scores never leave the chip.  64-key tiles of k and v are staged in shared
-// memory (rows padded by one float so the lanes of a warp hit distinct
-// banks), each thread holds a 4 x 8 register tile of scores and a 4 x D/8
-// tile of the output, and row reductions are warp shuffles.  f32 inputs stay
-// true f32 (no TF32); bf16 inputs are widened to f32, which is exact, so the
-// products accumulate in f32 as the reference's do, and p is rounded to bf16
-// before the PV product as the reference rounds it.  Tensor cores (wgmma),
-// TMA and a pipelined K loop are the next steps toward the bound.  The
+// What the design does about it (bf16 and f16).  A block owns a 64-row
+// query tile of one (batch, head); four warps own 16 rows each and hold
+// their rows of q as MMA A fragments in registers for the whole K loop, so q
+// is read from device memory once and k/v once per query tile; the (T, T)
+// scores never leave the chip.  K and V tiles of 64 keys (32 from D = 80 on,
+// so that the score and output accumulators fit the registers) arrive by
+// 16-byte cp.async into two buffers, the next tile in flight while the
+// current one is computed.  S = q k^T and O += p v run on mma.sync m16n8k16
+// (16-bit inputs, f32 accumulation), fed by ldmatrix for k and ldmatrix.trans
+// for v from row-major (T, D) tiles whose rows are padded by 16 bytes so that
+// an ldmatrix hits distinct banks.  Scale, bias, masks and dropout are
+// applied to the score fragments in registers; row max and row sum take two
+// shuffles across the four lanes that share a row; p (times keep) is rounded
+// to the input type straight into the PV A fragments.  Any head_dim <= 128
+// that is a multiple of 8 (the wrapper pads others): the kernel is
+// instantiated at D rounded up to 16, and cp.async zero-fills the columns
+// past the true D in shared memory.  The output is staged through shared
+// memory and written 16 bytes a lane.
+//
+// f32 stays true f32 (no TF32): a scalar kernel with FMAs on the CUDA cores
+// (67 TF/s peak), q/k/v tiles in shared memory widened to f32 (rows padded
+// by one float), a 4 x 8 register tile of scores per thread and warp-shuffle
+// row reductions, at D of 16, 32, 64 or 128 (the wrapper zero-pads D).  The
 // threefry2x32 generator and the type conversions live in
 // flash_attention_common.cuh, shared with the backward kernels (B4, B5), so
-// that all three draw the same dropout bits.
+// that all three draw the same dropout bits; the tensor-core helpers in
+// hopper_mma.cuh.
 
 #include "flash_attention_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
 using flash::BH_FOLD;
 using flash::MASKED_ROW;
 using flash::NEG_INF;
-using flash::from_f32;
+using flash::fold_grid;
+using flash::folded_bh;
 using flash::row_max8;
 using flash::row_sum8;
 using flash::threefry2x32;
-using flash::to_f32;
 
 constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per K/V tile
 constexpr int NTHREADS = 128;   // 4 warps x 16 query rows
-constexpr int R = 4;            // query rows per thread
-constexpr int C = BK / 8;       // score columns per thread: cg + 8 * j
+constexpr int PAD = 8;          // 16-bit kernels: elements of padding per row
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -69,6 +83,7 @@ struct Params {
   long long bias_sb;
   long long bias_sh;
   int B, H, T;
+  int D;                 // row length of q, k, v, out in device memory
   float scale;
   int causal;
   int dropout;
@@ -76,32 +91,337 @@ struct Params {
   float inv_keep;
 };
 
-template <int D>
-constexpr size_t smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
+// ---------------------------------------------------------------------------
+// bf16 / f16: tensor cores
+// ---------------------------------------------------------------------------
+// keys per K/V tile: narrower from D = 80 on, where the output accumulators
+// take 40 or more registers
+template <int DP>
+__host__ __device__ constexpr int tc_bk() {
+  return DP > 64 ? 32 : 64;
 }
 
-// Grid: (ceil(T / BQ), B * H).  Block: 128 threads.  Warp w owns query rows
-// [16w, 16w + 16) of the tile; lane = 8 * rg + cg owns rows 16w + 4rg + i
-// (i < 4), score columns cg + 8j (j < 8) and output columns cg + 8j
-// (j < D/8), so the 8 lanes that share a row are one shuffle group.
-template <typename S, int D>
+template <int DP>
+constexpr size_t tc_smem_bytes() {
+  // the Q tile (later the output staging), two K and two V tiles, two
+  // tiles of the key-padding mask
+  return (BQ + 4 * tc_bk<DP>()) * (DP + PAD) * 2 + 2 * tc_bk<DP>() * 4;
+}
+
+// Rows [r0, r0 + ROWS) of a (T, d) slab of 16-bit values into shared memory
+// at dst (row stride DP + PAD elements) by 16-byte cp.async; rows at or past
+// T and columns at or past d are zeros.  d is a multiple of 8.
+template <int DP, int ROWS, typename S>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const S* src, int r0,
+                                          int T, int d) {
+  constexpr int CPR = DP / 8;   // 16-byte chunks a row
+  for (int c = threadIdx.x; c < ROWS * CPR; c += NTHREADS) {
+    const int r = c / CPR;
+    const int col = (c % CPR) * 8;
+    const int row = r0 + r;
+    const bool ok = row < T && col < d;
+    hopper::cp_async16(dst + (r * (DP + PAD) + col) * 2,
+                  src + (ok ? static_cast<size_t>(row) * d + col : 0), ok);
+  }
+}
+
+// Grid: (ceil(T / BQ), folded B * H).  Warp w owns query rows
+// [16w, 16w + 16) of the tile; lane = 4g + t holds rows 16w + g and
+// 16w + g + 8, score columns 8n + 2t, 8n + 2t + 1 of each 8-key block n,
+// and output columns likewise of each 8-wide block of D.
+template <typename TR, int DP>
+__global__ void __launch_bounds__(NTHREADS, DP <= 64 ? 3 : 2)
+flash_fwd_tc_kernel(const Params p) {
+  using S = typename TR::T;
+  constexpr int BKT = tc_bk<DP>();
+  constexpr int RS = DP + PAD;
+  constexpr uint32_t KV_TILE = BKT * RS * 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* tQ = reinterpret_cast<S*>(smem);
+  const uint32_t sQ = hopper::smem_u32(tQ);
+  const uint32_t sK = sQ + BQ * RS * 2;          // two buffers
+  const uint32_t sV = sK + 2 * KV_TILE;          // two buffers
+  // the key-padding mask of each K tile (two buffers; 0 past T)
+  const int32_t* tMask = reinterpret_cast<const int32_t*>(
+      smem + BQ * RS * 2 + 4 * KV_TILE);
+  const uint32_t sMask = sV + 2 * KV_TILE;
+
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
+  const int T = p.T;
+  const int d = p.D;
+  const int q0 = blockIdx.x * BQ;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const size_t base = static_cast<size_t>(bh) * T * d;
+  const S* K = static_cast<const S*>(p.k) + base;
+  const S* V = static_cast<const S*>(p.v) + base;
+  const bool masked = p.mask != nullptr;
+  const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+  const uint32_t key0 = p.seed0 ^ (static_cast<uint32_t>(bh) * BH_FOLD);
+  // scores go to base 2: p = 2^(x log2(e) - m), m kept in that unit
+  const float scale2 = p.scale * LOG2E;
+
+  // Keys at or past kmax contribute nothing to any row of this tile: the
+  // causal diagonal and the batch row's last valid key bound the K loop.
+  int kmax = T;
+  if (p.causal) kmax = min(kmax, q0 + BQ);
+  if (p.kend != nullptr) kmax = min(kmax, p.kend[b]);
+  const int n_tiles = (kmax + BKT - 1) / BKT;
+
+  // K, V and (with a mask) the mask of K tile kt into buffer kt & 1
+  auto stage = [&](int kt) {
+    const uint32_t off = (kt & 1) * KV_TILE;
+    copy_rows<DP, BKT>(sK + off, K, kt * BKT, T, d);
+    copy_rows<DP, BKT>(sV + off, V, kt * BKT, T, d);
+    if (masked && threadIdx.x < BKT) {
+      const int kpos = kt * BKT + threadIdx.x;
+      hopper::cp_async4(sMask + ((kt & 1) * BKT + threadIdx.x) * 4,
+                        mrow + (kpos < T ? kpos : 0), kpos < T);
+    }
+  };
+
+  copy_rows<DP, BQ>(sQ, static_cast<const S*>(p.q) + base, q0, T, d);
+  if (n_tiles > 0) stage(0);
+  hopper::cp_async_commit();
+
+  int rows[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rows[i] = 16 * warp + g + 8 * i;
+
+  // ldmatrix lane addresses: A from (rows x k) storage; B from (n x k)
+  // storage; B from (k x n) storage through .trans
+  const int a_row = 16 * warp + (lane & 15);
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int t_col = (lane >> 4) * 8;
+
+  uint32_t qa[DP / 16][4];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BKT;
+    const uint32_t buf = (kt & 1) * KV_TILE;
+    if (kt + 1 < n_tiles) {       // prefetch the next K/V tile
+      stage(kt + 1);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks)
+        hopper::ldsm_x4(qa[ks], sQ + (a_row * RS + ks * 16 + a_col) * 2);
+    }
+
+    float s[BKT / 8][4];
+#pragma unroll
+    for (int n = 0; n < BKT / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+#pragma unroll
+      for (int np = 0; np < BKT / 16; ++np) {
+        uint32_t kb[4];
+        hopper::ldsm_x4(kb, sK + buf +
+                                ((np * 16 + b_row) * RS + ks * 16 + b_col) * 2);
+        TR::mma(s[2 * np], qa[ks], kb[0], kb[1]);
+        TR::mma(s[2 * np + 1], qa[ks], kb[2], kb[3]);
+      }
+    }
+
+    // the keys of this lane's columns that exist and are valid: bit
+    // 2n + j for column 8n + 2t + j
+    uint32_t keys = 0u;
+#pragma unroll
+    for (int n = 0; n < BKT / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = n * 8 + 2 * t4 + j;
+        const bool ok = k0 + col < T &&
+                        (!masked || tMask[(kt & 1) * BKT + col] != 0);
+        keys |= static_cast<uint32_t>(ok) << (2 * n + j);
+      }
+    // A tile whose keys all exist, are valid and lie at or before every
+    // row of the warp (and no bias) needs no per-element work before the
+    // max: it is taken on the raw scores, and the scale (base 2) is folded
+    // into the exponent's FMA.  Elsewhere the scores are scaled, biased
+    // and masked in place first.
+    const bool raw = brow == nullptr && p.scale > 0.f &&
+                     __all_sync(0xffffffffu,
+                                keys == (1u << (BKT / 4)) - 1u) &&
+                     !(p.causal && k0 + BKT - 1 > q0 + 16 * warp);
+    const float sc_now = raw ? scale2 : 1.f;
+    float mc[2] = {NEG_INF, NEG_INF};
+    if (raw) {
+#pragma unroll
+      for (int n = 0; n < BKT / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mc[c >> 1] = fmaxf(mc[c >> 1], s[n][c]);
+    } else {
+#pragma unroll
+    for (int n = 0; n < BKT / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        const int qpos = q0 + rows[i];
+        const int kpos = k0 + n * 8 + 2 * t4 + (c & 1);
+        float x;
+        if (brow != nullptr) {
+          const float bv =
+              qpos < T && kpos < T ? brow[static_cast<size_t>(qpos) * T + kpos]
+                                   : 0.f;
+          x = __fmul_rn(__fadd_rn(__fmul_rn(s[n][c], p.scale), bv), LOG2E);
+        } else {
+          x = __fmul_rn(s[n][c], scale2);
+        }
+        const bool ok = ((keys >> (2 * n + (c & 1))) & 1u) &&
+                        !(p.causal && qpos < kpos);
+        x = ok ? x : NEG_INF;
+        s[n][c] = x;
+        mc[i] = fmaxf(mc[i], x);
+      }
+    }
+    float alpha[2], m_exp[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
+      // the max of the scaled scores is the scaled max (scale > 0)
+      const float m_new = fmaxf(m[i], mc[i] * sc_now);
+      // A row that has seen no valid key yet keeps m at -1e30; anchoring the
+      // exponent at 0 keeps its p at exactly 0 instead of exp(0) = 1.
+      m_exp[i] = (masked && !(m_new > MASKED_ROW)) ? 0.f : m_new;
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+    // p into s: l sums the undropped p, the PV product sees p * keep
+#pragma unroll
+    for (int n = 0; n < BKT / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        const float pj = exp2f(fmaf(s[n][c], sc_now, -m_exp[i]));
+        rs[i] += pj;
+        float pa = pj;
+        if (p.dropout) {
+          const uint32_t bits = threefry2x32(
+              key0, p.seed1, static_cast<uint32_t>(q0 + rows[i]),
+              static_cast<uint32_t>(k0 + n * 8 + 2 * t4 + (c & 1)));
+          pa = bits < p.thr ? pj * p.inv_keep : 0.f;
+        }
+        s[n][c] = pa;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = l[i] * alpha[i] + rs[i];
+    }
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += p v: p meets v in v's type (the reference casts p to v.dtype)
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk) {
+      uint32_t pa[4];
+      hopper::to_a_frag<TR>(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < DP / 16; ++n2) {
+        uint32_t vb[4];
+        hopper::ldsm_x4_t(vb, sV + buf +
+                                  ((kk * 16 + t_row) * RS + n2 * 16 + t_col) * 2);
+        TR::mma(acc[2 * n2], pa, vb[0], vb[1]);
+        TR::mma(acc[2 * n2 + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();     // the Q tile's copy has landed; reuse it for out
+
+  // out = acc / l in the input type, staged in the warp's own rows of the Q
+  // tile, then written 16 bytes a lane
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lc = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      *reinterpret_cast<uint32_t*>(tQ + rows[i] * RS + n * 8 + 2 * t4) =
+          TR::pack(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
+    const int qpos = q0 + rows[i];
+    if (t4 == 0 && qpos < T)
+      p.lse[static_cast<size_t>(bh) * T + qpos] = m[i] * LN2 + logf(lc);
+  }
+  __syncwarp();
+  S* O = static_cast<S*>(p.out) + base;
+  const int cpr = d / 8;
+  for (int c = lane; c < 16 * cpr; c += 32) {
+    const int r = 16 * warp + c / cpr;
+    const int col = (c % cpr) * 8;
+    const int qpos = q0 + r;
+    if (qpos < T)
+      *reinterpret_cast<uint4*>(O + static_cast<size_t>(qpos) * d + col) =
+          *reinterpret_cast<const uint4*>(tQ + r * RS + col);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMAs (true f32)
+// ---------------------------------------------------------------------------
+constexpr int BK = 64;          // keys per K/V tile
+constexpr int R = 4;            // query rows per thread
+constexpr int C = BK / 8;       // score columns per thread: cg + 8 * j
+
+template <int D>
+constexpr size_t f32_smem_bytes() {
+  return (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)) * 4;
+}
+
+// Grid: (ceil(T / BQ), folded B * H).  Block: 128 threads.  Warp w owns
+// query rows [16w, 16w + 16) of the tile; lane = 8 * rg + cg owns rows
+// 16w + 4rg + i (i < 4), score columns cg + 8j (j < 8) and output columns
+// cg + 8j (j < D/8), so the 8 lanes that share a row are one shuffle group.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const Params p) {
+flash_fwd_f32_kernel(const Params p) {
   constexpr int QS = D + 1;
   constexpr int KS = D + 1;
   constexpr int VS = D;
   constexpr int PS = BK + 1;
   constexpr int DC = D / 8;
-  extern __shared__ float smem[];
-  float* sQ = smem;
+  extern __shared__ float smem_f[];
+  float* sQ = smem_f;
   float* sK = sQ + BQ * QS;
   float* sV = sK + BK * KS;
   float* sP = sV + BK * VS;
 
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
   const int T = p.T;
   const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int tid = threadIdx.x;
@@ -113,9 +433,9 @@ flash_fwd_kernel(const Params p) {
   const int q0 = qt * BQ;
 
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const S* Q = static_cast<const S*>(p.q) + base;
-  const S* K = static_cast<const S*>(p.k) + base;
-  const S* V = static_cast<const S*>(p.v) + base;
+  const float* Q = static_cast<const float*>(p.q) + base;
+  const float* K = static_cast<const float*>(p.k) + base;
+  const float* V = static_cast<const float*>(p.v) + base;
   const bool masked = p.mask != nullptr;
   const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
@@ -126,8 +446,7 @@ flash_fwd_kernel(const Params p) {
     const int r = idx / D;
     const int c = idx - r * D;
     const int qrow = q0 + r;
-    sQ[r * QS + c] =
-        qrow < T ? to_f32(Q[static_cast<size_t>(qrow) * D + c]) : 0.f;
+    sQ[r * QS + c] = qrow < T ? Q[static_cast<size_t>(qrow) * D + c] : 0.f;
   }
 
   float m[R], l[R], acc[R][DC];
@@ -139,8 +458,6 @@ flash_fwd_kernel(const Params p) {
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
   }
 
-  // Keys at or past kmax contribute nothing to any row of this tile: the
-  // causal diagonal and the batch row's last valid key bound the K loop.
   int kmax = T;
   if (p.causal) kmax = min(kmax, q0 + BQ);
   if (p.kend != nullptr) kmax = min(kmax, p.kend[b]);
@@ -154,8 +471,8 @@ flash_fwd_kernel(const Params p) {
       const int c = idx - r * D;
       const int krow = k0 + r;
       const bool ok = krow < T;
-      sK[r * KS + c] = ok ? to_f32(K[static_cast<size_t>(krow) * D + c]) : 0.f;
-      sV[r * VS + c] = ok ? to_f32(V[static_cast<size_t>(krow) * D + c]) : 0.f;
+      sK[r * KS + c] = ok ? K[static_cast<size_t>(krow) * D + c] : 0.f;
+      sV[r * VS + c] = ok ? V[static_cast<size_t>(krow) * D + c] : 0.f;
     }
     __syncthreads();
 
@@ -198,8 +515,6 @@ flash_fwd_kernel(const Params p) {
       }
       mc = row_max8(mc);
       const float m_new = fmaxf(m[i], mc);
-      // A row that has seen no valid key yet keeps m at -1e30; anchoring the
-      // exponent at 0 keeps its p at exactly 0 instead of exp(0) = 1.
       const float m_exp = (masked && !(m_new > MASKED_ROW)) ? 0.f : m_new;
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
@@ -215,8 +530,7 @@ flash_fwd_kernel(const Params p) {
                            static_cast<uint32_t>(kpos));
           pa = bits < p.thr ? pj * p.inv_keep : 0.f;
         }
-        // p meets v in v's type (the reference casts p to v.dtype)
-        sP[(row0 + i) * PS + cg + 8 * j] = to_f32(from_f32<S>(pa));
+        sP[(row0 + i) * PS + cg + 8 * j] = pa;
       }
       rs = row_sum8(rs);
       l[i] = l[i] * alpha + rs;
@@ -241,7 +555,7 @@ flash_fwd_kernel(const Params p) {
     }
   }
 
-  S* O = static_cast<S*>(p.out) + base;
+  float* O = static_cast<float*>(p.out) + base;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int qpos = q0 + row0 + i;
@@ -249,46 +563,80 @@ flash_fwd_kernel(const Params p) {
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      O[static_cast<size_t>(qpos) * D + cg + 8 * j] = from_f32<S>(acc[i][j] / lc);
+      O[static_cast<size_t>(qpos) * D + cg + 8 * j] = acc[i][j] / lc;
     if (cg == 0)
       p.lse[static_cast<size_t>(bh) * T + qpos] = m[i] + logf(lc);
   }
 }
 
-template <typename S, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+cudaError_t launch_kernel(void (*kernel)(Params), size_t smem, const Params& p,
+                          cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<S, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.T + BQ - 1) / BQ, p.B * p.H);
-  flash_fwd_kernel<S, D><<<grid, NTHREADS, smem, stream>>>(p);
+  kernel<<<fold_grid((p.T + BQ - 1) / BQ, p.B * p.H), NTHREADS, smem,
+           stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename S>
-cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<S, 16>(p, stream);
-    case 32: return launch<S, 32>(p, stream);
-    case 64: return launch<S, 64>(p, stream);
-    case 128: return launch<S, 128>(p, stream);
-    default: return cudaErrorInvalidValue;
+template <typename TR>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  if (p.D % 8 != 0) return cudaErrorInvalidValue;
+  switch ((p.D + 15) / 16) {
+    case 1: return launch_kernel(flash_fwd_tc_kernel<TR, 16>,
+                                 tc_smem_bytes<16>(), p, stream);
+    case 2: return launch_kernel(flash_fwd_tc_kernel<TR, 32>,
+                                 tc_smem_bytes<32>(), p, stream);
+    case 3: return launch_kernel(flash_fwd_tc_kernel<TR, 48>,
+                                 tc_smem_bytes<48>(), p, stream);
+    case 4: return launch_kernel(flash_fwd_tc_kernel<TR, 64>,
+                                 tc_smem_bytes<64>(), p, stream);
+    case 5: return launch_kernel(flash_fwd_tc_kernel<TR, 80>,
+                                 tc_smem_bytes<80>(), p, stream);
+    case 6: return launch_kernel(flash_fwd_tc_kernel<TR, 96>,
+                                 tc_smem_bytes<96>(), p, stream);
+    case 7: return launch_kernel(flash_fwd_tc_kernel<TR, 112>,
+                                 tc_smem_bytes<112>(), p, stream);
+    case 8: return launch_kernel(flash_fwd_tc_kernel<TR, 128>,
+                                 tc_smem_bytes<128>(), p, stream);
   }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  switch (p.D) {
+    case 16: return launch_kernel(flash_fwd_f32_kernel<16>,
+                                  f32_smem_bytes<16>(), p, stream);
+    case 32: return launch_kernel(flash_fwd_f32_kernel<32>,
+                                  f32_smem_bytes<32>(), p, stream);
+    case 64: return launch_kernel(flash_fwd_f32_kernel<64>,
+                                  f32_smem_bytes<64>(), p, stream);
+    case 128: return launch_kernel(flash_fwd_f32_kernel<128>,
+                                   f32_smem_bytes<128>(), p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Every pointer is a device pointer; mask,
-// kend and bias may be null.  Launches on `stream` and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim is the row length
+// of q, k, v and out in device memory: 16, 32, 64 or 128 for float32, a
+// multiple of 8 up to 128 for the 16-bit types.  true_dim is the backward's
+// (unused here: the scale comes in `scale`).  Every pointer is a device
+// pointer, 16-byte aligned; mask, kend and bias may be null.  Launches on
+// `stream` and does not synchronise.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const int32_t* mask, const int32_t* kend, const float* bias,
     long long bias_sb, long long bias_sh, int batch, int heads, int seq,
-    int head_dim, int dtype, float scale, int causal, int dropout,
-    unsigned int seed0, unsigned int seed1, unsigned int thr, float inv_keep,
-    void* stream) {
+    int head_dim, int true_dim, int dtype, float scale, int causal,
+    int dropout, unsigned int seed0, unsigned int seed1, unsigned int thr,
+    float inv_keep, void* stream) {
+  (void)true_dim;
   Params p;
   p.q = q;
   p.k = k;
@@ -303,6 +651,7 @@ extern "C" int flash_attention_fwd(
   p.B = batch;
   p.H = heads;
   p.T = seq;
+  p.D = head_dim;
   p.scale = scale;
   p.causal = causal;
   p.dropout = dropout;
@@ -310,12 +659,16 @@ extern "C" int flash_attention_fwd(
   p.seed1 = seed1;
   p.thr = thr;
   p.inv_keep = inv_keep;
+  if (head_dim < 1 || head_dim > 128 || batch * heads < 1 || seq < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_d<float>(p, head_dim, st);
+    err = launch_f32(p, st);
   else if (dtype == 1)
-    err = launch_d<__nv_bfloat16>(p, head_dim, st);
+    err = launch_tc<hopper::Bf16>(p, st);
+  else if (dtype == 2)
+    err = launch_tc<hopper::F16>(p, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -8,7 +8,8 @@ through the flash kernels (`ops/flash_attention.py`: B3 forward, B4/B5
 backward on the card), which apply the (B, T) key-padding mask and
 attention dropout in-kernel; ``False`` takes the dense path (two batched
 products and a softmax); ``"auto"`` takes flash on a CUDA tensor once T
-reaches the crossover.  `BertForPretraining` adds the MLM and NSP heads.
+reaches the crossover, where the kernels take the dtype and head dim
+(`flash_auto`).  `BertForPretraining` adds the MLM and NSP heads.
 
 Not ported yet: the sequence-parallel ring (`bind_sp_mesh`), `remat`
 (torch's checkpointing does not replay draws from an explicit
@@ -26,12 +27,13 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
 from .. import numpy_extension as npx
+from ..ops.flash_attention import flash_supported
 from ..ops.invoke import is_backward_expected, is_training
 
 __all__ = [
     "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderLayer",
     "TransformerEncoder", "BertModel", "BertForPretraining", "bert_base",
-    "bert_large",
+    "bert_large", "flash_auto",
 ]
 
 # The flash-vs-dense crossovers of the auto policy.  These are the
@@ -45,6 +47,21 @@ def _flash_shape_ok(t):
     """The shape contract of the auto policy: T <= 128 or a multiple of
     128, as in the reference."""
     return t <= 128 or t % 128 == 0
+
+
+def flash_auto(device_type, dtype, head_dim, batch_heads, t, mask_ndim,
+               backward):
+    """The ``use_flash="auto"`` policy for one call: flash only on a CUDA
+    tensor (the CPU runs the kernels' plain versions, which save
+    nothing), with no mask or a (batch, seq) key-padding mask
+    (``mask_ndim`` None or 2), at T past the crossover (the training one
+    when a backward is expected) and within the shape contract, and only
+    for what the kernels take (`flash_supported`: dtype, head dim,
+    batch*heads)."""
+    min_t = FLASH_AUTO_MIN_T_TRAINING if backward else FLASH_AUTO_MIN_T
+    return (device_type == "cuda" and mask_ndim in (None, 2) and
+            t >= min_t and _flash_shape_ok(t) and
+            flash_supported(dtype, head_dim, batch_heads))
 
 
 class MultiHeadAttention(HybridBlock):
@@ -72,17 +89,14 @@ class MultiHeadAttention(HybridBlock):
                 weight_initializer=std, dtype=dtype, in_units=units))
         self.attn_dropout = nn.Dropout(dropout)
 
-    def _flash_now(self, x, t, mask):
-        """The use_flash policy for this call.  "auto" takes flash only
-        on a CUDA tensor (the CPU runs the kernel's plain version), with
-        a key-padding or no mask, at T past the crossover and within the
-        shape contract."""
+    def _flash_now(self, q, mask):
+        """The use_flash policy for this call, on q (B, T, H, D):
+        `flash_auto` for "auto", else the forced choice."""
         if self._use_flash == "auto":
-            min_t = (FLASH_AUTO_MIN_T_TRAINING if is_backward_expected()
-                     else FLASH_AUTO_MIN_T)
-            mask_ok = mask is None or mask.ndim == 2
-            return (x.is_cuda and mask_ok and t >= min_t and
-                    _flash_shape_ok(t))
+            b, t, h, d = q.shape
+            return flash_auto(q.device.type, q.dtype, d, b * h, t,
+                              None if mask is None else mask.ndim,
+                              is_backward_expected())
         return self._use_flash
 
     def forward(self, x, mask=None):
@@ -91,7 +105,7 @@ class MultiHeadAttention(HybridBlock):
         q = self.query(x).reshape(b, t, h, d)
         k = self.key(x).reshape(b, t, h, d)
         v = self.value(x).reshape(b, t, h, d)
-        if self._flash_now(x, t, mask):
+        if self._flash_now(q, mask):
             if mask is not None and mask.ndim != 2:
                 raise ValueError(
                     "use_flash runs key-padding (batch, seq) masks "
@@ -108,7 +122,10 @@ class MultiHeadAttention(HybridBlock):
             # (b, s) valid-token mask or (b, t, s) attention mask
             mask = mask.reshape(b, 1, 1, t) if mask.ndim == 2 else \
                 mask.reshape(b, 1, t, t)
-            scores = scores.masked_fill(mask == 0, -1e9)
+            # -1e9 in the scores' dtype, as the reference's full_like
+            # rounds it (f16: -inf)
+            fill = torch.tensor(-1e9).to(scores.dtype)
+            scores = scores.masked_fill(mask == 0, fill)
         attn = npx.softmax(scores, axis=-1)
         attn = self.attn_dropout(attn)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, h * d)

@@ -26,9 +26,17 @@ weights at rate ``dropout`` and rescales survivors by 1/keep, with bits
 from a stateless threefry2x32 hash of (seed, batch*head, q_pos, k_pos),
 which the backward draws again once: B4, launched first, writes them as
 packed words with the row sums delta = rowsum(dO * out) - dlse, and B5
-reads both.  The lse is that of the undropped softmax.  f32 stays true f32; with bf16 inputs p is rounded to bf16
-before the PV product, and in the backward ds and p*keep are rounded to
-bf16 before their products, which accumulate in f32.
+reads both.  The lse is that of the undropped softmax.  f32 stays true
+f32; with bf16 or f16 inputs p is rounded to the input type before the
+PV product, and in the backward ds and p*keep are rounded to it before
+their products, which accumulate in f32.
+
+The kernels take f32, bf16 and f16, any head_dim up to 128 and any
+batch*heads (`flash_supported` says so, and the model's ``"auto"``
+policy asks it).  B3 takes a head_dim that is a multiple of 8 as it is
+(16-bit types); the wrappers zero-pad D for the rest, and for B4/B5 to
+the next of 16, 32, 64, 128: zero columns add exact zeros to every
+product and sum, and the gradients are sliced back.
 
 The gradient is a `torch.autograd.Function` around the three kernels:
 q, k and v get gradients; the mask, the bias (a constant, as in the
@@ -53,16 +61,30 @@ from ._build import Kernel, stream_of
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_backward_reference",
            "flash_attention_bwd_dkv_reference", "attn_dropout_mask",
-           "keep_words_reference", "FLASH_FWD", "FLASH_BWD_DQ",
-           "FLASH_BWD_DKV"]
+           "keep_words_reference", "flash_supported", "FLASH_MAX_HEAD_DIM",
+           "FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV"]
 
 _NEG_INF = -1e30
 _MASKED_ROW = -1e29
 _BH_FOLD = 0x9E3779B9
 _M32 = 0xFFFFFFFF
+# the head dims B4/B5 (and B3 in f32) are built for; others are padded
 _HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TYPE_NAMES = {0: "float32", 1: "bfloat16"}
+FLASH_MAX_HEAD_DIM = _HEAD_DIMS[-1]
+# batch*heads is folded over two grid dimensions and indexed in int32
+_MAX_BATCH_HEADS = 2 ** 31 - 1
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
+
+
+def flash_supported(dtype, head_dim, batch_heads):
+    """Whether the CUDA kernels take (B, H, T, head_dim) inputs of
+    ``dtype`` with B * H = ``batch_heads``: f32, bf16 or f16, any head
+    dim up to `FLASH_MAX_HEAD_DIM`, any sequence length.  `_LaunchArgs`
+    refuses the rest, and the model's ``"auto"`` policy never picks
+    flash for them."""
+    return (dtype in _DTYPES and 1 <= head_dim <= FLASH_MAX_HEAD_DIM and
+            1 <= batch_heads <= _MAX_BATCH_HEADS)
 
 
 FLASH_FWD = Kernel("flash_attention_fwd")
@@ -218,8 +240,9 @@ def _check(q, k, v, dropout):
                          f"(B, H, T, D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError("flash_attention takes q, k, v all float32 or all "
-                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError("flash_attention takes q, k, v all float32, all "
+                        "bfloat16 or all float16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
     if not 0.0 <= float(dropout) < 1.0:
@@ -346,18 +369,21 @@ def flash_attention_bwd_dkv_reference(q, k, v, lse, dout, delta, keep,
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
-def _declare_fwd(lib):
+def _tail_types():
+    """ctypes of the arguments every kernel's C entry ends with."""
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    lib.flash_attention_fwd.argtypes = [
-        p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
-        i, i, i, i, i, f, i, i, u, u, u, f, p]
+    ll = ctypes.c_longlong
+    return [p, p, p, ll, ll, i, i, i, i, i, i, f, i, i, u, u, u, f, p]
+
+
+def _declare_fwd(lib):
+    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 5 + _tail_types()
     lib.flash_attention_fwd.restype = ctypes.c_int
 
 
 def _declare_bwd(lib):
-    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    ll = ctypes.c_longlong
-    tail = [p, p, p, ll, ll, i, i, i, i, i, f, i, i, u, u, u, f, p]
+    p = ctypes.c_void_p
+    tail = _tail_types()
     lib.flash_attention_bwd_dq.argtypes = [p] * 11 + tail
     lib.flash_attention_bwd_dq.restype = ctypes.c_int
     lib.flash_attention_bwd_dkv.argtypes = [p] * 10 + tail
@@ -370,22 +396,26 @@ def _ptr(x):
 
 class _LaunchArgs:
     """What the three kernels take besides q, k, v: the int32 mask and
-    its ``kend``, the f32 bias with its batch and head strides, and the
-    dropout seed words, threshold and rescale.  Built once per forward
-    and reused by its backward."""
+    its ``kend``, the f32 bias with its batch and head strides, the
+    dropout seed words, threshold and rescale, and the head dims the
+    kernels run at (``fwd_d`` for B3, ``bwd_d`` for B4/B5; the true one
+    when no padding is needed).  Built once per forward and reused by
+    its backward."""
 
     def __init__(self, q, causal, sc, mask, bias, dropout, key):
         b, h, t, d = q.shape
         if q.dtype not in _DTYPES:
-            raise TypeError(f"the CUDA kernels take float32 or bfloat16; "
-                            f"got {q.dtype}")
-        if d not in _HEAD_DIMS:
-            raise ValueError(f"the CUDA kernels take head_dim in "
-                             f"{_HEAD_DIMS}; got {d}")
-        if b * h > 65535:
-            raise ValueError(f"batch*heads = {b * h} exceeds the grid's "
-                             "65535")
+            raise TypeError(f"the CUDA kernels take float32, bfloat16 or "
+                            f"float16; got {q.dtype}")
+        if not flash_supported(q.dtype, d, b * h):
+            raise ValueError(
+                f"the CUDA kernels take head_dim 1..{FLASH_MAX_HEAD_DIM} "
+                f"and batch*heads up to {_MAX_BATCH_HEADS}; got head_dim "
+                f"{d}, batch*heads {b * h}")
         self.dims = (b, h, t, d, _DTYPES[q.dtype])
+        self.bwd_d = next(n for n in _HEAD_DIMS if n >= d)
+        self.fwd_d = self.bwd_d if q.dtype == torch.float32 else \
+            -(-d // 8) * 8
         self.causal = int(bool(causal))
         self.scale = float(sc)
         self.mask = self.kend = None
@@ -412,14 +442,15 @@ class _LaunchArgs:
                          1.0 / (1.0 - dropout))
         self.dropout = int(bool(dropout))
 
-    def tail(self, stream):
-        """The arguments every kernel's C entry ends with."""
+    def tail(self, stream, d_kernel):
+        """The arguments every kernel's C entry ends with, for a launch
+        on rows of ``d_kernel`` elements."""
         b, h, t, d, dt = self.dims
         s0, s1, thr, inv_keep = self.seed
         return (_ptr(self.mask), _ptr(self.kend), _ptr(self.bias),
-                self.bias_sb, self.bias_sh, b, h, t, d, dt, self.scale,
-                self.causal, self.dropout, s0, s1, thr, float(inv_keep),
-                stream)
+                self.bias_sb, self.bias_sh, b, h, t, d_kernel, d, dt,
+                self.scale, self.causal, self.dropout, s0, s1, thr,
+                float(inv_keep), stream)
 
 
 def _contiguous(**tensors):
@@ -428,30 +459,11 @@ def _contiguous(**tensors):
             raise ValueError(f"{name} must be contiguous (B, H, T, D)")
 
 
-def _launch_fwd(q, k, v, args):
-    from . import _build
-
-    _contiguous(q=q, k=k, v=v)
-    b, h, t, _, _ = args.dims
-    lib = _build.load("flash_attention_fwd", _declare_fwd)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    stream = stream_of(q)
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *args.tail(stream))
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
-    FLASH_FWD.launches += 1
-    return out, lse
-
-
-def _bwd_operands(args, device, **tensors):
-    """The backward's (B, H, T, D) operands as the kernels take them:
-    of the forward's shape and type on its device, contiguous, and
-    16-byte aligned (the kernels copy rows 16 bytes at a time; a view
-    that starts elsewhere is copied)."""
+def _operands(args, device, d_kernel, **tensors):
+    """(B, H, T, D) operands as a kernel takes them: of the forward's
+    shape and type on its device, contiguous, zero-padded along D to
+    ``d_kernel``, and 16-byte aligned (the kernels copy rows 16 bytes at
+    a time; a view that starts elsewhere is copied)."""
     b, h, t, d, dt = args.dims
     out = []
     for name, x in tensors.items():
@@ -461,8 +473,34 @@ def _bwd_operands(args, device, **tensors):
                 f"{name} must be ({b}, {h}, {t}, {d}) {_TYPE_NAMES[dt]} on "
                 f"{device}; got {tuple(x.shape)} {x.dtype} on {x.device}")
         _contiguous(**{name: x})
+        if d_kernel != d:
+            x = torch.nn.functional.pad(x, (0, d_kernel - d))
         out.append(x if x.data_ptr() % 16 == 0 else x.clone())
     return out
+
+
+def _unpad(x, d):
+    """A kernel's (B, H, T, D) output back to head dim ``d``."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
+def _launch_fwd(q, k, v, args):
+    from . import _build
+
+    b, h, t, d, _ = args.dims
+    q, k, v = _operands(args, q.device, args.fwd_d, q=q, k=k, v=v)
+    lib = _build.load("flash_attention_fwd", _declare_fwd)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    stream = stream_of(q)
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *args.tail(stream, args.fwd_d))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
+                           f"{err}")
+    FLASH_FWD.launches += 1
+    return _unpad(out, d), lse
 
 
 def _rows(x):
@@ -474,15 +512,15 @@ def _launch_dq(q, k, v, out, dout, lse, dlse, args, stats=None):
     """B4 on the current stream: ``(dq, delta, words)``, with delta =
     rowsum(dout * out) - dlse (B, H, T) f32, summed as torch sums it,
     and words (2, B, H, T, ceil(T/32)) int32: ``words[0]`` the dropout
-    bits it drew, ``words[1]`` (bf16) the pairs whose rounding B4 and B5
-    derive again; both for B5.  ``stats``, an int64 tensor of one
-    element, counts the bf16 elements whose rounding the kernel derived
-    again."""
+    bits it drew, ``words[1]`` (bf16 / f16) the pairs whose rounding B4
+    and B5 derive again; both for B5.  ``stats``, an int64 tensor of one
+    element, counts the 16-bit elements whose rounding the kernel
+    derived again."""
     from . import _build
 
-    b, h, t, _, _ = args.dims
-    q, k, v, out, dout = _bwd_operands(args, q.device, q=q, k=k, v=v,
-                                       out=out, dout=dout)
+    b, h, t, d, _ = args.dims
+    q, k, v, out, dout = _operands(args, q.device, args.bwd_d, q=q, k=k,
+                                   v=v, out=out, dout=dout)
     lse, dlse = _rows(lse), _rows(dlse)
     lib = _build.load("flash_attention_bwd", _declare_bwd)
     dq = torch.empty_like(q)
@@ -493,12 +531,13 @@ def _launch_dq(q, k, v, out, dout, lse, dlse, args, stats=None):
     err = lib.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         out.data_ptr(), lse.data_ptr(), _ptr(dlse), delta.data_ptr(),
-        words.data_ptr(), dq.data_ptr(), _ptr(stats), *args.tail(stream))
+        words.data_ptr(), dq.data_ptr(), _ptr(stats),
+        *args.tail(stream, args.bwd_d))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
                            f"error {err}")
     FLASH_BWD_DQ.launches += 1
-    return dq, delta, words
+    return _unpad(dq, d), delta, words
 
 
 def _launch_dkv(q, k, v, dout, lse, delta, words, args, stats=None):
@@ -507,7 +546,9 @@ def _launch_dkv(q, k, v, dout, lse, delta, words, args, stats=None):
     skipped the work), so empty outputs are safe."""
     from . import _build
 
-    q, k, v, dout = _bwd_operands(args, q.device, q=q, k=k, v=v, dout=dout)
+    d = args.dims[3]
+    q, k, v, dout = _operands(args, q.device, args.bwd_d, q=q, k=k, v=v,
+                              dout=dout)
     if delta is None or words is None:
         raise ValueError("B5 needs the delta and the words B4 wrote")
     lib = _build.load("flash_attention_bwd", _declare_bwd)
@@ -516,12 +557,13 @@ def _launch_dkv(q, k, v, dout, lse, delta, words, args, stats=None):
     err = lib.flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         _rows(lse).data_ptr(), delta.data_ptr(), words.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _ptr(stats), *args.tail(stream))
+        dk.data_ptr(), dv.data_ptr(), _ptr(stats),
+        *args.tail(stream, args.bwd_d))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
                            f"error {err}")
     FLASH_BWD_DKV.launches += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def _launch_backward(q, k, v, out, lse, dout, dlse, args):

@@ -17,20 +17,29 @@ gradients flow through it.
 
 Forms of the packed stem conv:
 * `stem_conv`: the plain conv over the packed input (what the CPU runs).
-* `stem_conv_kernel`: im2col patches in plain torch ops, channel order
-  (c, kh, kw), then one (M, 192) @ (192, C) product by B2
-  (`stem_matmul`, source `csrc/stem_matmul.cu`, replacing the TPU
-  kernel `_matmul_kernel`), f32 accumulation, out in the input's dtype.
-  Its backward is the reference's two f32 products (`torch.matmul`).
+* `stem_conv_kernel`: the kernel form, B2 (`stem_conv_b2`, source
+  `csrc/stem_matmul.cu`, replacing the TPU kernel `_matmul_kernel`):
+  the function of the reference's im2col patches (channel order (c, kh,
+  kw)) times the flattened folded weight, f32 products and sums, one
+  rounding to the input's dtype, NCHW out, computed from the packed
+  input without building the patches.  Its plain version is
+  `stem_conv_b2_reference` (patches, `stem_matmul_reference`, NCHW).
+  Its backward is the reference's two f32 products, taken as the f32
+  gradients of the packed conv (`torch.nn.grad`), each rounded once; it
+  saves the packed input and the weight, not patches.
 * `stem_conv_auto`: the kernel form for a CUDA tensor, the plain conv
   for a CPU tensor.
 
-The B2 wrapper launches the kernel for a CUDA tensor or raises, takes
-its plain version `stem_matmul_reference` for a CPU tensor, and counts
-its launches in ``STEM_MATMUL.launches``.
+`stem_matmul` is B2's first design, the (M, K) @ (K, N) product over
+prebuilt patches, kept for callers that hold patches.
+
+Each wrapper launches its kernel for a CUDA tensor or raises, takes its
+plain version for a CPU tensor, and counts its launches
+(``STEM_CONV.launches``, ``STEM_MATMUL.launches``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -41,10 +50,14 @@ from ._build import Kernel, stream_of
 __all__ = ["space_to_depth", "space_to_depth2", "fold_stem_kernel",
            "stem_conv", "reference_stem_conv",
            "stem_patches", "stem_matmul", "stem_matmul_reference",
-           "stem_conv_kernel", "stem_conv_auto", "STEM_MATMUL"]
+           "stem_conv_b2", "stem_conv_b2_reference", "stem_conv_kernel",
+           "stem_conv_auto", "STEM_CONV", "STEM_MATMUL"]
 
+STEM_CONV = Kernel("stem_conv")
 STEM_MATMUL = Kernel("stem_matmul")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# packed channels the conv kernel stages (4 * C_in; the stem's is 12)
+_MAX_PACKED_CHANNELS = 16
 
 
 def space_to_depth(data, block_size):
@@ -107,6 +120,8 @@ def _declare_stem(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.stem_matmul.argtypes = [p, p, p, ll, i, i, i, p]
     lib.stem_matmul.restype = ctypes.c_int
+    lib.stem_conv.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.stem_conv.restype = ctypes.c_int
 
 
 def stem_matmul(flat, w2d):
@@ -143,36 +158,110 @@ def stem_matmul(flat, w2d):
     return out
 
 
-class _StemMatmul(torch.autograd.Function):
-    """B2 forward; the backward is the reference's two f32 products, the
-    patch gradient only where the input wants one."""
+def stem_conv_b2_reference(xs, wf):
+    """Plain version of B2: the packed stem conv as the reference computes
+    it, im2col patches times the flattened folded weight with f32
+    products and sums (`stem_matmul_reference`), one rounding to xs's
+    dtype, as a contiguous (B, C_out, H2, W2) tensor."""
+    b, _c, h2, w2 = xs.shape
+    c_out = wf.shape[0]
+    flat = stem_matmul_reference(stem_patches(xs),
+                                 wf.reshape(c_out, -1).t())
+    return flat.reshape(b, h2, w2, c_out).permute(0, 3, 1, 2).contiguous()
+
+
+def stem_conv_b2(xs, wf):
+    """B2: the packed stem conv of xs (B, 4*C_in, H2, W2) with the folded
+    weight wf (C_out, 4*C_in, 4, 4) at padding (2, 1), f32 products and
+    sums, K never split, out (B, C_out, H2, W2) in the inputs' dtype (f32
+    or bf16).  The CUDA kernel on the card, the plain version on the
+    CPU."""
+    if xs.ndim != 4 or wf.ndim != 4 or tuple(wf.shape[1:]) != \
+            (xs.shape[1], 4, 4) or xs.device != wf.device:
+        raise ValueError(f"stem_conv_b2 takes xs (B, C, H2, W2) and wf "
+                         f"(C_out, C, 4, 4) on one device; got "
+                         f"{tuple(xs.shape)} on {xs.device} and "
+                         f"{tuple(wf.shape)} on {wf.device}")
+    if xs.device.type == "cpu":
+        return stem_conv_b2_reference(xs, wf)
+    if xs.device.type != "cuda":
+        raise ValueError(f"stem_conv_b2: unsupported device {xs.device}")
+    if xs.dtype != wf.dtype or xs.dtype not in _DTYPES:
+        raise TypeError(f"the B2 kernel takes float32 or bfloat16 for both "
+                        f"inputs; got {xs.dtype}, {wf.dtype}")
+    b, c, h2, w2 = xs.shape
+    c_out = wf.shape[0]
+    if c > _MAX_PACKED_CHANNELS:
+        raise ValueError(f"the B2 kernel stages at most "
+                         f"{_MAX_PACKED_CHANNELS} packed channels; got {c}")
+    if not (xs.is_contiguous() and wf.is_contiguous()):
+        raise ValueError("the B2 kernel takes contiguous NCHW inputs")
+    if xs.data_ptr() % 16 or wf.data_ptr() % 16:
+        raise ValueError("the B2 kernel takes 16-byte aligned inputs")
+    from . import _build
+
+    lib = _build.load("stem_matmul", _declare_stem)
+    out = torch.empty((b, c_out, h2, w2), dtype=xs.dtype, device=xs.device)
+    err = lib.stem_conv(xs.data_ptr(), wf.data_ptr(), out.data_ptr(), b, c,
+                        h2, w2, c_out, _DTYPES[xs.dtype], stream_of(xs))
+    if err != 0:
+        raise RuntimeError(f"stem_conv launch failed: CUDA error {err}")
+    STEM_CONV.launches += 1
+    return out
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms, nothing else
+    changed: the reference's backward products repeat bitwise, and some
+    of cuDNN's weight-gradient algorithms sum with atomics."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = prev
+
+
+class _StemConv(torch.autograd.Function):
+    """B2 forward; the backward is the reference's two f32 products
+    (`_stem_matmul_bwd`: the patch and the weight gradients in f32), here
+    as the f32 gradients of the packed conv, each rounded once to its
+    input's dtype and repeating bitwise; the input gradient only where
+    the input wants one.  It saves xs and the weight, not patches."""
 
     @staticmethod
-    def forward(ctx, flat, w2d):
-        ctx.save_for_backward(flat, w2d)
-        return stem_matmul(flat, w2d)
+    def forward(ctx, xs, wf):
+        ctx.save_for_backward(xs, wf)
+        return stem_conv_b2(xs, wf)
 
     @staticmethod
     def backward(ctx, ct):
-        flat, w2d = ctx.saved_tensors
+        xs, wf = ctx.saved_tensors
         ctf = ct.float()
-        dflat = dw2d = None
-        if ctx.needs_input_grad[0]:
-            dflat = torch.matmul(ctf, w2d.float().t()).to(flat.dtype)
-        if ctx.needs_input_grad[1]:
-            dw2d = torch.matmul(flat.float().t(), ctf).to(w2d.dtype)
-        return dflat, dw2d
+        padded = (xs.shape[0], xs.shape[1], xs.shape[2] + 3,
+                  xs.shape[3] + 3)
+        dxs = dwf = None
+        with _deterministic_cudnn():
+            if ctx.needs_input_grad[0]:
+                dxp = torch.nn.grad.conv2d_input(padded, wf.float(), ctf)
+                dxs = dxp[:, :, 2:-1, 2:-1].to(xs.dtype)
+            if ctx.needs_input_grad[1]:
+                xp = F.pad(xs.float(), (2, 1, 2, 1))
+                dwf = torch.nn.grad.conv2d_weight(xp, wf.shape, ctf).to(
+                    wf.dtype)
+        return dxs, dwf
 
 
 def stem_conv_kernel(xs, wf):
-    """Kernel form of `stem_conv`: im2col patches, then B2; the output
-    is a contiguous (B, C, H2, W2) tensor in the input's dtype."""
-    b, _c, h2, w2 = xs.shape
-    c_out = wf.shape[0]
-    flat = stem_patches(xs)
-    w2d = wf.reshape(c_out, -1).t().contiguous()
-    out = _StemMatmul.apply(flat, w2d)
-    return out.reshape(b, h2, w2, c_out).permute(0, 3, 1, 2).contiguous()
+    """Kernel form of `stem_conv`: B2 on the packed input, a contiguous
+    (B, C, H2, W2) tensor in the input's dtype, differentiable in xs and
+    wf.  An input that starts off a 16-byte boundary is copied."""
+    xs, wf = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
+              else x.clone(memory_format=torch.contiguous_format)
+              for x in (xs, wf))
+    return _StemConv.apply(xs, wf)
 
 
 def stem_conv_auto(xs, w7):

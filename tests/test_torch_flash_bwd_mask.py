@@ -184,7 +184,7 @@ def test_wrapper_launches_b4_then_b5_with_its_buffers(monkeypatch, dropout):
     assert a5[6] == a4[8] is not None       # the words, written by B4
     assert a4[9] == dq.data_ptr() and a4[10] is None and a5[9] is None
     assert (a5[7], a5[8]) == (dk.data_ptr(), dv.data_ptr())
-    assert a4[11:] == a5[10:] == args.tail(0x5150)
+    assert a4[11:] == a5[10:] == args.tail(0x5150, args.bwd_d)
     assert a4[-1] == 0x5150
     assert dq.shape == dk.shape == dv.shape == q.shape
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
@@ -212,10 +212,10 @@ def test_wrapper_raises_on_what_the_kernels_do_not_take(monkeypatch):
     _fake_launch(monkeypatch, fake)
     q, k, v, dout, _, _ = _inputs(torch.bfloat16, 32)
     with pytest.raises(ValueError, match="head_dim"):
-        fa._LaunchArgs(torch.zeros(1, 1, 32, 48), False, 1.0, None, None,
+        fa._LaunchArgs(torch.zeros(1, 1, 32, 129), False, 1.0, None, None,
                        0.0, None)
     with pytest.raises(TypeError, match="float16"):
-        fa._LaunchArgs(q.half(), False, 1.0, None, None, 0.0, None)
+        fa._LaunchArgs(q.double(), False, 1.0, None, None, 0.0, None)
     out, lse = fa.flash_attention_reference(q, k, v)
     args = fa._LaunchArgs(q, False, 0.25, None, None, DROPOUT, KEY)
     with pytest.raises(ValueError, match="dout must be"):

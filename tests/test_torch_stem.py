@@ -4,8 +4,9 @@ Same numpy inputs (seeded) through `mxnet_tpu.ops.stem` and
 `mxnet_tpu_torch.ops.stem` on the CPU.  The reference's B2 kernel
 (`stem_conv_pallas`) runs as Pallas in interpret mode with explicit
 tiles (no autotune cache is read); the port's kernel form
-(`stem_conv_kernel`: im2col patches, then B2) runs through B2's plain
-version, because the tensors lie on the CPU.
+(`stem_conv_kernel`: B2, the packed conv without patches, with its
+patch-free backward) runs through B2's plain version, because the
+tensors lie on the CPU.
 
 Tolerances, f32 throughout (true f32 products on both sides): the
 packing and the fold move values without arithmetic and must agree
@@ -149,3 +150,78 @@ def test_space_to_depth_stem_layer_matches_conv2d_in_both_packages():
             onp.testing.assert_allclose(got, expect, atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="packed"):
         s2d(torch.from_numpy(x))
+
+
+def _b2_allowance(xs, wf, ct, dtype):
+    """Allowances of the kernel form against the reference, elementwise,
+    for out, dxs and dwf: f32 sums of K products in two orders differ by
+    at most 2 K 2^-24 of the sum of |products| (the same conv, transposed
+    conv and weight gradient taken on absolute values); in bf16 each
+    side rounds its results once (half an ulp, 2^-8 of the value), and
+    the reference also rounds each patch gradient to bf16 before the
+    transposed im2col sums them (2^-8 of each term, so 2^-8 of the sum
+    of |terms| more for dxs)."""
+    k = wf[0].numel()
+    xa, wa, ca = xs.float().abs(), wf.float().abs(), ct.float().abs()
+    out = stem.stem_conv(xa, wa)
+    padded = (xs.shape[0], xs.shape[1], xs.shape[2] + 3, xs.shape[3] + 3)
+    dx = torch.nn.grad.conv2d_input(padded, wa, ca)[:, :, 2:-1, 2:-1]
+    dw = torch.nn.grad.conv2d_weight(
+        torch.nn.functional.pad(xa, (2, 1, 2, 1)), wf.shape, ca)
+    depth = 2 * k * 2.0 ** -24
+    allow = [depth * out, 16 * depth * dx, depth * xs.shape[0] * dw]
+    if dtype == torch.bfloat16:
+        allow = [allow[0] + 2.0 ** -7 * out, allow[1] + 2.0 ** -7 * dx,
+                 allow[2] + 2.0 ** -7 * dw]
+    return [a + 1e-6 for a in allow]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(30, 34), (32, 32)])
+def test_b2_kernel_form_and_backward_match_pallas(hw, dtype):
+    """B2's plain version (`stem_conv_b2_reference`, as `stem_conv_kernel`
+    runs it on the CPU) and the patch-free backward (`_StemConv`) against
+    the JAX package's `stem_conv_pallas` in interpret mode (its forward is
+    the Pallas matmul over the patches, its backward `_stem_matmul_bwd`'s
+    two f32 products), at C_out = 40 (a partial channel tile) and at a
+    ragged packed shape (15 x 17)."""
+    rng = onp.random.default_rng(hw[0] + hw[1])
+    x = rng.uniform(-1, 1, (2, 3, *hw)).astype(onp.float32)
+    w7 = (rng.standard_normal((40, 3, 7, 7)) * 0.1).astype(onp.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    xs_r = ref_stem.space_to_depth2(jnp.asarray(x).astype(jdt))
+    wf_r = ref_stem.fold_stem_kernel(jnp.asarray(w7).astype(jdt))
+    out_r, vjp = jax.vjp(
+        lambda a, b: ref_stem.stem_conv_pallas(a, b, tm=256, tn=16,
+                                               interpret=True), xs_r, wf_r)
+    ct = rng.standard_normal(out_r.shape).astype(onp.float32)
+    dxs_r, dwf_r = vjp(jnp.asarray(ct).astype(jdt))
+
+    xs = stem.space_to_depth2(torch.from_numpy(x).to(dtype)).requires_grad_()
+    wf = stem.fold_stem_kernel(torch.from_numpy(w7).to(dtype)
+                               ).requires_grad_()
+    out = stem.stem_conv_kernel(xs, wf)
+    assert out.shape == (2, 40, hw[0] // 2, hw[1] // 2)
+    assert out.dtype == dtype and out.is_contiguous()
+    assert torch.equal(out, stem.stem_conv_b2_reference(xs, wf))
+    ct_t = torch.from_numpy(ct).to(dtype)
+    dxs, dwf = torch.autograd.grad(out, (xs, wf), ct_t)
+    assert dxs.dtype == dwf.dtype == dtype
+    allow = _b2_allowance(xs.detach(), wf.detach(), ct_t, dtype)
+    for name, got, expect, a in zip(("out", "dxs", "dwf"), (out, dxs, dwf),
+                                    (out_r, dxs_r, dwf_r), allow):
+        expect = torch.from_numpy(onp.array(expect.astype(jnp.float32)))
+        err = (got.detach().float() - expect).abs()
+        assert bool((err <= a).all()), (name, float((err / a).max()))
+
+
+def test_b2_wrapper_checks_its_arguments():
+    xs = torch.zeros(1, 12, 5, 6)
+    with pytest.raises(ValueError, match="on one device"):
+        stem.stem_conv_b2(xs, torch.zeros(8, 12, 3, 3))
+    with pytest.raises(ValueError, match="unsupported device"):
+        stem.stem_conv_b2(xs.to("meta"), torch.zeros(8, 12, 4, 4,
+                                                     device="meta"))
+    got = stem.stem_conv_b2(xs + 1, torch.ones(8, 12, 4, 4))
+    assert got.shape == (1, 8, 5, 6) and torch.equal(
+        got, stem.stem_conv(xs + 1, torch.ones(8, 12, 4, 4)))
