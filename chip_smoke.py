@@ -30,8 +30,10 @@ the package is missing.  Phases, each fatal on failure:
    off the kernel's tile grid; at the training path's shape (32, 12,
    128, 64) with the training batch's mask and dropout 0.1; at head dims
    16, 32, 48, 96 and 128 at (2, 3, 200, D) with every option at once;
-   and at (70000, 1, 16, 16), batch*heads past one grid dimension; in
-   f16 the serving and training main cases, the head dims and the fold.
+   at head dims 136, 256 and 512 (the chunked kernels) there and at
+   (4, 8, 512, D) with a mask, timed in every type; and at (70000, 1,
+   16, 16), batch*heads past one grid dimension; in f16 the serving and
+   training main cases, the head dims and the fold.
    Holds out and lse against the plain PyTorch version on the same
    inputs; times the main cases (the kernel by CUDA events and by device
    time, the plain version, and one library call of the same function,
@@ -54,15 +56,31 @@ the package is missing.  Phases, each fatal on failure:
    device time, beside the plain backward and SDPA's backward alone
    (``autograd.grad`` through one SDPA forward; its kernels' device time,
    two windows).
+2c. **Seed words by pointer.**  B4 captured in a CUDA graph with its
+   seed words in a device buffer, replayed with two sets of words: each
+   replay's keep words equal the plain mask of its own words, and the
+   two differ.
+2d. **The dropout kernel vs plain** (`csrc/dropout.cu`, not the port of
+   a TPU kernel): bitwise at BERT-base's (32, 128, 768) in bf16 and f32
+   and an odd shape, keep rate 0.9, timed beside its bound, its plain
+   version and torch's own dropout (other bits: a yardstick only).
 3. **Serving.**  BERT-base at full width (vocab 30522, units 768, FFN
    3072, 12 layers, 12 heads, max_length 512), random weights from a
    seed, cast to bf16 on ``cuda:0``, behind ``serve.Endpoint``
-   (max_batch_size 8, sequence buckets 128/256/512): warmup, then 48
-   requests of lengths spread over 1..512 from 4 client threads.  Every
-   result must be finite and of its request's shape; the flash kernel's
-   launch count over the served traffic must be 12 per dispatched batch;
-   one result is checked against the same request run alone, and
-   against the same model with ``use_flash=False``.
+   (max_batch_size 8, sequence buckets 128/256/512; each bucket a CUDA
+   graph): warmup, then 48
+   requests of lengths spread over 1..512 from 4 client threads, timed,
+   then the same traffic again, traced.  Every result must be finite
+   and of its request's shape; the flash kernel's launches over the
+   traced traffic, counted from the trace and by its wrapper, must each
+   be 12 per dispatched batch;
+   every warmed bucket's replay bitwise equal to its eager forward; the
+   replayed batch timed and traced at (1, 128) and (8, 512); a
+   ``swap_model`` to a second BERT-base under live traffic (every
+   request served, the version flipped, a request after the flip equal
+   to the new model's direct forward); one result is checked against
+   the same request run alone, and against the same model with
+   ``use_flash=False``.
 4. **Where a forward's time goes.**  One forward at the largest and at
    the smallest bucket, timed back to back and traced with
    ``torch.profiler``: device time by kernel, and the share the card
@@ -71,20 +89,30 @@ the package is missing.  Phases, each fatal on failure:
    bf16, the repo's pretraining loss (masked MLM + NSP) on a fixed
    32 x 128 batch with ragged valid lengths, Adam at lr 1e-4 through
    ``Trainer`` and ``FusedTrainStep``: 3 warm-up steps, then 30 timed
-   steps.  Every loss must be finite, the last five must average below
-   the first, and each step must launch B3, B4 and B5 exactly 12 times.
-   Then one eager ``record``/``backward``/``Trainer.step`` step against
-   one fused step from the same state (within one bf16 ulp), and flash
-   against dense gradients (2 layers, f32, dropout 0; relative L2 per
-   parameter within 1e-3).
-4b. **Where a training step's time goes.**  One step traced: device
-   time, idle share, launches, top kernels, the device time of B3, B4
-   and B5 by name, and the device-to-host syncs torch's sync debug mode
-   reports.
+   steps, replays of the CUDA graph the second step captured, then 2
+   more replays traced; and the eager path
+   (``record``/``backward``/``Trainer.step``) timed beside them.  Every
+   loss must be finite, the last five must average below the first,
+   the step must be captured once, and each traced step must launch
+   B3, B4 and B5 exactly 12 times and the dropout kernel 50 times, as
+   the trace counts the kernels on the card and as their wrappers'
+   bookkeeping counts them.  Then one eager step against one fused
+   step, and against one replay, from the same state and seeds (within
+   one bf16 ulp, equal losses); two replays from the same state draw
+   different seed words and losses; after ``set_data`` of every
+   parameter the step is captured again, with the eager step's loss
+   and its autograd graph alive, and its replay equals the eager step;
+   and flash against dense gradients (2 layers, f32, dropout 0;
+   relative L2 per parameter within 1e-3).
+4b. **Where a training step's time goes.**  One replayed and one eager
+   step traced: device time, idle share, launches, the host's launch
+   calls, top kernels, the device time of B3, B4, B5 and dropout by
+   name, and the device-to-host syncs torch's sync debug mode reports.
 3c. **BERT at other head dims and in f16.**  Full width, 2 layers,
-   ``use_flash=True``: head_dim 96 (units 768, 8 heads) in bf16 and
-   BERT-base in f16, one forward and one eager Adam step each: finite
-   outputs, loss and weights, B3/B4/B5 once a layer.
+   ``use_flash=True``: head_dim 96 (units 768, 8 heads) and 4 heads of
+   256 (units 1024, FFN 4096) in bf16 and BERT-base in f16, one forward
+   and one eager Adam step each: finite outputs, loss and weights,
+   B3/B4/B5 once a layer.
 3d. **Flash vs dense crossover.**  (8, 12, T, 64) bf16 at T = 128 ..
    2048: device ms of flash and of the model's dense attention, forward
    alone and forward plus backward (``flash_crossover:`` lines).
@@ -107,16 +135,21 @@ the package is missing.  Phases, each fatal on failure:
 7. **ResNet-50 v1 training** as ``bench.py`` builds it: Xavier, bf16,
    SoftmaxCrossEntropyLoss, SGD lr 0.1 momentum 0.9 through ``Trainer``
    and ``FusedTrainStep`` at batch 128 on one fixed seeded batch: 3
-   warm-up steps, then 20 timed steps.  Every loss finite, the last
-   five below the first, 53 B1 and 0 B2 launches per step; one eager
-   step against one fused step from the same state (cuDNN pinned
-   deterministic for it): weights within one bf16 ulp, running
-   statistics and losses equal; one step traced as in 4b.
+   warm-up steps, then 20 timed (replayed) steps and 2 traced, and the
+   eager path timed beside them.  Every loss finite, the last five below
+   the first, 53 B1 and 0 B2 launches per step (in the traced steps
+   counted from the trace and by the wrappers), one capture; one eager
+   step against a new fused step's eager first call and its third (a
+   replay), each from the same state, the eager loss and its autograd
+   graph alive across the capture (cuDNN pinned deterministic for it,
+   the graph captured so): weights within one bf16 ulp, running
+   statistics and losses equal; one replayed and one eager step traced
+   as in 4b.
 8. **The same with the space-to-depth stem**: ``features.0`` replaced
    by ``SpaceToDepthStem(64, in_channels=3)`` carrying the same weight,
-   the input packed once on the card; 2 warm-up and 15 timed steps
-   (the loss spikes at lr 0.1 over steps 4-8, so ten would leave the
-   last five close to the first): falling losses, 1 B2 and 53 B1
+   the input packed once on the card; 2 warm-up, 15 timed and 2 traced
+   steps (the loss spikes at lr 0.1 over steps 4-8, so ten would leave
+   the last five close to the first): falling losses, 1 B2 and 53 B1
    launches per step.
 9. **B6 vs plain.**  The user kernels of ``USER_KERNELS_SRC`` (user
    code, as upstream's ``custom_softmax_rtc.py`` writes it) compiled
@@ -150,12 +183,18 @@ Every measurement is printed on a line of its own (``kernel``,
 ``serve:``, ``train:``, ``odd_bert:``, ``flash_crossover:``,
 ``resnet:``, ``resnet_s2d:``, ``rtc:``, ``resnet_custom:``,
 ``profile:``).  The last three lines are a ``{"kernels": [...]}``
-object (B3 at the serving path's main case, bf16 with a key-padding
-mask, with its launches over the served traffic, and at the training
-case with its launches over the 30 timed steps; B4 and B5 at the BERT training path's main case, with their
-launches over its 30 timed steps; B1 at the stem BatchNorm's shape,
-with its launches over the 20 timed ResNet steps; B2 at the bf16 stem,
-with its launches over the 15 timed space-to-depth steps; B6 as
+object.  A captured path's ``launches`` are counted on the card, from
+the ``torch.profiler`` trace of its traced run (`KERNEL_NAMES`), with
+the wrappers' bookkeeping of the same run beside them as
+``launches_booked``: B3 at the serving path's main case, bf16 with a
+key-padding mask, with its launches over the traced traffic, at the
+training case with its launches over the 2 traced BERT steps, and its
+D > 128 cases under ``wide_cases``; B4 and B5 at the BERT training
+path's main case, with their launches over the traced steps, and their
+D > 128 cases; the dropout kernel at (32, 128, 768) bf16 with its
+launches over the traced BERT steps; B1 at the stem BatchNorm's shape,
+with its launches over the 2 traced ResNet steps; B2 at the bf16 stem,
+with its launches over the 2 traced space-to-depth steps; B6 as
 ``softmax_fwd`` and ``softmax_bwd`` at the head's shape, with their
 launches over the 20 timed custom-head steps), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -226,22 +265,29 @@ _SERVE_CASES = [(c, B, H, T, D) for c in ("ragged_mask", "causal", "bias",
     + [(c, B, H, T_RAGGED, D) for c in ("ragged_mask", "causal")]
 _TRAIN_CASE = ("train_mask_dropout", B_TRAIN, H, T_TRAIN, D)
 _HEAD_DIM_CASES = [("all", 2, 3, 200, d) for d in (16, 32, 48, 96, 128)]
+# head dims past 128 (the chunked kernels): every option at once at the
+# small shape, and a key-padding mask at (4, 8, 512, D), timed in every type
+WIDE_DIMS = (136, 256, 512)
+_WIDE_CASES = [("all", 2, 3, 200, d) for d in WIDE_DIMS]
+WIDE_TIMED = tuple(("ragged_mask", 4, 8, 512, d) for d in WIDE_DIMS)
 _FOLD_CASE = ("ragged_mask", 70000, 1, 16, 16)
-CASES = _SERVE_CASES + [_TRAIN_CASE] + _HEAD_DIM_CASES + [_FOLD_CASE]
+CASES = _SERVE_CASES + [_TRAIN_CASE] + _HEAD_DIM_CASES + [_FOLD_CASE] \
+    + _WIDE_CASES + list(WIDE_TIMED)
 BWD_CASES = _SERVE_CASES \
     + [(c, B_TRAIN, H, T_TRAIN, D) for c in ("ragged_mask", "causal",
                                              "bias", "dropout")] \
-    + [_TRAIN_CASE] + _HEAD_DIM_CASES + [_FOLD_CASE]
-# f16 on the main cases, the padded head dims and the fold
+    + [_TRAIN_CASE] + _HEAD_DIM_CASES + [_FOLD_CASE] + _WIDE_CASES \
+    + list(WIDE_TIMED)
+# f16 on the main cases, the padded and the wide head dims and the fold
 F16_CASES = [(c, *shape) for c, *shape in CASES
              if (c, *shape) in (("ragged_mask", B, H, T, D), _TRAIN_CASE,
-                                _FOLD_CASE) or c == "all"]
+                                _FOLD_CASE) + WIDE_TIMED or c == "all"]
 # cases timed (the rest are checked only): in the forward, the serving and
 # training main cases in every type, also by device time (torch.profiler),
 # and every bf16 case at those two shapes; in the backward, the training
 # case in every type and the same bf16 cases
 DEVICE_TIMED = (("ragged_mask", B, H, T, D), _TRAIN_CASE)
-BWD_TIMED = (_TRAIN_CASE,)
+BWD_TIMED = (_TRAIN_CASE,) + WIDE_TIMED
 BWD_TIMED_BF16 = ((B, H, T, D), (B_TRAIN, H, T_TRAIN, D))
 # BERT-base pretraining as `benchmark/bert_pretrain_bench.py` builds it
 TRAIN_CFG = dict(vocab_size=30522, units=768, hidden_size=3072,
@@ -258,8 +304,21 @@ GRAD_REL_TOL = 1e-3
 # flash vs dense attention, as a relative L2 error over its valid rows
 SERVE_REL_TOL = 2e-2
 N_CLIENTS, PER_CLIENT = 4, 12
+# the port's kernels by the names the profiler's trace gives them: the
+# launches of the main paths are counted from these records, which see
+# the kernels a CUDA graph replays (the wrappers count only at capture)
+KERNEL_NAMES = {
+    "flash_attention_fwd": r"\bflash_fwd_\w+_kernel\b",
+    "flash_attention_bwd_dq": r"\bflash_bwd_dq_\w+_kernel\b",
+    "flash_attention_bwd_dkv": r"\bflash_bwd_dkv_\w+_kernel\b",
+    "dropout": r"\bdropout_kernel\b",
+    "bn_bwd_reduce": r"\bbn_reduce_partial\b",
+    "stem_conv": r"\bstem_conv_\w+_kernel\b",
+}
+# training steps traced after the timed ones, their launches counted
+TRACED_STEPS = 2
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "bn_bwd_reduce",
-           "stem_matmul")
+           "stem_matmul", "dropout")
 EPS32 = 2.0 ** -24
 # B1 at ResNet-50 v1's batch-128 BatchNorm shapes, (N, C, H*W) as the
 # backward hands them to the kernel, with launches per training step;
@@ -280,6 +339,8 @@ CROSSOVER_T = (128, 256, 512, 1024, 2048)
 # BERT with head_dim 96 (units 768, 8 heads) and BERT-base in f16, with
 # use_flash=True: one forward and one training step each, cut to 2 layers
 ODD_BERTS = [("d96_bf16", dict(num_heads=8), "bfloat16"),
+             ("d256_bf16", dict(units=1024, hidden_size=4096, num_heads=4),
+              "bfloat16"),
              ("base_f16", {}, "float16")]
 # ResNet-50 v1 training as `bench.py` builds it
 RESNET_BATCH, RESNET_IMAGE = 128, 224
@@ -608,6 +669,13 @@ def phase_build():
         log(f"build: {path.name} (nvcc {' '.join(_build.NVCC_FLAGS)}); "
             f"ptxas: {'; '.join(regs)}; most spill stores: {spill} bytes")
         tc += _tc_kernels(path, ptxas)
+        for kname, (n_regs, n_spill) in sorted(
+                _ptxas_by_kernel(ptxas).items()):
+            m = re.search(r"\d(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel|"
+                          r"dropout_kernel)I\d*(\w+?)E", kname)
+            if m:
+                log(f"build: {m.group(1)} <{m.group(2)}>: {n_regs} "
+                    f"registers, {n_spill} bytes spill stores")
     for r in tc:
         at = "" if r["head_dim"] is None else f" D={r['head_dim']}"
         log(f"build: {r['kernel']} {r['type']}{at}: "
@@ -846,6 +914,21 @@ def _out_err(q, k, v, kw, out, ref_out, dname):
     return diff.max().item(), (diff / allow).max().item()
 
 
+def _where_taken(fn, missing=None):
+    """``fn()``, or ``missing`` where the library call refuses the case
+    (SDPA's kernels do not take every head dim)."""
+    import torch
+    try:
+        return fn()
+    except (RuntimeError, torch.OutOfMemoryError) as exc:
+        log(f"library call refused the case: {str(exc)[:120]}")
+        return missing
+
+
+def _fmt(x):
+    return "n/a" if x is None else f"{x:.4f}"
+
+
 def _case_name(r):
     return f"{r['dtype']}/{r['case']}/{r['shape']}"
 
@@ -875,12 +958,13 @@ def phase_kernel_vs_plain(dev):
             call = functools.partial(fa.flash_attention_with_lse, q, k, v,
                                      **kw)
             ms = dev_ms = plain_ms = library_ms = library_dev_ms = None
-            if (case, *shape) in DEVICE_TIMED or (
+            if (case, *shape) in DEVICE_TIMED + WIDE_TIMED or (
                     dname == "bfloat16" and tuple(shape) in BWD_TIMED_BF16):
                 ms = cuda_ms(call)
                 plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
                     q, k, v, **kw), iters=5)
-                library_ms = cuda_ms(_sdpa_call(q, k, v, kw))
+                library_ms = _where_taken(lambda: cuda_ms(
+                    _sdpa_call(q, k, v, kw)))
             if (case, *shape) in DEVICE_TIMED:
                 dev_ms = device_ms(call)
                 library_dev_ms = device_ms(_sdpa_call(q, k, v, kw))
@@ -897,7 +981,7 @@ def phase_kernel_vs_plain(dev):
             timing = "not timed " if ms is None else (
                 f"kernel_ms={ms:.4f}" +
                 ("" if dev_ms is None else f" (device {dev_ms:.4f})") +
-                f" plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}" +
+                f" plain_ms={plain_ms:.4f} library_ms={_fmt(library_ms)}" +
                 ("" if library_dev_ms is None
                  else f" (device {library_dev_ms:.4f})") + " ")
             log(f"kernel {dname:8s} {case:18s} {tuple(shape)} "
@@ -992,7 +1076,8 @@ def _bwd_times(q, k, v, out, lse, dout, kw, b4, delta, words, args):
         q, k, v, out, lse, dout, **kw), iters=5)
     b, h = q.shape[:2]
     out_["lib_a"], out_["lib_b"], out_["lib_events"] = (
-        _sdpa_backward_ms(q, k, v, dout, kw) if b * h <= 65535
+        _where_taken(lambda: _sdpa_backward_ms(q, k, v, dout, kw),
+                     (None, None, None)) if b * h <= 65535
         else (None, None, None))
     return out_
 
@@ -1141,6 +1226,107 @@ def phase_bwd_vs_plain(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: seed words by pointer, replayed
+# ---------------------------------------------------------------------------
+def phase_replay_seeds(dev):
+    """B4 captured in a CUDA graph with its seed words in a device
+    buffer, replayed twice with two sets of words written between: each
+    replay's keep words equal the plain packed mask of its own words on
+    every live pair, and the two differ (a graph replays its pointers,
+    not the words it was captured with)."""
+    import torch
+    from mxnet_tpu_torch.ops import capture
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(99)
+    shape = (B_TRAIN, H, T_TRAIN, D)
+    q, k, v, kw = _attention_inputs(torch.bfloat16, "train_mask_dropout",
+                                    shape, gen, dev)
+    dout = torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    seed = torch.zeros(2, dtype=torch.int32, device=dev)
+    args = fa._LaunchArgs(q, False, D ** -0.5, kw["mask"], None, 0.1, seed)
+    if args.seed is not seed:
+        raise SystemExit("the wrappers copied a device seed buffer")
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(q, k, v, mask=kw["mask"])
+    fa._launch_dq(q, k, v, out, dout, lse, None, args)      # warm
+    graph = capture.Graph(dev)
+    words = graph.capture(
+        lambda: fa._launch_dq(q, k, v, out, dout, lse, None, args)[2])
+    got, ok = [], True
+    live = fa._pack_bits(fa._live_pairs(B_TRAIN, T_TRAIN, kw["mask"], False,
+                                        dev).expand(B_TRAIN, H, T_TRAIN,
+                                                    T_TRAIN))
+    for key in ((0x1234ABCD, 0x9876), (0x1234ABCE, 0x9876)):
+        seed.copy_(torch.tensor(key, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        got.append(words[0].clone() & live)
+        ok = ok and _keep_words_ok(words[0], dict(kw, key=key), shape,
+                                   dev) is True
+    differ = not torch.equal(got[0], got[1])
+    out_ = {"shape": list(shape), "replays_match_their_words": ok,
+            "replays_differ": differ}
+    log("replay_seeds: " + json.dumps(out_))
+    if not (ok and differ):
+        raise SystemExit("replayed B4 did not read its seed words from the "
+                         "buffer")
+    return out_
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the dropout kernel vs plain
+# ---------------------------------------------------------------------------
+# BERT-base training's dropout input (32 x 128 tokens x 768) in bf16 and
+# f32, and an odd case
+DROPOUT_CASES = [("bfloat16", (B_TRAIN, T_TRAIN, 768)),
+                 ("float32", (B_TRAIN, T_TRAIN, 768)),
+                 ("bfloat16", (3, 1001, 7))]
+
+
+def phase_dropout(dev):
+    """The dropout kernel against `dropout_reference` on the same input
+    and seed words (bitwise), its keep rate, and its time beside its
+    bound (one read and one write of the tensor), the plain version's
+    and torch's own dropout (other bits, so a yardstick only: no library
+    call computes this function)."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    gen = torch.Generator().manual_seed(55)
+    seed = torch.tensor([0x2468ACE, -0x1357], dtype=torch.int32, device=dev)
+    rows = []
+    for dname, shape in DROPOUT_CASES:
+        dtype = getattr(torch, dname)
+        x = torch.randn(*shape, generator=gen).to(dev, dtype)
+        y = tnn._dropout_apply(x, seed, 0.1)
+        ref = tnn.dropout_reference(x, seed, 0.1)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        equal = bool(torch.equal(y, ref))
+        kept = float((ref != 0).float().mean())
+        ms = cuda_ms(lambda: tnn._dropout_apply(x, seed, 0.1))
+        plain_ms = cuda_ms(lambda: tnn.dropout_reference(x, seed, 0.1),
+                           iters=5)
+        torch_ms = cuda_ms(lambda: F.dropout(x, 0.1, training=True))
+        bound_ms, bound_by = _bound_ms(dname, 2 * x.numel() *
+                                       x.element_size() + 8, 0)
+        row = {"dtype": dname, "shape": list(shape), "max_abs_err": err,
+               "bitwise": equal, "keep_rate": kept, "ms": ms,
+               "plain_ms": plain_ms, "torch_dropout_ms": torch_ms,
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        rows.append(row)
+        log("kernel_dropout: " + json.dumps(row))
+    if not all(r["bitwise"] and abs(r["keep_rate"] - 0.9) < 0.01
+               for r in rows):
+        raise SystemExit("the dropout kernel disagrees with its plain "
+                         "version")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serving BERT-base through Endpoint
 # ---------------------------------------------------------------------------
 def make_requests(n, max_len, vocab, seed):
@@ -1162,9 +1348,34 @@ def rel_err(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
+def _traffic(ep, reqs, results, latencies):
+    """``reqs`` submitted to ``ep`` from N_CLIENTS threads, each waiting
+    for its result; returns the wall seconds until all are served."""
+    def client(idx):
+        for i in idx:
+            t_sub = time.perf_counter()
+            results[i] = ep.submit(*reqs[i]).result(timeout=300)
+            latencies[i] = time.perf_counter() - t_sub
+
+    threads = [threading.Thread(
+        target=client, args=(range(c, len(reqs), N_CLIENTS),))
+        for c in range(N_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads):
+        raise SystemExit("serving clients did not finish")
+    return time.perf_counter() - t0
+
+
 def serve(net, dev, reqs, seq_buckets):
-    """Serve ``reqs`` from N_CLIENTS threads through an Endpoint; returns
-    (results, latencies_s, wall_s, stats, launches)."""
+    """Serve ``reqs`` from N_CLIENTS threads through an Endpoint, timed;
+    then the same traffic again, traced, from flash launch counts of 0:
+    B3's launches counted from the trace and by its wrapper, and the
+    batches the traced traffic took.  Returns (results, latencies_s,
+    wall_s, stats, {"traced", "booked", "batches"}, endpoint)."""
     from mxnet_tpu_torch.ops.flash_attention import FLASH_FWD
     from mxnet_tpu_torch.serve import Endpoint
 
@@ -1176,28 +1387,15 @@ def serve(net, dev, reqs, seq_buckets):
         warmed = ep.warmup(*reqs[0])
         log(f"serve: warmup ran {warmed} bucket shapes in "
             f"{time.perf_counter() - t0:.2f} s")
-
-        def client(idx):
-            for i in idx:
-                t_sub = time.perf_counter()
-                results[i] = ep.submit(*reqs[i]).result(timeout=300)
-                latencies[i] = time.perf_counter() - t_sub
-
-        threads = [threading.Thread(
-            target=client, args=(range(c, len(reqs), N_CLIENTS),))
-            for c in range(N_CLIENTS)]
-        FLASH_FWD.launches = 0           # count only the served traffic
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        wall = time.perf_counter() - t0
-        launches = FLASH_FWD.launches
-        if any(th.is_alive() for th in threads):
-            raise SystemExit("serving clients did not finish")
+        wall = _traffic(ep, reqs, results, latencies)
         stats = ep.stats()
-    return results, latencies, wall, stats, launches
+        FLASH_FWD.launches = 0
+        _, traced = traced_launches(lambda: _traffic(
+            ep, reqs, [None] * len(reqs), [None] * len(reqs)))
+        launches = {"traced": traced["flash_attention_fwd"],
+                    "booked": FLASH_FWD.launches,
+                    "batches": ep.stats()["batches"] - stats["batches"]}
+    return results, latencies, wall, stats, launches, ep
 
 
 def phase_serve(dev, cfg=None, seq_buckets=(128, 256, 512),
@@ -1214,7 +1412,8 @@ def phase_serve(dev, cfg=None, seq_buckets=(128, 256, 512),
     vocab = net.word_embed._input_dim
     max_len = seq_buckets[-1]
     reqs = make_requests(N_CLIENTS * PER_CLIENT, max_len, vocab, seed=7)
-    results, lat, wall, stats, launches = serve(net, dev, reqs, seq_buckets)
+    results, lat, wall, stats, launches, ep = serve(net, dev, reqs,
+                                                    seq_buckets)
 
     for req, res in zip(reqs, results):
         seq, pooled = res
@@ -1223,9 +1422,16 @@ def phase_serve(dev, cfg=None, seq_buckets=(128, 256, 512),
                 not bool(torch.isfinite(seq).all()) or \
                 not bool(torch.isfinite(pooled).all()):
             raise SystemExit(f"bad result for a request of length {n_tok}")
-    if launches != n_layers * stats["batches"]:
+    expect = n_layers * launches["batches"]
+    log(f"serve: traced traffic: B3 launched {launches['traced']} times "
+        f"on the card (its wrapper counted {launches['booked']}) in "
+        f"{launches['batches']} batches")
+    if launches["traced"] != expect or launches["booked"] != expect:
         raise SystemExit(f"flash kernel launches {launches} != "
-                         f"{n_layers} x {stats['batches']} batches")
+                         f"{n_layers} x {launches['batches']} batches")
+    # the graphs, before the model's attention is switched to dense below
+    buckets = _bucket_replays(ep, vocab, dev)
+    swap = phase_swap(net, dev, seq_buckets, cfg, dtype)
 
     # one request padded inside its bucket, checked alone and against
     # dense attention
@@ -1257,15 +1463,126 @@ def phase_serve(dev, cfg=None, seq_buckets=(128, 256, 512),
         "execute_ms_p99": stats["execute_ms_p99"],
         "cache_hits": stats["cache_hits"],
         "cache_misses": stats["cache_misses"],
-        "flash_launches": launches,
+        "flash_launches": launches["traced"],
+        "flash_launches_booked": launches["booked"],
+        "traced_batches": launches["batches"],
         "checked_request_len": int(req[0].shape[1]),
         "rel_err_vs_alone": err_alone, "rel_err_vs_dense": err_dense,
         "rel_tol": SERVE_REL_TOL,
     }
+    out["buckets"], out["swap"] = buckets, swap
     log("serve: " + json.dumps(out))
     if not ok:
         raise SystemExit("served result disagrees with the direct forward")
     return out, net
+
+
+def _bucket_inputs(key, vocab, dev, seed):
+    """Inputs of one bucket key: tokens drawn from ``seed``, segments
+    zero, every position valid."""
+    import torch
+    (shape, _), *_ = key
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(1, vocab, shape, generator=gen,
+                           dtype=torch.int32).to(dev)
+    return [tokens, torch.zeros_like(tokens), torch.ones_like(tokens)]
+
+
+def _bucket_replays(ep, vocab, dev):
+    """Each warmed bucket's graph replayed against its eager forward on
+    the same inputs (bitwise), and the replayed batch timed at the
+    smallest and largest bucket: wall time per batch back to back
+    (copy in, replay, copies out, sync), and one traced batch."""
+    import torch
+    cache = ep._cache_for(ep._version)
+    equal, keys = 0, sorted(cache._entries, key=lambda k: k[0][0])
+    for i, key in enumerate(keys):
+        inputs = _bucket_inputs(key, vocab, dev, seed=100 + i)
+        eager = cache._fn(*inputs)
+        replayed = cache._entries[key](inputs)
+        torch.cuda.synchronize()
+        equal += all(torch.equal(a, b) for a, b in zip(eager, replayed))
+    out = {"buckets": len(keys), "replay_equals_eager": equal}
+    log(f"serve: {equal} of {len(keys)} warmed buckets replay bitwise "
+        "equal to their eager forward")
+    if equal != len(keys):
+        raise SystemExit("a bucket's graph replay differs from its eager "
+                         "forward")
+    for key in (keys[0], keys[-1]):
+        inputs = _bucket_inputs(key, vocab, dev, seed=7)
+        cache(inputs)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            cache(inputs)
+        batch_ms = (time.perf_counter() - t0) / 20 * 1e3
+        shape = list(key[0][0])
+        prof = profile_call(lambda: cache(inputs),
+                            f"replayed batch at {tuple(shape)}", batch_ms)
+        # the batch's one designed sync: the stream, before its latency
+        # is stamped
+        prof["host_syncs_per_batch"] = _count_syncs(lambda: cache(inputs))[0]
+        out[f"replayed_batch_{shape[0]}x{shape[1]}"] = prof
+        log(f"serve: replayed batch at {tuple(shape)}: {batch_ms:.3f} ms "
+            "per batch back to back (copy in, replay, copies out, sync); "
+            f"{prof['host_syncs_per_batch']} host syncs a batch")
+    return out
+
+
+def phase_swap(net, dev, seq_buckets, cfg, dtype):
+    """``swap_model`` under live traffic: two clients keep submitting
+    while the main thread swaps in a second BERT-base (other random
+    weights), whose grid is warmed and captured beside the live replays.
+    Every request must resolve finite and of its shape, the version must
+    flip, and a request served after the flip must match the new model's
+    direct forward."""
+    import torch
+    from mxnet_tpu_torch.models import bert_base
+    from mxnet_tpu_torch.serve import Endpoint
+
+    new = bert_base(**cfg).initialize(
+        ctx=dev, generator=torch.Generator().manual_seed(1))
+    new.cast(dtype)
+    vocab = new.word_embed._input_dim
+    reqs = make_requests(24, seq_buckets[-1], vocab, seed=9)
+    results = [None] * len(reqs)
+    with Endpoint(net, device=dev, max_batch_size=8, max_latency_ms=5,
+                  seq_buckets=seq_buckets) as ep:
+        ep.warmup(*reqs[0])
+
+        def client(idx):
+            for i in idx:
+                results[i] = ep.submit(*reqs[i]).result(timeout=300)
+                time.sleep(0.01)
+
+        threads = [threading.Thread(target=client,
+                                    args=(range(c, len(reqs), 2),))
+                   for c in range(2)]
+        for th in threads:
+            th.start()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        version = ep.swap_model(new)
+        swap_s = time.perf_counter() - t0
+        for th in threads:
+            th.join(timeout=600)
+        req = reqs[len(reqs) // 2]
+        after = ep.predict(*req)
+        stats = ep.stats()
+    with torch.inference_mode():
+        direct = new(*[torch.from_numpy(a).to(dev) for a in req])
+    err = max(rel_err(a, b) for a, b in zip(after, direct))
+    finite = all(r is not None and bool(torch.isfinite(r[0]).all()) and
+                 r[0].shape[1] == q[0].shape[1]
+                 for r, q in zip(results, reqs))
+    out = {"requests": len(reqs), "swap_s": swap_s, "version": version,
+           "all_served_finite": finite, "rel_err_after_swap": err,
+           "model_version": stats["model_version"],
+           "executables": stats["executables"]}
+    log("serve: swap under live traffic: " + json.dumps(out))
+    if not (finite and version == 1 and err <= SERVE_REL_TOL):
+        raise SystemExit("swap_model under live traffic failed")
+    del new
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1285,6 +1602,51 @@ def _device_times(prof):
         per_kernel[evt.key] = us / 1e3
         launches += evt.count
     return per_kernel, launches
+
+
+# the host's launch calls, as the profiler names the CUDA API calls
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def _host_launches(prof):
+    """{API call: count} of the host's kernel and graph launches in a
+    finished ``torch.profiler`` trace."""
+    import torch
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CPU and \
+                evt.key in HOST_LAUNCHES:
+            out[evt.key] = out.get(evt.key, 0) + evt.count
+    return out
+
+
+def _named_launches(prof, names):
+    """{tag: kernel launches on the card} of a finished ``torch.profiler``
+    trace, for each ``tag: regex`` of ``names`` matched in the kernel's
+    name."""
+    import torch
+    counts = dict.fromkeys(names, 0)
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for tag, pat in names.items():
+            if re.search(pat, evt.key):
+                counts[tag] += evt.count
+    return counts
+
+
+def traced_launches(fn):
+    """Run ``fn()`` traced by ``torch.profiler`` (device activity only);
+    returns its result and the launches of each of `KERNEL_NAMES` the
+    trace recorded, a CUDA graph's replayed kernels included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    return result, _named_launches(prof, KERNEL_NAMES)
 
 
 def device_ms(fn, iters=20):
@@ -1307,8 +1669,8 @@ def profile_call(fn, label, back_to_back_ms, named=None):
     """Trace one call of ``fn`` with ``torch.profiler``: the device time
     summed over kernels, the share of ``back_to_back_ms`` the card was
     idle, the kernel launches and the ten largest kernels; and for each
-    ``named`` label, the device time of the kernels whose name holds its
-    substring."""
+    ``named`` tag, the device time and the launches of the kernels whose
+    name matches its regex."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1317,23 +1679,29 @@ def profile_call(fn, label, back_to_back_ms, named=None):
         fn()
         torch.cuda.synchronize()
     per_kernel, launches = _device_times(prof)
+    host = _host_launches(prof)
     total = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     out = {"what": label, "back_to_back_ms": back_to_back_ms,
            "device_ms_traced": total if total else "not measured",
            "idle_share": (1 - total / back_to_back_ms) if total
            else "not measured",
-           "kernel_launches": launches, "top_kernels_ms": top}
+           "kernel_launches": launches, "host_launch_calls": host,
+           "top_kernels_ms": top}
     log(f"profile: {label}: {back_to_back_ms:.3f} ms back to back, "
-        f"{total:.3f} ms of it on the device in {launches} kernel launches")
+        f"{total:.3f} ms of it on the device in {launches} kernel launches; "
+        f"host launch calls {json.dumps(host)}")
     for name, ms in top:
         log(f"profile:   {ms:9.3f} ms  {name[:90]}")
     if named:
         out["named_device_ms"] = {
-            tag: sum(ms for name, ms in per_kernel.items() if sub in name)
-            for tag, sub in named.items()}
+            tag: sum(ms for name, ms in per_kernel.items()
+                     if re.search(pat, name))
+            for tag, pat in named.items()}
+        out["named_launches"] = _named_launches(prof, named)
         log(f"profile: {label}: device ms by kernel: "
-            + json.dumps(out["named_device_ms"]))
+            + json.dumps(out["named_device_ms"]) + "; launches: "
+            + json.dumps(out["named_launches"]))
     return out
 
 
@@ -1350,8 +1718,13 @@ def profile_forward(net, dev, rows, seq_len):
     valid = torch.ones_like(tokens)
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: net(tokens, segments, valid), iters=10)
-        return profile_call(lambda: net(tokens, segments, valid),
-                            f"forward at ({rows}, {seq_len})", fwd_ms)
+        out = profile_call(lambda: net(tokens, segments, valid),
+                           f"forward at ({rows}, {seq_len})", fwd_ms)
+        out["host_syncs"] = _count_syncs(
+            lambda: net(tokens, segments, valid))[0]
+    log(f"profile: forward at ({rows}, {seq_len}): {out['host_syncs']} "
+        "host syncs")
+    return out
 
 
 def phase_profile(net, dev):
@@ -1435,13 +1808,22 @@ def _restore(mod, trainer, snap):
     trainer.optimizer.num_update = num_update
 
 
-def _eager_vs_fused(mod, trainer, args):
+def _replay_with(step, args, seed):
+    """One step of the captured ``step`` whose seed words come from a
+    generator seeded ``seed`` (as the eager triple's draws do)."""
+    import torch
+    step._generator = torch.Generator().manual_seed(seed)
+    return step(*args, batch_size=B_TRAIN)
+
+
+def _eager_vs_fused(mod, trainer, args, run_fused=None, what="fused"):
     """One eager record/backward/Trainer.step step and one FusedTrainStep
-    step from the same weights, optimizer state and dropout seeds.  The
-    eager Trainer hands update_math an f32 gradient, the fused step one
-    cast back to bf16 (the reference's rounding points), so Adam's step
-    differs by that rounding only and a bf16 weight by at most one ulp
-    (|diff| <= 2^-7 |w|)."""
+    step from the same weights, optimizer state and dropout seeds: a new
+    step's first (eager) call, or ``run_fused()`` (a replay of a captured
+    one).  The eager Trainer hands the update an f32 gradient, the fused
+    step one cast back to bf16 (the reference's rounding points), so
+    Adam's step differs by that rounding only and a bf16 weight by at
+    most one ulp (|diff| <= 2^-7 |w|)."""
     import torch
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.gluon import FusedTrainStep
@@ -1450,13 +1832,18 @@ def _eager_vs_fused(mod, trainer, args):
     with autograd.record(generator=torch.Generator().manual_seed(77)):
         loss_e = mod(*args)
     loss_e.backward()
+    # loss_e keeps its autograd graph, and with it the parameters'
+    # gradient accumulators, alive across a capture in run_fused
     trainer.step(B_TRAIN)
     eager = {k: p.data().detach().clone()
              for k, p in mod.collect_params().items()}
     _restore(mod, trainer, snap)
-    step = FusedTrainStep(mod, trainer,
-                          generator=torch.Generator().manual_seed(77))
-    loss_f = step(*args, batch_size=B_TRAIN)
+    if run_fused is None:
+        step = FusedTrainStep(mod, trainer,
+                              generator=torch.Generator().manual_seed(77))
+        loss_f = step(*args, batch_size=B_TRAIN)
+    else:
+        loss_f = run_fused()
     worst, n_diff, n_all = 0.0, 0, 0
     for k, p in mod.collect_params().items():
         w_f, w_e = p.data().detach().float(), eager[k].float()
@@ -1468,10 +1855,80 @@ def _eager_vs_fused(mod, trainer, args):
     out = {"loss_eager": loss_e.item(), "loss_fused": loss_f.item(),
            "worst_diff_over_one_ulp": worst, "elements_differing": n_diff,
            "elements": n_all}
-    log("train: eager vs fused step: " + json.dumps(out))
+    log(f"train: eager vs {what} step: " + json.dumps(out))
     if worst > 1.0 or out["loss_eager"] != out["loss_fused"]:
-        raise SystemExit("eager and fused training steps disagree")
+        raise SystemExit(f"eager and {what} training steps disagree")
     return out
+
+
+def _fresh_draws(mod, trainer, args, step):
+    """Two consecutive replays from the same weights and state: each
+    writes its own seed words into the graph's buffer, and the losses
+    (other dropout masks) differ."""
+    entry, = step._graphs.values()
+    n_seed = 2 * len(entry.kinds)
+    snap = _snapshot(mod, trainer)
+    losses, words = [], []
+    for _ in range(2):
+        losses.append(step(*args, batch_size=B_TRAIN).item())
+        words.append(entry.buf[:n_seed].clone())
+        _restore(mod, trainer, snap)
+    import torch
+    out = {"draw_sites": len(entry.kinds), "losses": losses,
+           "words_differ": not torch.equal(words[0], words[1]),
+           "losses_differ": losses[0] != losses[1]}
+    log("train: two consecutive replays: " + json.dumps(out))
+    if not (out["words_differ"] and out["losses_differ"]):
+        raise SystemExit("consecutive replays drew the same dropout bits")
+    return out
+
+
+def _rebound_replay(mod, trainer, args, step):
+    """Every parameter bound to a new tensor (``set_data`` of a copy):
+    the next call captures the step again, while the eager step's loss
+    holds its autograd graph over the new tensors, and its replay equals
+    the eager step on them."""
+    for p in mod.collect_params().values():
+        p.set_data(p.data().detach().clone())
+    before = step.captures
+    out = _eager_vs_fused(mod, trainer, args,
+                          lambda: _replay_with(step, args, 77),
+                          what="re-captured")
+    out["captures"] = [before, step.captures]
+    if step.captures != before + 1:
+        raise SystemExit("set_data did not re-capture the step")
+    return out
+
+
+def _eager_steps(mod, trainer, args, batch, n_warm, n_steps, counts,
+                 generator=None):
+    """The eager path, ``record``/``backward``/``Trainer.step``:
+    ``n_steps`` steps after ``n_warm``.  Returns one such step as a
+    function, wall ms a step and the launches of each kernel a step
+    (``counts()`` before and after each)."""
+    import torch
+    from mxnet_tpu_torch import autograd
+
+    def one():
+        with autograd.record(generator=generator):
+            loss = mod(*args)
+        autograd.backward(loss)
+        trainer.step(batch)
+        return loss.detach()
+
+    for _ in range(n_warm):
+        one()
+    torch.cuda.synchronize()
+    per_step = []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        before = counts()
+        one()
+        after = counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    return one, ms, per_step
 
 
 def _flash_vs_dense_grads(dev, args):
@@ -1519,6 +1976,7 @@ def phase_train(dev):
     import torch
     from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
     from mxnet_tpu_torch.models import BertForPretraining
+    from mxnet_tpu_torch.ops.nn import DROPOUT
 
     net = BertForPretraining(**TRAIN_CFG).initialize(
         ctx=dev, generator=torch.Generator().manual_seed(0))
@@ -1531,24 +1989,44 @@ def phase_train(dev):
     losses = [step(*args, batch_size=B_TRAIN) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
 
-    per_step = []
+    per_step, dropouts = [], []
     _reset_counts()                          # count only the main path
+    DROPOUT.launches = 0
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         before = _launch_counts()
+        d0 = DROPOUT.launches
         losses.append(step(*args, batch_size=B_TRAIN))
         after = _launch_counts()
         per_step.append({k: after[k] - before[k] for k in after})
+        dropouts.append(DROPOUT.launches - d0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    totals = _launch_counts()
+    totals = dict(_launch_counts(), dropout=DROPOUT.launches)
     n_layers = TRAIN_CFG["num_layers"]
     loss_vals = torch.stack(losses).float().cpu().tolist()
     measured = loss_vals[TRAIN_WARMUP:]
     falling = sum(measured[-5:]) / 5 < measured[0]
     finite = all(x == x and abs(x) != float("inf") for x in loss_vals)
-    counts_ok = all(c == n_layers for s in per_step for c in s.values())
+    # dropout: the embeddings' and two a layer, forward and backward
+    drop_ok = all(n == 2 * (2 * n_layers + 1) for n in dropouts)
+    counts_ok = all(c == n_layers for s in per_step
+                    for c in s.values()) and drop_ok
     step_ms = wall / TRAIN_STEPS * 1e3
+    # the main path's launches, measured: TRACED_STEPS more replays
+    # traced, from wrapper counts of 0 (the bookkeeping, a cross-check)
+    _reset_counts()
+    DROPOUT.launches = 0
+    _, traced = traced_launches(lambda: [step(*args, batch_size=B_TRAIN)
+                                         for _ in range(TRACED_STEPS)])
+    booked = dict(_launch_counts(), dropout=DROPOUT.launches)
+    traced = {k: traced[k] for k in booked}
+    expect = {k: TRACED_STEPS * n_layers for k in booked}
+    expect["dropout"] = TRACED_STEPS * 2 * (2 * n_layers + 1)
+    traced_ok = traced == expect and booked == expect
+    log(f"train: {TRACED_STEPS} replayed steps traced: launches on the card "
+        f"{json.dumps(traced)}, by the wrappers {json.dumps(booked)}, "
+        f"expected {json.dumps(expect)}")
     out = {"model": "BertForPretraining (bert_base width)", "dtype":
            "bfloat16", "batch": [B_TRAIN, T_TRAIN], "steps": TRAIN_STEPS,
            "warmup_steps": TRAIN_WARMUP, "step_ms": step_ms,
@@ -1556,21 +2034,45 @@ def phase_train(dev):
            "valid_occupancy": float(args[3].float().mean().item()),
            "loss_first": measured[0], "loss_last5_mean":
            sum(measured[-5:]) / 5, "losses": measured,
-           "launches": totals, "launches_per_step_ok": counts_ok,
+           "launches_booked": totals, "launches_per_step_ok": counts_ok,
+           "traced_steps": TRACED_STEPS, "launches": traced,
+           "launches_booked_traced": booked,
+           "launches_traced_ok": traced_ok,
+           "captures": step.captures, "ring_waits": sum(
+               e.ring.waits for e in step._graphs.values()),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "card": nvidia_smi()}
+    eager_step, eager_ms, eager_counts = _eager_steps(
+        mod, trainer, args, B_TRAIN, 2, 8, _launch_counts,
+        torch.Generator().manual_seed(3))
+    out["eager_step_ms"] = eager_ms
+    out["eager_launches_per_step_ok"] = all(
+        c == n_layers for s in eager_counts for c in s.values())
     log("train: " + json.dumps(out))
-    if not (finite and falling and counts_ok):
+    if not (finite and falling and counts_ok and traced_ok and
+            step.captures == 1 and out["eager_launches_per_step_ok"]):
         raise SystemExit(f"training failed: finite={finite} "
                          f"falling={falling} launches per step ok="
-                         f"{counts_ok}")
+                         f"{counts_ok} traced launches ok={traced_ok} "
+                         f"captures={step.captures}")
     out["eager_vs_fused"] = _eager_vs_fused(mod, trainer, args)
+    out["eager_vs_replay"] = _eager_vs_fused(
+        mod, trainer, args, lambda: _replay_with(step, args, 77),
+        what="replayed")
+    out["fresh_draws"] = _fresh_draws(mod, trainer, args, step)
+    named = {tag: KERNEL_NAMES[k] for tag, k in (
+        ("B3 flash_fwd", "flash_attention_fwd"),
+        ("B4 flash_bwd_dq", "flash_attention_bwd_dq"),
+        ("B5 flash_bwd_dkv", "flash_attention_bwd_dkv"),
+        ("dropout", "dropout"))}
     out["profile"] = phase_train_profile(
-        step, args, B_TRAIN, f"training step at ({B_TRAIN}, {T_TRAIN})",
-        named={"B3 flash_fwd": "flash_fwd_",
-               "B4 flash_bwd_dq": "flash_bwd_dq",
-               "B5 flash_bwd_dkv": "flash_bwd_dkv"})
-    del step, trainer, mod, net
+        lambda: step(*args, batch_size=B_TRAIN),
+        f"replayed training step at ({B_TRAIN}, {T_TRAIN})", named=named)
+    out["eager_profile"] = phase_train_profile(
+        eager_step, f"eager training step at ({B_TRAIN}, {T_TRAIN})",
+        named=named)
+    out["rebound"] = _rebound_replay(mod, trainer, args, step)
+    del step, eager_step, trainer, mod, net
     torch.cuda.empty_cache()
     out["flash_vs_dense"] = _flash_vs_dense_grads(dev, args)
     return out
@@ -1706,11 +2208,10 @@ def _count_syncs(fn):
     return len(syncs), syncs[:3]
 
 
-def phase_train_profile(step, args, batch_size, label, named=None):
+def phase_train_profile(one, label, named=None):
+    """``one()``, a training step, traced: syncs, wall ms back to back,
+    and `profile_call`'s breakdown."""
     import torch
-
-    def one():
-        return step(*args, batch_size=batch_size)
 
     # the count is only as good as the debug mode's coverage: check that
     # it sees a known sync (a scalar read) before trusting a zero
@@ -1986,9 +2487,12 @@ def _reset_cnn_counts():
 
 
 def _train_steps(step, args, n_steps, expect):
-    """Run ``n_steps`` fused steps from launch counts of 0; returns the
-    losses (on the card), seconds to the final sync, the totals and
-    whether every step launched ``expect`` of each kernel."""
+    """Run ``n_steps`` fused steps, timed, then TRACED_STEPS more traced,
+    each run from launch counts of 0.  Returns the timed steps' losses
+    (on the card) and seconds to the final sync, the traced steps'
+    launches of each kernel on the card (the measured counts) and by
+    its wrapper (the bookkeeping), and whether every step launched
+    ``expect`` of each kernel by both counts."""
     import torch
     losses, ok = [], True
     torch.cuda.synchronize()
@@ -2001,7 +2505,16 @@ def _train_steps(step, args, n_steps, expect):
         ok = ok and all(after[k] - before[k] == expect[k] for k in expect)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return losses, wall, _cnn_counts(), ok
+    _reset_cnn_counts()
+    _, traced = traced_launches(lambda: [step(*args, batch_size=RESNET_BATCH)
+                                         for _ in range(TRACED_STEPS)])
+    booked = _cnn_counts()
+    traced = {k: traced[k] for k in booked}
+    ok = ok and all(traced[k] == booked[k] == TRACED_STEPS * expect[k]
+                    for k in expect)
+    log(f"{TRACED_STEPS} replayed ResNet steps traced: launches on the card "
+        f"{json.dumps(traced)}, by the wrappers {json.dumps(booked)}")
+    return losses, wall, {"traced": traced, "booked": booked}, ok
 
 
 def _loss_gates(losses):
@@ -2013,16 +2526,21 @@ def _loss_gates(losses):
     return vals, finite, sum(vals[-5:]) / 5 < vals[0]
 
 
-def _resnet_eager_vs_fused(mod, trainer, step, args):
-    """One eager record/backward/Trainer.step step and one fused step
-    from the same weights, momentum and running statistics.  cuDNN's
-    backward algorithms may sum in a run-dependent order, so both steps
-    run with ``cudnn.deterministic`` (this check only).  The gradients'
-    rescale by 1/128 is exact, so the two steps hand SGD the same
-    gradient: weights must agree within one bf16 ulp (2^-7 |w|), the
-    losses and the running statistics exactly."""
+def _resnet_eager_vs_fused(mod, trainer, args):
+    """One eager record/backward/Trainer.step step against a fused step
+    from the same weights, momentum and running statistics: a new
+    FusedTrainStep's first (eager) call, and its third, a replay of the
+    graph its second call captured while the eager step's loss, and its
+    autograd graph, were alive.  cuDNN's backward algorithms may sum
+    in a run-dependent order, so all of it runs with
+    ``cudnn.deterministic`` (the graph captures the deterministic
+    algorithms; this check only).  The gradients' rescale by 1/128 is
+    exact, so the two steps hand SGD the same gradient: weights must
+    agree within one bf16 ulp (2^-7 |w|), the losses and the running
+    statistics exactly."""
     import torch
     from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import FusedTrainStep
 
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -2031,30 +2549,43 @@ def _resnet_eager_vs_fused(mod, trainer, step, args):
         with autograd.record():
             loss_e = mod(*args)
         autograd.backward(loss_e)
+        # loss_e keeps its autograd graph alive across the capture below
         trainer.step(RESNET_BATCH)
         eager = {k: p.data().detach().clone()
                  for k, p in mod.collect_params().items()}
-        _restore(mod, trainer, snap)
-        loss_f = step(*args, batch_size=RESNET_BATCH)
+        fused = {}
+        det_step = FusedTrainStep(mod, trainer)
+        for call in (1, 2, 3):
+            _restore(mod, trainer, snap)
+            loss_f = det_step(*args, batch_size=RESNET_BATCH)
+            if call != 2:
+                fused["eager" if call == 1 else "replayed"] = (
+                    loss_f, {k: p.data().detach().clone()
+                             for k, p in mod.collect_params().items()})
     finally:
         torch.backends.cudnn.deterministic = prev
-    worst, n_diff, n_all, stats_equal = 0.0, 0, 0, True
-    for k, p in mod.collect_params().items():
-        w_f, w_e = p.data().detach(), eager[k]
-        if p.grad_req == "null":
-            stats_equal = stats_equal and bool(torch.equal(w_f, w_e))
-            continue
-        diff = (w_e.float() - w_f.float()).abs()
-        worst = max(worst, (diff / (EAGER_FUSED_ULP * w_f.float().abs()
-                                    + 1e-30)).max().item())
-        n_diff += int((diff != 0).sum())
-        n_all += diff.numel()
-    losses_equal = bool(torch.equal(loss_e.detach(), loss_f))
-    out = {"worst_diff_over_one_ulp": worst, "elements_differing": n_diff,
-           "elements": n_all, "running_stats_equal": stats_equal,
-           "losses_equal": losses_equal}
-    log("resnet: eager vs fused step: " + json.dumps(out))
-    if worst > 1.0 or not stats_equal or not losses_equal:
+    out = {"captures": det_step.captures}
+    ok = det_step.captures == 1
+    for what, (loss_f, weights) in fused.items():
+        worst, n_diff, n_all, stats_equal = 0.0, 0, 0, True
+        for k, p in mod.collect_params().items():
+            w_f, w_e = weights[k], eager[k]
+            if p.grad_req == "null":
+                stats_equal = stats_equal and bool(torch.equal(w_f, w_e))
+                continue
+            diff = (w_e.float() - w_f.float()).abs()
+            worst = max(worst, (diff / (EAGER_FUSED_ULP * w_f.float().abs()
+                                        + 1e-30)).max().item())
+            n_diff += int((diff != 0).sum())
+            n_all += diff.numel()
+        losses_equal = bool(torch.equal(loss_e.detach(), loss_f))
+        out[what] = {"worst_diff_over_one_ulp": worst,
+                     "elements_differing": n_diff, "elements": n_all,
+                     "running_stats_equal": stats_equal,
+                     "losses_equal": losses_equal}
+        ok = ok and worst <= 1.0 and stats_equal and losses_equal
+    log("resnet: eager vs fused and replayed step: " + json.dumps(out))
+    if not ok:
         raise SystemExit("eager and fused ResNet steps disagree")
     return out
 
@@ -2092,7 +2623,9 @@ def phase_resnet(dev):
            "img_per_s": RESNET_BATCH * RESNET_STEPS / wall,
            "trainable_params": n_params,
            "loss_first": vals[0], "loss_last5_mean": sum(vals[-5:]) / 5,
-           "losses": measured, "launches": launches,
+           "losses": measured, "traced_steps": TRACED_STEPS,
+           "launches": launches["traced"],
+           "launches_booked": launches["booked"],
            "launches_per_step_ok": counts_ok,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "card": nvidia_smi()}
@@ -2101,11 +2634,25 @@ def phase_resnet(dev):
         raise SystemExit(f"ResNet training failed: finite={finite} "
                          f"falling={falling} launches per step ok="
                          f"{counts_ok}")
-    out["eager_vs_fused"] = _resnet_eager_vs_fused(mod, trainer, step, args)
+    eager_step, eager_ms, eager_counts = _eager_steps(
+        mod, trainer, args, RESNET_BATCH, 2, 8, _cnn_counts)
+    out["eager_step_ms"] = eager_ms
+    out["eager_launches_per_step_ok"] = all(
+        s[k] == expect[k] for s in eager_counts for k in expect)
+    out["captures"] = step.captures
+    log(f"resnet: eager step {eager_ms:.3f} ms against replayed "
+        f"{out['step_ms']:.3f} ms; captures {step.captures}; eager "
+        f"launches per step ok {out['eager_launches_per_step_ok']}")
+    if not out["eager_launches_per_step_ok"] or step.captures != 1:
+        raise SystemExit("eager ResNet steps launched B1 other than 53 "
+                         "times, or the step was captured more than once")
+    out["eager_vs_fused"] = _resnet_eager_vs_fused(mod, trainer, args)
     out["profile"] = phase_train_profile(
-        step, args, RESNET_BATCH, f"ResNet-50 training step at batch "
-        f"{RESNET_BATCH}")
-    del step, trainer, mod, net, args
+        lambda: step(*args, batch_size=RESNET_BATCH),
+        f"replayed ResNet-50 training step at batch {RESNET_BATCH}")
+    out["eager_profile"] = phase_train_profile(
+        eager_step, f"eager ResNet-50 training step at batch {RESNET_BATCH}")
+    del step, eager_step, trainer, mod, net, args
     torch.cuda.empty_cache()
     return out
 
@@ -2144,7 +2691,9 @@ def phase_resnet_s2d(dev):
            "warmup_steps": S2D_WARMUP, "step_ms": wall / S2D_STEPS * 1e3,
            "img_per_s": RESNET_BATCH * S2D_STEPS / wall,
            "loss_first": vals[0], "loss_last5_mean": sum(vals[-5:]) / 5,
-           "losses": vals[S2D_WARMUP:], "launches": launches,
+           "losses": vals[S2D_WARMUP:], "traced_steps": TRACED_STEPS,
+           "launches": launches["traced"],
+           "launches_booked": launches["booked"],
            "launches_per_step_ok": counts_ok}
     log("resnet_s2d: " + json.dumps(out))
     if not (finite and falling and counts_ok):
@@ -2559,8 +3108,8 @@ def phase_resnet_custom(dev):
         raise SystemExit(f"the head's gradient on train-mode logits is "
                          f"{train_err} from cross entropy's")
     out["profile"] = phase_train_profile(
-        lambda *a, batch_size: _custom_step(net, trainer, x, y), (),
-        RESNET_BATCH, f"ResNet-50 eager step with the softmax_rtc head at "
+        lambda: _custom_step(net, trainer, x, y),
+        f"ResNet-50 eager step with the softmax_rtc head at "
         f"batch {RESNET_BATCH}")
     del net, trainer, x, y
     torch.cuda.empty_cache()
@@ -2601,6 +3150,8 @@ def main():
     phase_mma_error(dev)
     rows = phase_kernel_vs_plain(dev)
     bwd_rows = phase_bwd_vs_plain(dev)
+    phase_replay_seeds(dev)
+    drop_rows = phase_dropout(dev)
     served, net = phase_serve(dev)
     phase_profile(net, dev)
     del net
@@ -2631,20 +3182,35 @@ def main():
     # B6 at the head's shape; softmax_bwd is held bitwise
     rtc_case = rtc_out["softmax"][0]
     bwd_src = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
+    # launches counted on the card from the trace of the main path's
+    # traced run; the wrappers' bookkeeping of the same run beside them
     launches = trained["launches"]
+    booked = trained["launches_booked_traced"]
+    drop_case = drop_rows[0]
+    wide_fwd = [{k: r[k] for k in ("dtype", "shape", "ms", "bound_ms",
+                                   "library_ms", "max_abs_err")}
+                for r in rows if tuple([r["case"]] + r["shape"]) in WIDE_TIMED]
+    wide_bwd = [{k: r[k] for k in ("dtype", "shape", "dq_ms", "dkv_ms",
+                                   "dq_bound_ms", "dkv_bound_ms",
+                                   "library_ms", "max_abs_err")}
+                for r in bwd_rows
+                if tuple([r["case"]] + r["shape"]) in WIDE_TIMED]
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:366",
         "launches": served["flash_launches"],
+        "launches_booked": served["flash_launches_booked"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"], "device_ms": main_case["device_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "library_device_ms": main_case["library_device_ms"],
+        "wide_cases": wide_fwd,
         "training_case": {
             "launches": launches["flash_attention_fwd"],
+            "launches_booked": booked["flash_attention_fwd"],
             **{k: train_case[k] for k in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms")}},
@@ -2653,17 +3219,20 @@ def main():
         "source": bwd_src,
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:536",
         "launches": launches["flash_attention_bwd_dq"],
+        "launches_booked": booked["flash_attention_bwd_dq"],
         "max_abs_err": bwd_case["max_abs_err"]["dq"],
         "ms": bwd_case["dq_ms"], "device_ms": bwd_case["dq_device_ms"],
         "plain_ms": bwd_case["plain_ms"],
         "bound_ms": bwd_case["dq_bound_ms"],
         "bound_by": bwd_case["dq_bound_by"],
         "library_ms": bwd_case["library_ms"],
+        "wide_cases": wide_bwd,
     }, {
         "name": "flash_attention_bwd_dkv", "route": "cuda",
         "source": bwd_src,
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:604",
         "launches": launches["flash_attention_bwd_dkv"],
+        "launches_booked": booked["flash_attention_bwd_dkv"],
         "max_abs_err": max(bwd_case["max_abs_err"]["dk"],
                            bwd_case["max_abs_err"]["dv"]),
         "ms": bwd_case["dkv_ms"], "device_ms": bwd_case["dkv_device_ms"],
@@ -2671,11 +3240,13 @@ def main():
         "bound_ms": bwd_case["dkv_bound_ms"],
         "bound_by": bwd_case["dkv_bound_by"],
         "library_ms": bwd_case["library_ms"],
+        "wide_cases": wide_bwd,
     }, {
         "name": "bn_bwd_reduce", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/bn_bwd_reduce.cu",
         "replaces": "mxnet_tpu/ops/nn.py:340",
         "launches": resnet["launches"]["bn_bwd_reduce"],
+        "launches_booked": resnet["launches_booked"]["bn_bwd_reduce"],
         "max_abs_err": bn_case["max_abs_err"],
         "ms": bn_case["ms"], "plain_ms": bn_case["plain_ms"],
         "bound_ms": bn_case["bound_ms"], "bound_by": bn_case["bound_by"],
@@ -2685,12 +3256,26 @@ def main():
         "source": "mxnet_tpu_torch/csrc/stem_matmul.cu",
         "replaces": "mxnet_tpu/ops/stem.py:120",
         "launches": resnet_s2d["launches"]["stem_conv"],
+        "launches_booked": resnet_s2d["launches_booked"]["stem_conv"],
         "max_abs_err": stem_case["max_abs_err"],
         "ms": stem_case["ms"], "device_ms": stem_case["device_ms"],
         "plain_ms": stem_case["plain_ms"],
         "bound_ms": stem_case["bound_ms"], "bound_by": stem_case["bound_by"],
         "library_ms": stem_case["library_ms"],
         "first_design_ms": stem_case["first_design_ms"],
+    }, {
+        "name": "dropout", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/dropout.cu",
+        "replaces": "mxnet_tpu/ops/nn.py:566",
+        "replaces_note": "not a Pallas kernel: the reference's dropout "
+                         "draws from XLA's random bits",
+        "launches": launches["dropout"],
+        "launches_booked": booked["dropout"],
+        "max_abs_err": drop_case["max_abs_err"],
+        "ms": drop_case["ms"], "plain_ms": drop_case["plain_ms"],
+        "bound_ms": drop_case["bound_ms"], "bound_by": drop_case["bound_by"],
+        "library_ms": drop_case["library_ms"],
+        "torch_dropout_ms": drop_case["torch_dropout_ms"],
     }] + [{
         "name": f"rtc:{name}", "route": "cuda",
         "source": "chip_smoke.py:USER_KERNELS_SRC",

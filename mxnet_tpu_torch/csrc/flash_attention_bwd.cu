@@ -5,8 +5,9 @@
 // mxnet_tpu/ops/pallas_kernels.py (launched by `_flash_backward` through
 // `pl.pallas_call`).  They compute the same function, not a block-for-block
 // copy.  Inputs: q, k, v, dO, out (B, H, T, D) in f32, bf16 or f16 (D of
-// 16, 32, 64 or 128: the wrapper zero-pads other head dims, which adds
-// exact zeros to every product, sum and row norm); the forward's
+// 16, 32, 64 or 128: the wrapper zero-pads other head dims up to 128, which
+// adds exact zeros to every product, sum and row norm; any D past 128 as
+// it is, through the chunked kernels at the end of this file); the forward's
 // lse (B, H, T) f32 and, for `flash_attention_with_lse`, its cotangent dlse.
 // Both kernels recompute the probabilities from the saved lse instead of
 // storing them:
@@ -97,18 +98,29 @@
 // - No atomics: dq is q-major, dk and dv k-major, so results repeat bitwise.
 // - batch*heads is folded over the grid's y and z dimensions, so it may
 //   exceed the 65535 one dimension takes.
+// - Head dims past 128 take the chunked kernels (flash_bwd_dq_wide_kernel,
+//   flash_bwd_dkv_wide_kernel), every type: scalar f32 FMAs, s and dp
+//   summed over D in chunks of 32 staged through shared memory, each block
+//   owning 64 columns of dq (or of dk and dv) and recomputing s, dp, p and
+//   ds; B4's column block 0 alone writes delta (summed in the order of
+//   torch's vectorized row sum, `torch_row_sum`) and the words.  Nothing
+//   grows with D.  They are built to be right first; PERF.md keeps their
+//   times beside their bound.
+// - The dropout seed words are read from device memory (`seed`), so that a
+//   captured CUDA graph draws the words its replay was given.
 
 #include "flash_attention_common.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
 
-using flash::BH_FOLD;
 using flash::MASKED_ROW;
+using flash::MAX_HEAD_DIM;
 using flash::NEG_INF;
 using flash::fold_grid;
 using flash::folded_bh;
 using flash::threefry2x32;
+using flash::round_to;
 using flash::to_f32;
 
 constexpr int BQ = 64;          // query rows per B4 tile
@@ -145,8 +157,12 @@ struct Params {
   float scale;
   int causal;
   int dropout;
-  uint32_t seed0, seed1, thr;
+  const uint32_t* seed;  // the two threefry seed words (device memory)
+  uint32_t thr;
   float inv_keep;
+  // head dims past 128 (the chunked kernels): the lanes of torch's CUDA row
+  // sum that B4 follows for delta, bw along the row and by across warps
+  int sum_bw, sum_by;
 };
 
 // delta = rowsum(dO * out) - dlse of the block's query rows [q0, q0 + 64),
@@ -286,9 +302,10 @@ __device__ __forceinline__ void block_delta_padded(const Params& p, int bh,
 }
 
 // The keep bit of pair (q_pos, k_pos), drawn as the forward draws it.
-__device__ __forceinline__ bool draw_keep(const Params& p, uint32_t key0,
+__device__ __forceinline__ bool draw_keep(const Params& p,
+                                          const flash::SeedKey& sk,
                                           int q_pos, int k_pos) {
-  return threefry2x32(key0, p.seed1, static_cast<uint32_t>(q_pos),
+  return threefry2x32(sk.key0, sk.key1, static_cast<uint32_t>(q_pos),
                       static_cast<uint32_t>(k_pos)) < p.thr;
 }
 
@@ -519,7 +536,7 @@ flash_bwd_dq_tc_kernel(const Params p) {
   const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
                              : nullptr;
-  const uint32_t key0 = p.seed0 ^ (static_cast<uint32_t>(bh) * BH_FOLD);
+  const flash::SeedKey sk = flash::seed_key(p.seed, p.dropout, bh);
 
   int kmax = T;
   if (p.causal) kmax = min(kmax, q0 + BQ);
@@ -636,7 +653,7 @@ flash_bwd_dq_tc_kernel(const Params p) {
         float dpj = dp[n][c];
         float ksf = 1.f;
         if (p.dropout) {
-          const bool kept = live && draw_keep(p, key0, qpos, kpos);
+          const bool kept = live && draw_keep(p, sk, qpos, kpos);
           ksf = kept ? p.inv_keep : 0.f;
           dpj = __fmul_rn(dpj, ksf);
           words[i][n >> 2] |= static_cast<uint32_t>(kept) << (kcol & 31);
@@ -1090,7 +1107,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
   const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
                              : nullptr;
-  const uint32_t key0 = p.seed0 ^ (static_cast<uint32_t>(bh) * BH_FOLD);
+  const flash::SeedKey sk = flash::seed_key(p.seed, p.dropout, bh);
 
   load_tile<D>(sQ, static_cast<const float*>(p.q) + base, q0, T);
   load_tile<D>(sDO, static_cast<const float*>(p.dout) + base, q0, T);
@@ -1172,7 +1189,7 @@ flash_bwd_dq_f32_kernel(const Params p) {
         const float pj = expf(x - lse[i]);
         float dpj = dp[i][j];
         if (p.dropout) {
-          const bool kept = live && draw_keep(p, key0, qpos, kpos);
+          const bool kept = live && draw_keep(p, sk, qpos, kpos);
           dpj *= kept ? p.inv_keep : 0.f;
           words[i][j >> 2] |= static_cast<uint32_t>(kept)
                               << (cg + 8 * (j & 3));
@@ -1411,6 +1428,528 @@ flash_bwd_dkv_f32_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// head_dim > 128, any of the three types: scalar f32 FMAs, D in chunks
+// ---------------------------------------------------------------------------
+// The kernels above keep rows of the dq or dk/dv accumulators in registers
+// and whole (64, D) tiles in shared memory, which does not scale past D =
+// 128.  Here s = q k^T and dp = dO v^T are summed over D in chunks of WCH
+// columns staged through shared memory, as sequential FMAs in d order (the
+// plain version's f32 products sum in that order, so ds and p * keep meet
+// their rounding points with the plain version's values and no pair is
+// derived again), and each block owns WCOL columns of dq (B4) or of dk and
+// dv (B5): the grid's x dimension walks (tile, column chunk), and every
+// column block of a tile recomputes the same s, dp, p and ds.  The dropout
+// bits come from the same threefry2x32 of (seed, batch*head, q, k) in every
+// column block; only column block 0 of B4 writes delta, the keep words and
+// the (empty) plane of pairs to derive again, which B5 reads.
+constexpr int WCH = 32;          // D columns a score chunk sums
+constexpr int WCOL = 64;         // result columns a block owns
+constexpr int SUM_LANES = 512;   // torch's row sum has at most 512 lanes
+
+// delta of one row as torch's CUDA sum over the last dim takes it (ATen
+// Reduce.cuh, input vectorized by 4 for rows of 128 or more f32 values):
+// bw x by lanes (by > 1 when the row is split across warps); lane (x, y)
+// sums the 4-vectors x + bw * y, x + bw * y + bw * by, ... of the row, each
+// of the four positions in its own accumulator, then adds them in turn.  A
+// row that starts `shift` elements past a 16-byte boundary gives its first
+// 4 - shift elements to lanes x = shift .. 3 (y = 0) and its last
+// (n - 4 + shift) % 4 to lanes x = 0, 1, 2 as a tail.  Then a tree over x
+// (offsets bw / 2, ..., 1) and one over y.  Each product is rounded on its
+// own, as `(dout.float() * out.float())` rounds it.  One warp works it out,
+// its lanes' sums in `scratch` (bw * by floats).
+template <typename S>
+__device__ float torch_row_sum(const S* a, const S* b, int n, int shift,
+                               int bw, int by, float* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int nl = bw * by;
+  const int head = shift > 0 ? 4 - shift : 0;   // the vectors start here
+  const int end = n - head;
+  auto prod = [&](int e) {
+    return __fmul_rn(to_f32(a[e]), to_f32(b[e]));
+  };
+  for (int v = lane; v < nl; v += 32) {
+    const int x = v % bw;
+    const int y = v / bw;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (shift > 0 && y == 0 && x >= shift && x < 4)
+      acc[0] = __fadd_rn(acc[0], prod(x - shift));
+    for (int idx = v; idx * 4 + 3 < end; idx += nl)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[i] = __fadd_rn(acc[i], prod(head + idx * 4 + i));
+    const int t = end - end % 4 + x;
+    if (y == 0 && t < end) acc[0] = __fadd_rn(acc[0], prod(head + t));
+    scratch[v] = __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]), acc[2]),
+                           acc[3]);
+  }
+  __syncwarp();
+  for (int off = bw / 2; off > 0; off >>= 1) {
+    for (int v = lane; v < nl; v += 32)
+      if (v % bw < off) scratch[v] = __fadd_rn(scratch[v], scratch[v + off]);
+    __syncwarp();
+  }
+  for (int off = by / 2; off > 0; off >>= 1) {
+    for (int y = lane; y < off; y += 32)
+      scratch[y * bw] = __fadd_rn(scratch[y * bw], scratch[(y + off) * bw]);
+    __syncwarp();
+  }
+  const float r = scratch[0];
+  __syncwarp();
+  return r;
+}
+
+// Columns [dc, dc + WCH) of rows [r0, r0 + 64) of a (T, D) slab, widened to
+// f32, into shared memory at dst (row stride WCH + 1); zeros past T and D.
+template <typename S>
+__device__ __forceinline__ void load_chunk(float* dst, const S* src, int r0,
+                                           int T, int D, int dc) {
+  for (int idx = threadIdx.x; idx < 64 * WCH; idx += NTHREADS) {
+    const int r = idx / WCH;
+    const int c = idx - r * WCH;
+    const int row = r0 + r;
+    const int d = dc + c;
+    dst[r * (WCH + 1) + c] =
+        row < T && d < D ? to_f32(src[static_cast<size_t>(row) * D + d]) : 0.f;
+  }
+}
+
+// Columns [c0, c0 + WCOL) of rows [r0, r0 + 64), widened to f32, at dst
+// (row stride WCOL); zeros past T and D.
+template <typename S>
+__device__ __forceinline__ void load_cols(float* dst, const S* src, int r0,
+                                          int T, int D, int c0) {
+  for (int idx = threadIdx.x; idx < 64 * WCOL; idx += NTHREADS) {
+    const int r = idx / WCOL;
+    const int c = idx - r * WCOL;
+    const int row = r0 + r;
+    const int col = c0 + c;
+    dst[r * WCOL + c] = row < T && col < D
+        ? to_f32(src[static_cast<size_t>(row) * D + col]) : 0.f;
+  }
+}
+
+constexpr size_t dq_wide_smem_bytes() {
+  // q, k, dO and v chunks (the k column chunk reuses the q and k ones);
+  // ds; delta and lse; each warp's lanes of the delta row sum
+  return (4 * 64 * (WCH + 1) + BQ * (BK + 1) + 2 * BQ + 4 * SUM_LANES) * 4;
+}
+
+constexpr size_t dkv_wide_smem_bytes() {
+  // k, v, q and dO chunks (the q and dO column chunks reuse them); p * keep
+  // and ds; lse and delta; the keep words of the Q tile
+  return (4 * 64 * (WCH + 1) + 2 * BK * (BQ + 1) + 2 * BQ + 2 * BQ) * 4;
+}
+
+// B4, head_dim > 128.  Grid: (ceil(T / BQ) * ceil(D / WCOL), folded B * H).
+// The thread layout of the f32 kernel: lane = 8 * rg + cg of warp w owns
+// query rows 16w + 4rg + i (i < 4), key columns cg + 8j (j < 8) and dq
+// columns c0 + cg + 8j (j < WCOL / 8) of the block's chunk.
+template <typename S>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_wide_kernel(const Params p) {
+  constexpr int CS = WCH + 1;
+  constexpr int PS = BK + 1;
+  constexpr int DC = WCOL / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = sQ + 64 * CS;
+  float* sDO = sK + 64 * CS;
+  float* sV = sDO + 64 * CS;
+  float* sKc = sQ;                 // k's column chunk, after the scores
+  float* sDS = sV + 64 * CS;
+  float* sDel = sDS + BQ * PS;
+  float* sLse = sDel + BQ;
+  float* sSum = sLse + BQ;
+
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
+  const int T = p.T;
+  const int D = p.Dt;
+  const int n_col = (D + WCOL - 1) / WCOL;
+  const int q0 = static_cast<int>(blockIdx.x) / n_col * BQ;
+  const int c0 = static_cast<int>(blockIdx.x) % n_col * WCOL;
+  const bool writer = c0 == 0;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int cg = lane & 7;
+  const int row0 = warp * 16 + (lane >> 3) * R;
+
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const S* Q = static_cast<const S*>(p.q) + base;
+  const S* K = static_cast<const S*>(p.k) + base;
+  const S* V = static_cast<const S*>(p.v) + base;
+  const S* DO = static_cast<const S*>(p.dout) + base;
+  const S* OUT = static_cast<const S*>(p.out) + base;
+  const bool masked = p.mask != nullptr;
+  const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+  const flash::SeedKey sk = flash::seed_key(p.seed, p.dropout, bh);
+
+  // delta of the tile's rows, one warp a row, in torch's order over D
+  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    const int qpos = q0 + r;
+    float dl = 0.f;
+    if (qpos < T) {
+      const size_t row = static_cast<size_t>(bh) * T + qpos;
+      dl = torch_row_sum<S>(DO + static_cast<size_t>(qpos) * D,
+                            OUT + static_cast<size_t>(qpos) * D, D,
+                            static_cast<int>((row * D) & 3u), p.sum_bw,
+                            p.sum_by, sSum + warp * SUM_LANES);
+      if (p.dlse != nullptr) dl = __fsub_rn(dl, p.dlse[row]);
+      if (writer && lane == 0) p.delta[row] = dl;
+    }
+    if (lane == 0) sDel[r] = dl;
+  }
+  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
+    const int qpos = q0 + r;
+    float l = qpos < T ? p.lse[static_cast<size_t>(bh) * T + qpos] : 0.f;
+    if (masked && !(l > MASKED_ROW)) l = 0.f;
+    sLse[r] = l;
+  }
+  __syncthreads();
+
+  float lse[R], delta[R], acc[R][DC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    lse[i] = sLse[row0 + i];
+    delta[i] = sDel[row0 + i];
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+  }
+
+  int kmax = T;
+  if (p.causal) kmax = min(kmax, q0 + BQ);
+  if (p.kend != nullptr) kmax = min(kmax, p.kend[b]);
+  const int n_tiles = (kmax + BK - 1) / BK;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    float s[R][C], dp[R][C];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int dc = 0; dc < D; dc += WCH) {
+      __syncthreads();   // every warp is done with the previous chunks
+      load_chunk<S>(sQ, Q, q0, T, D, dc);
+      load_chunk<S>(sK, K, k0, T, D, dc);
+      load_chunk<S>(sDO, DO, q0, T, D, dc);
+      load_chunk<S>(sV, V, k0, T, D, dc);
+      __syncthreads();
+      const int dn = min(WCH, D - dc);
+#pragma unroll 2
+      for (int c = 0; c < dn; ++c) {
+        float qv[R], ov[R], kv[C], vv[C];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          qv[i] = sQ[(row0 + i) * CS + c];
+          ov[i] = sDO[(row0 + i) * CS + c];
+        }
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          kv[j] = sK[(cg + 8 * j) * CS + c];
+          vv[j] = sV[(cg + 8 * j) * CS + c];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          }
+      }
+    }
+
+    // words[i][w]: this lane's keep bits of row i, keys [32w, 32w + 32)
+    uint32_t words[R][2];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      words[i][0] = words[i][1] = 0u;
+      const int qpos = q0 + row0 + i;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int kpos = k0 + cg + 8 * j;
+        float x = s[i][j] * p.scale;
+        bool live = false;
+        if (kpos >= T) {
+          x = NEG_INF;   // ragged last tile: the key does not exist
+        } else {
+          if (brow != nullptr && qpos < T)
+            x += brow[static_cast<size_t>(qpos) * T + kpos];
+          if ((p.causal && qpos < kpos) || (masked && mrow[kpos] == 0))
+            x = NEG_INF;
+          else
+            live = qpos < T;
+        }
+        const float pj = expf(x - lse[i]);
+        float dpj = dp[i][j];
+        if (p.dropout) {
+          const bool kept = live && draw_keep(p, sk, qpos, kpos);
+          dpj *= kept ? p.inv_keep : 0.f;
+          words[i][j >> 2] |= static_cast<uint32_t>(kept)
+                              << (cg + 8 * (j & 3));
+        }
+        // ds meets k in k's type
+        sDS[(row0 + i) * PS + cg + 8 * j] =
+            round_to<S>(pj * (dpj - delta[i]) * p.scale);
+      }
+    }
+    if (writer) {
+      // gather each word from the 8 lanes of its rows; lane cg writes
+      // (row cg / 2, word cg % 2) and, in the second plane, no pair to
+      // derive again
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int w = 0; w < 2; ++w)
+#pragma unroll
+          for (int x = 1; x < 8; x <<= 1)
+            words[i][w] |= __shfl_xor_sync(0xffffffffu, words[i][w], x);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int qpos = q0 + row0 + i;
+          const int widx = (k0 >> 5) + w;
+          if (cg == 2 * i + w && qpos < T && widx < p.W) {
+            if (p.dropout) p.keep[keep_at(p, bh, qpos, widx)] = words[i][w];
+            p.keep[redo_at(p, bh, qpos, widx)] = 0u;
+          }
+        }
+    }
+    __syncthreads();   // ds is complete; the chunk buffers are free
+    load_cols<S>(sKc, K, k0, T, D, c0);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsv[R], kv[DC];
+#pragma unroll
+      for (int i = 0; i < R; ++i) dsv[i] = sDS[(row0 + i) * PS + kk];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) kv[j] = sKc[kk * WCOL + cg + 8 * j];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    }
+  }
+
+  S* DQ = static_cast<S*>(p.dq) + base;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qpos = q0 + row0 + i;
+    if (qpos >= T) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      const int col = c0 + cg + 8 * j;
+      if (col < D)
+        DQ[static_cast<size_t>(qpos) * D + col] = flash::from_f32<S>(acc[i][j]);
+    }
+  }
+}
+
+// B5, head_dim > 128.  Grid: (ceil(T / BK) * ceil(D / WCOL), folded B * H).
+// The f32 kernel's layout in transposed (k-major) score space: lane = 8 *
+// rg + cg of warp w owns key rows 16w + 4rg + i (i < 4), query columns
+// cg + 8j (j < 8) and dk/dv columns c0 + cg + 8j (j < WCOL / 8).
+template <typename S>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_wide_kernel(const Params p) {
+  constexpr int CS = WCH + 1;
+  constexpr int PS = BQ + 1;
+  constexpr int DC = WCOL / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + 64 * CS;
+  float* sQ = sV + 64 * CS;
+  float* sDO = sQ + 64 * CS;
+  float* sQc = sK;                 // the column chunks, after the scores
+  float* sDOc = sK + 64 * WCOL;
+  float* sP = sDO + 64 * CS;
+  float* sDS = sP + BK * PS;
+  float* sLSE = sDS + BK * PS;
+  float* sDEL = sLSE + BQ;
+  uint32_t* sKeep = reinterpret_cast<uint32_t*>(sDEL + BQ);   // [BQ][2]
+
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
+  const int T = p.T;
+  const int D = p.Dt;
+  const int n_col = (D + WCOL - 1) / WCOL;
+  const int k0 = static_cast<int>(blockIdx.x) / n_col * BK;
+  const int c0 = static_cast<int>(blockIdx.x) % n_col * WCOL;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int lane = threadIdx.x & 31;
+  const int cg = lane & 7;
+  const int row0 = (threadIdx.x >> 5) * 16 + (lane >> 3) * R;
+
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const S* Q = static_cast<const S*>(p.q) + base;
+  const S* K = static_cast<const S*>(p.k) + base;
+  const S* V = static_cast<const S*>(p.v) + base;
+  const S* DO = static_cast<const S*>(p.dout) + base;
+  const float* LSE = p.lse + static_cast<size_t>(bh) * T;
+  const float* DEL = p.delta + static_cast<size_t>(bh) * T;
+  const bool masked = p.mask != nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+
+  // a key that does not exist (ragged last tile) or is padding
+  bool dead[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kpos = k0 + row0 + i;
+    dead[i] = kpos >= T ||
+              (masked && p.mask[static_cast<size_t>(b) * T + kpos] == 0);
+  }
+
+  float dk[R][DC], dv[R][DC];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  // A K tile at or past kend sees no query: it keeps its zero accumulators.
+  const bool alive = p.kend == nullptr || k0 < p.kend[b];
+  // Causal: Q tiles wholly before the diagonal see nothing of this K tile.
+  const int first_qt = p.causal ? k0 / BQ : 0;
+  const int n_qt = alive ? (T + BQ - 1) / BQ : 0;
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();   // every warp is done with the previous Q tile
+    for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
+      const int qpos = q0 + r;
+      float l = qpos < T ? LSE[qpos] : 0.f;
+      if (masked && !(l > MASKED_ROW)) l = 0.f;
+      sLSE[r] = l;
+      sDEL[r] = qpos < T ? DEL[qpos] : 0.f;
+    }
+    if (p.dropout) {
+      for (int i = threadIdx.x; i < 2 * BQ; i += NTHREADS) {
+        const int qpos = q0 + (i >> 1);
+        const int widx = (k0 >> 5) + (i & 1);
+        sKeep[i] = qpos < T && widx < p.W ? p.keep[keep_at(p, bh, qpos, widx)]
+                                          : 0u;
+      }
+    }
+
+    float st[R][C], dpt[R][C];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) st[i][j] = dpt[i][j] = 0.f;
+    for (int dc = 0; dc < D; dc += WCH) {
+      __syncthreads();   // every warp is done with the previous chunks
+      load_chunk<S>(sK, K, k0, T, D, dc);
+      load_chunk<S>(sV, V, k0, T, D, dc);
+      load_chunk<S>(sQ, Q, q0, T, D, dc);
+      load_chunk<S>(sDO, DO, q0, T, D, dc);
+      __syncthreads();
+      const int dn = min(WCH, D - dc);
+#pragma unroll 2
+      for (int c = 0; c < dn; ++c) {
+        float kv[R], vv[R], qv[C], ov[C];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          kv[i] = sK[(row0 + i) * CS + c];
+          vv[i] = sV[(row0 + i) * CS + c];
+        }
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          qv[j] = sQ[(cg + 8 * j) * CS + c];
+          ov[j] = sDO[(cg + 8 * j) * CS + c];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            st[i][j] = fmaf(qv[j], kv[i], st[i][j]);
+            dpt[i][j] = fmaf(ov[j], vv[i], dpt[i][j]);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int kr = row0 + i;
+      const int kpos = k0 + kr;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int qc = cg + 8 * j;
+        const int qpos = q0 + qc;
+        float x = st[i][j] * p.scale;
+        if (qpos >= T || kpos >= T) {
+          x = NEG_INF;   // ragged last tiles: the query or key does not exist
+        } else {
+          if (brow != nullptr) x += brow[static_cast<size_t>(qpos) * T + kpos];
+          if (p.causal && qpos < kpos) x = NEG_INF;
+          if (dead[i]) x = NEG_INF;
+        }
+        const float pj = expf(x - sLSE[qc]);
+        float dpj = dpt[i][j];
+        float ks = 1.f;
+        if (p.dropout) {
+          ks = (sKeep[2 * qc + (kr >> 5)] >> (kr & 31)) & 1u ? p.inv_keep
+                                                             : 0.f;
+          dpj *= ks;
+        }
+        // p * keep meets dO, ds meets q, each in the input type
+        sP[kr * PS + qc] = round_to<S>(pj * ks);
+        sDS[kr * PS + qc] = round_to<S>(pj * (dpj - sDEL[qc]) * p.scale);
+      }
+    }
+    __syncthreads();   // p * keep and ds are complete; the chunks are free
+    load_cols<S>(sQc, Q, q0, T, D, c0);
+    load_cols<S>(sDOc, DO, q0, T, D, c0);
+    __syncthreads();
+
+#pragma unroll 2
+    for (int qq = 0; qq < BQ; ++qq) {
+      float pv[R], dsv[R], ov[DC], qv[DC];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        pv[i] = sP[(row0 + i) * PS + qq];
+        dsv[i] = sDS[(row0 + i) * PS + qq];
+      }
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        ov[j] = sDOc[qq * WCOL + cg + 8 * j];
+        qv[j] = sQc[qq * WCOL + cg + 8 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+          dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
+          dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
+        }
+    }
+  }
+
+  S* DK = static_cast<S*>(p.dk) + base;
+  S* DV = static_cast<S*>(p.dv) + base;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kpos = k0 + row0 + i;
+    if (kpos >= T) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      const int col = c0 + cg + 8 * j;
+      if (col >= D) continue;
+      const size_t at = static_cast<size_t>(kpos) * D + col;
+      DK[at] = flash::from_f32<S>(dk[i][j]);
+      DV[at] = flash::from_f32<S>(dv[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 cudaError_t launch_kernel(void (*kernel)(Params), size_t smem,
@@ -1444,9 +1983,30 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+template <bool DQ, typename S>
+cudaError_t launch_wide_as(const Params& p, cudaStream_t stream) {
+  void (*kernel)(Params) =
+      DQ ? flash_bwd_dq_wide_kernel<S> : flash_bwd_dkv_wide_kernel<S>;
+  const size_t smem = DQ ? dq_wide_smem_bytes() : dkv_wide_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int gx = (p.T + 63) / 64 * ((p.Dt + WCOL - 1) / WCOL);
+  kernel<<<fold_grid(gx, p.B * p.H), NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <bool DQ>
 cudaError_t launch_any(const Params& p, int dtype, int d,
                        cudaStream_t stream) {
+  if (d > 128) {
+    if (p.Dt != d) return cudaErrorInvalidValue;   // taken unpadded
+    if (dtype == 0) return launch_wide_as<DQ, float>(p, stream);
+    if (dtype == 1) return launch_wide_as<DQ, __nv_bfloat16>(p, stream);
+    if (dtype == 2) return launch_wide_as<DQ, __half>(p, stream);
+    return cudaErrorInvalidValue;
+  }
   switch (d) {
     case 16: return launch<16, DQ>(p, dtype, stream);
     case 32: return launch<32, DQ>(p, dtype, stream);
@@ -1463,8 +2023,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    const float* bias, long long bias_sb, long long bias_sh,
                    int batch, int heads, int seq, int true_dim, float scale,
                    int causal,
-                   int dropout, unsigned int seed0, unsigned int seed1,
-                   unsigned int thr, float inv_keep) {
+                   int dropout, const unsigned int* seed, unsigned int thr,
+                   float inv_keep) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1490,8 +2050,8 @@ Params make_params(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.causal = causal;
   p.dropout = dropout;
-  p.seed0 = seed0;
-  p.seed1 = seed1;
+  p.seed = seed;
+  p.sum_bw = p.sum_by = 1;
   p.thr = thr;
   p.inv_keep = inv_keep;
   return p;
@@ -1500,15 +2060,46 @@ Params make_params(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim is the row length
-// of q, k, v, dout and out in device memory (16, 32, 64 or 128), true_dim the
-// head dim before the wrapper's zero padding, over which delta is summed.
-// Every pointer is a device pointer;
-// dlse, mask, kend, bias and stats may be null.  B4 writes dq, delta
-// (B, H, T) f32 and the words (2, B, H, T, ceil(T/32)) uint32 (the keep bits
-// with dropout; the pairs derived again in bf16) that B5 then reads.  stats, when given,
-// counts the bf16 elements whose rounding was derived again.  Each launches
-// on `stream` and does not synchronise; it returns the CUDA error of the
-// launch (0 on success).
+// of q, k, v, dout and out in device memory (16, 32, 64 or 128, or any
+// length from 129 to MAX_HEAD_DIM, taken unpadded by the chunked kernels),
+// true_dim the head dim before the wrapper's zero padding, over which delta
+// is summed.  Every pointer is a device pointer; dlse, mask, kend, bias and
+// stats may be null, and seed (the two threefry words) too without dropout.
+// B4 writes dq, delta (B, H, T) f32 and the words (2, B, H, T, ceil(T/32))
+// uint32 (the keep bits with dropout; the pairs derived again in bf16) that
+// B5 then reads.  stats, when given, counts the bf16 elements whose rounding
+// was derived again.  Each launches on `stream` and does not synchronise;
+// it returns the CUDA error of the launch (0 on success).
+// The lanes of torch's CUDA sum over the contiguous last dim of an f32
+// tensor of `rows` rows of n >= 128 values (ATen Reduce.cuh
+// setReduceConfig, the input vectorized by 4): *bw lanes along a row, and
+// *by warps that split it (1 unless a lane would sum at least
+// min(16 * block height, 256) values).
+static void torch_sum_lanes(int n, long long rows, int* bw, int* by) {
+  auto last_pow2 = [](long long v) {
+    long long p = 1;
+    while (p * 2 <= v) p *= 2;
+    return p;
+  };
+  auto lesser = [](long long a, long long b) { return a < b ? a : b; };
+  const long long mnt = 512;
+  const long long dim0 = n / 4;
+  const long long p0 = dim0 < mnt ? last_pow2(dim0) : mnt;
+  const long long p1 = rows < mnt ? last_pow2(rows) : mnt;
+  long long w = lesser(p0, 32);
+  const long long h = lesser(p1, mnt / w);
+  w = lesser(p0, mnt / h);
+  *bw = static_cast<int>(w);
+  *by = (n + w - 1) / w >= lesser(h * 16, 256) ? static_cast<int>(h) : 1;
+}
+
+static bool dims_ok(int head_dim, int true_dim, int dropout,
+                    const unsigned int* seed) {
+  return true_dim >= 1 && true_dim <= head_dim &&
+         head_dim <= MAX_HEAD_DIM && (head_dim <= 128 || true_dim == head_dim)
+         && !(dropout && seed == nullptr);
+}
+
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* out, const float* lse, const float* dlse, float* delta,
@@ -1516,16 +2107,19 @@ extern "C" int flash_attention_bwd_dq(
     const int32_t* mask, const int32_t* kend, const float* bias,
     long long bias_sb, long long bias_sh, int batch, int heads, int seq,
     int head_dim, int true_dim, int dtype, float scale, int causal,
-    int dropout, unsigned int seed0, unsigned int seed1, unsigned int thr,
-    float inv_keep, void* stream) {
-  if (true_dim < 1 || true_dim > head_dim)
+    int dropout, const unsigned int* seed, unsigned int thr, float inv_keep,
+    void* stream) {
+  if (!dims_ok(head_dim, true_dim, dropout, seed))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, dout, lse, delta, keep, stats, mask, kend,
                          bias, bias_sb, bias_sh, batch, heads, seq, true_dim,
-                         scale, causal, dropout, seed0, seed1, thr, inv_keep);
+                         scale, causal, dropout, seed, thr, inv_keep);
   p.out = out;
   p.dlse = dlse;
   p.dq = dq;
+  if (head_dim > 128)
+    torch_sum_lanes(true_dim, static_cast<long long>(batch) * heads * seq,
+                    &p.sum_bw, &p.sum_by);
   return static_cast<int>(launch_any<true>(
       p, dtype, head_dim, static_cast<cudaStream_t>(stream)));
 }
@@ -1536,13 +2130,13 @@ extern "C" int flash_attention_bwd_dkv(
     unsigned long long* stats, const int32_t* mask, const int32_t* kend,
     const float* bias, long long bias_sb, long long bias_sh, int batch,
     int heads, int seq, int head_dim, int true_dim, int dtype, float scale,
-    int causal, int dropout, unsigned int seed0, unsigned int seed1,
-    unsigned int thr, float inv_keep, void* stream) {
-  if (true_dim < 1 || true_dim > head_dim)
+    int causal, int dropout, const unsigned int* seed, unsigned int thr,
+    float inv_keep, void* stream) {
+  if (!dims_ok(head_dim, true_dim, dropout, seed))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, dout, lse, delta, keep, stats, mask, kend,
                          bias, bias_sb, bias_sh, batch, heads, seq, true_dim,
-                         scale, causal, dropout, seed0, seed1, thr, inv_keep);
+                         scale, causal, dropout, seed, thr, inv_keep);
   p.dk = dk;
   p.dv = dv;
   return static_cast<int>(launch_any<false>(

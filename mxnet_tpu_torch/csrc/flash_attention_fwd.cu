@@ -42,6 +42,16 @@
 // past the true D in shared memory.  The output is staged through shared
 // memory and written 16 bytes a lane.
 //
+// Head dims past 128, in any of the three types, take a chunked kernel
+// (flash_fwd_wide_kernel): scalar f32 FMAs, the scores summed over D in
+// chunks of 32 staged through shared memory, each block owning 64 columns
+// of the output and recomputing the scores, so that no register or shared
+// array grows with D.  It is built to be right first; PERF.md keeps its
+// times beside its bound.
+//
+// The dropout seed words are read from device memory (`seed`), so that a
+// captured CUDA graph draws the words its replay was given.
+//
 // f32 stays true f32 (no TF32): a scalar kernel with FMAs on the CUDA cores
 // (67 TF/s peak), q/k/v tiles in shared memory widened to f32 (rows padded
 // by one float), a 4 x 8 register tile of scores per thread and warp-shuffle
@@ -56,8 +66,8 @@
 
 namespace {
 
-using flash::BH_FOLD;
 using flash::MASKED_ROW;
+using flash::MAX_HEAD_DIM;
 using flash::NEG_INF;
 using flash::fold_grid;
 using flash::folded_bh;
@@ -87,7 +97,8 @@ struct Params {
   float scale;
   int causal;
   int dropout;
-  uint32_t seed0, seed1, thr;
+  const uint32_t* seed;  // the two threefry seed words (device memory)
+  uint32_t thr;
   float inv_keep;
 };
 
@@ -165,7 +176,7 @@ flash_fwd_tc_kernel(const Params p) {
   const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
                              : nullptr;
-  const uint32_t key0 = p.seed0 ^ (static_cast<uint32_t>(bh) * BH_FOLD);
+  const flash::SeedKey sk = flash::seed_key(p.seed, p.dropout, bh);
   // scores go to base 2: p = 2^(x log2(e) - m), m kept in that unit
   const float scale2 = p.scale * LOG2E;
 
@@ -323,7 +334,7 @@ flash_fwd_tc_kernel(const Params p) {
         float pa = pj;
         if (p.dropout) {
           const uint32_t bits = threefry2x32(
-              key0, p.seed1, static_cast<uint32_t>(q0 + rows[i]),
+              sk.key0, sk.key1, static_cast<uint32_t>(q0 + rows[i]),
               static_cast<uint32_t>(k0 + n * 8 + 2 * t4 + (c & 1)));
           pa = bits < p.thr ? pj * p.inv_keep : 0.f;
         }
@@ -440,7 +451,7 @@ flash_fwd_f32_kernel(const Params p) {
   const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
                              : nullptr;
-  const uint32_t key0 = p.seed0 ^ (static_cast<uint32_t>(bh) * BH_FOLD);
+  const flash::SeedKey sk = flash::seed_key(p.seed, p.dropout, bh);
 
   for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
     const int r = idx / D;
@@ -526,7 +537,7 @@ flash_fwd_f32_kernel(const Params p) {
         float pa = pj;
         if (p.dropout) {
           const uint32_t bits =
-              threefry2x32(key0, p.seed1, static_cast<uint32_t>(qpos),
+              threefry2x32(sk.key0, sk.key1, static_cast<uint32_t>(qpos),
                            static_cast<uint32_t>(kpos));
           pa = bits < p.thr ? pj * p.inv_keep : 0.f;
         }
@@ -565,6 +576,204 @@ flash_fwd_f32_kernel(const Params p) {
     for (int j = 0; j < DC; ++j)
       O[static_cast<size_t>(qpos) * D + cg + 8 * j] = acc[i][j] / lc;
     if (cg == 0)
+      p.lse[static_cast<size_t>(bh) * T + qpos] = m[i] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// head_dim > 128, any of the three types: scalar f32 FMAs, D in chunks
+// ---------------------------------------------------------------------------
+// The kernels above keep a row of q (B3 bf16/f16: as MMA fragments) or of
+// the output accumulator in registers, which does not scale past D = 128.
+// Here the scores s = q k^T are summed over D in chunks of WCH columns
+// staged through shared memory (sequential FMAs in d order, as the plain
+// version's f32 product sums), and each block owns WCOL columns of the
+// output: the grid's x dimension walks (query tile, column chunk), and
+// every column block of a query tile computes the same scores, softmax
+// statistics and dropout bits again.  Only column block 0 writes the lse.
+// Nothing in shared memory or registers grows with D, so any D is taken.
+constexpr int WCH = 32;         // D columns a score chunk sums
+constexpr int WCOL = 64;        // output columns a block owns
+
+constexpr size_t wide_smem_bytes() {
+  return (BQ * (WCH + 1) + BK * (WCH + 1) + BK * WCOL + BQ * (BK + 1)) * 4;
+}
+
+// Grid: (ceil(T / BQ) * ceil(D / WCOL), folded B * H).  Block: 128
+// threads.  Warp w owns query rows [16w, 16w + 16) of the tile; lane =
+// 8 * rg + cg owns rows 16w + 4rg + i (i < 4), score columns cg + 8j (j < 8)
+// and output columns c0 + cg + 8j (j < WCOL / 8) of the block's chunk.
+template <typename S>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_wide_kernel(const Params p) {
+  constexpr int CS = WCH + 1;
+  constexpr int PS = BK + 1;
+  constexpr int DC = WCOL / 8;
+  extern __shared__ float smem_w[];
+  float* sQ = smem_w;
+  float* sK = sQ + BQ * CS;
+  float* sV = sK + BK * CS;
+  float* sP = sV + BK * WCOL;
+
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
+  const int T = p.T;
+  const int D = p.D;
+  const int n_col = (D + WCOL - 1) / WCOL;
+  const int q0 = static_cast<int>(blockIdx.x) / n_col * BQ;
+  const int c0 = static_cast<int>(blockIdx.x) % n_col * WCOL;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int cg = lane & 7;
+  const int row0 = (tid >> 5) * 16 + (lane >> 3) * R;
+
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const S* Q = static_cast<const S*>(p.q) + base;
+  const S* K = static_cast<const S*>(p.k) + base;
+  const S* V = static_cast<const S*>(p.v) + base;
+  const bool masked = p.mask != nullptr;
+  const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+  const flash::SeedKey sk = flash::seed_key(p.seed, p.dropout, bh);
+
+  float m[R], l[R], acc[R][DC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+  }
+
+  int kmax = T;
+  if (p.causal) kmax = min(kmax, q0 + BQ);
+  if (p.kend != nullptr) kmax = min(kmax, p.kend[b]);
+  const int n_tiles = (kmax + BK - 1) / BK;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    float s[R][C];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) s[i][j] = 0.f;
+    for (int dc = 0; dc < D; dc += WCH) {
+      __syncthreads();   // every warp is done with the previous chunk
+      for (int idx = tid; idx < BQ * WCH; idx += NTHREADS) {
+        const int r = idx / WCH;
+        const int c = idx - r * WCH;
+        const int d = dc + c;
+        const int qrow = q0 + r;
+        const int krow = k0 + r;
+        sQ[r * CS + c] = qrow < T && d < D
+            ? flash::to_f32(Q[static_cast<size_t>(qrow) * D + d]) : 0.f;
+        sK[r * CS + c] = krow < T && d < D
+            ? flash::to_f32(K[static_cast<size_t>(krow) * D + d]) : 0.f;
+      }
+      __syncthreads();
+      const int dn = min(WCH, D - dc);
+#pragma unroll 4
+      for (int c = 0; c < dn; ++c) {
+        float qv[R], kv[C];
+#pragma unroll
+        for (int i = 0; i < R; ++i) qv[i] = sQ[(row0 + i) * CS + c];
+#pragma unroll
+        for (int j = 0; j < C; ++j) kv[j] = sK[(cg + 8 * j) * CS + c];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < C; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qpos = q0 + row0 + i;
+      float mc = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int kpos = k0 + cg + 8 * j;
+        float x = s[i][j] * p.scale;
+        if (kpos >= T) {
+          x = NEG_INF;   // ragged last tile: the key does not exist
+        } else {
+          if (brow != nullptr && qpos < T)
+            x += brow[static_cast<size_t>(qpos) * T + kpos];
+          if (p.causal && qpos < kpos) x = NEG_INF;
+          if (masked && mrow[kpos] == 0) x = NEG_INF;
+        }
+        s[i][j] = x;
+        mc = fmaxf(mc, x);
+      }
+      mc = row_max8(mc);
+      const float m_new = fmaxf(m[i], mc);
+      const float m_exp = (masked && !(m_new > MASKED_ROW)) ? 0.f : m_new;
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int kpos = k0 + cg + 8 * j;
+        const float pj = expf(s[i][j] - m_exp);
+        rs += pj;
+        float pa = pj;
+        if (p.dropout) {
+          const uint32_t bits =
+              threefry2x32(sk.key0, sk.key1, static_cast<uint32_t>(qpos),
+                           static_cast<uint32_t>(kpos));
+          pa = bits < p.thr ? pj * p.inv_keep : 0.f;
+        }
+        // p (times keep) meets v in v's type
+        sP[(row0 + i) * PS + cg + 8 * j] = flash::round_to<S>(pa);
+      }
+      rs = row_sum8(rs);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
+    }
+
+    __syncthreads();   // every warp is done with the previous V chunk
+    for (int idx = tid; idx < BK * WCOL; idx += NTHREADS) {
+      const int r = idx / WCOL;
+      const int c = idx - r * WCOL;
+      const int krow = k0 + r;
+      const int col = c0 + c;
+      sV[r * WCOL + c] = krow < T && col < D
+          ? flash::to_f32(V[static_cast<size_t>(krow) * D + col]) : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[R], vv[DC];
+#pragma unroll
+      for (int i = 0; i < R; ++i) pv[i] = sP[(row0 + i) * PS + kk];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) vv[j] = sV[kk * WCOL + cg + 8 * j];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+  S* O = static_cast<S*>(p.out) + base;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qpos = q0 + row0 + i;
+    if (qpos >= T) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      const int col = c0 + cg + 8 * j;
+      if (col < D)
+        O[static_cast<size_t>(qpos) * D + col] =
+            flash::from_f32<S>(acc[i][j] / lc);
+    }
+    if (c0 == 0 && cg == 0)
       p.lse[static_cast<size_t>(bh) * T + qpos] = m[i] + logf(lc);
   }
 }
@@ -621,21 +830,36 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+template <typename S>
+cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int gx = (p.T + BQ - 1) / BQ * ((p.D + WCOL - 1) / WCOL);
+  flash_fwd_wide_kernel<S><<<fold_grid(gx, p.B * p.H), NTHREADS, smem,
+                             stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim is the row length
 // of q, k, v and out in device memory: 16, 32, 64 or 128 for float32, a
-// multiple of 8 up to 128 for the 16-bit types.  true_dim is the backward's
+// multiple of 8 up to 128 for the 16-bit types, or any length from 129 to
+// MAX_HEAD_DIM (the chunked kernel, every type).  true_dim is the backward's
 // (unused here: the scale comes in `scale`).  Every pointer is a device
-// pointer, 16-byte aligned; mask, kend and bias may be null.  Launches on
+// pointer, 16-byte aligned up to D = 128; mask, kend and bias may be null,
+// and seed (the two threefry words) too without dropout.  Launches on
 // `stream` and does not synchronise.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const int32_t* mask, const int32_t* kend, const float* bias,
     long long bias_sb, long long bias_sh, int batch, int heads, int seq,
     int head_dim, int true_dim, int dtype, float scale, int causal,
-    int dropout, unsigned int seed0, unsigned int seed1, unsigned int thr,
-    float inv_keep, void* stream) {
+    int dropout, const unsigned int* seed, unsigned int thr, float inv_keep,
+    void* stream) {
   (void)true_dim;
   Params p;
   p.q = q;
@@ -655,15 +879,20 @@ extern "C" int flash_attention_fwd(
   p.scale = scale;
   p.causal = causal;
   p.dropout = dropout;
-  p.seed0 = seed0;
-  p.seed1 = seed1;
+  p.seed = seed;
   p.thr = thr;
   p.inv_keep = inv_keep;
-  if (head_dim < 1 || head_dim > 128 || batch * heads < 1 || seq < 1)
+  if (head_dim < 1 || head_dim > MAX_HEAD_DIM || batch * heads < 1 ||
+      seq < 1 || (dropout && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
+  if (head_dim > 128)
+    err = dtype == 0   ? launch_wide<float>(p, st)
+          : dtype == 1 ? launch_wide<__nv_bfloat16>(p, st)
+          : dtype == 2 ? launch_wide<__half>(p, st)
+                       : cudaErrorInvalidValue;
+  else if (dtype == 0)
     err = launch_f32(p, st);
   else if (dtype == 1)
     err = launch_tc<hopper::Bf16>(p, st);

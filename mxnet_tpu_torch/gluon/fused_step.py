@@ -14,7 +14,7 @@ the reference's one-program step:
   ``'write'`` parameter's is cleared);
 - each gradient is rescaled in f32; one finite-gradient verdict is
   taken over all of them before clipping; each is clipped and cast
-  back to its weight's dtype before ``update_math`` widens it again;
+  back to its weight's dtype before the update widens it again;
 - a step whose verdict is False leaves every weight and optimizer state
   bitwise as it was.  The verdict stays on the device as
   ``last_step_finite`` (reading it as a bool syncs);
@@ -23,24 +23,55 @@ the reference's one-program step:
   committed after the update under the same verdict, so a skipped step
   leaves it bitwise too.
 
-Deferred parameter shapes are settled before the first step by one
-forward in predict mode (`Block._ensure_shapes`).
+The reference compiles all of it into one donated XLA program, one
+host-to-device dispatch a step.  On a CUDA device the port captures it
+into one CUDA graph (`ops.capture`) and replays it:
 
-The reference compiles all of it into one XLA program; here it runs
-eagerly (capturing it as a CUDA graph is later work).  Train-mode
-randomness draws from ``generator`` (a CPU ``torch.Generator``), or
-from an enclosing ``autograd.record``/``train_mode`` scope's.  SPMD
-(``mesh``, ``recipe``, ``partition_rules``, ``data_spec``) and loss
-scaling (``scaler``) are not ported yet and raise
-``NotImplementedError``.
+- the first call of a signature (the input shapes, dtypes and devices,
+  the non-tensor inputs, ``batch_size``, the trainable set and the
+  layout of the optimizer's packed scalars) runs eagerly: a real step,
+  which also warms cuBLAS, cuDNN, the allocator and the kernel builds,
+  and records the step's random draw sites in order (`ops.seeds`);
+- the second captures the step over static copies of the inputs, a
+  static seed buffer (one row of two words a draw site) and the static
+  copy of the trainer's packed scalars (`gluon.trainer.StepPlan`), then
+  replays it;
+- each later call copies its inputs into the static ones, draws the
+  step's seed words from the generator in the recorded order, computes
+  the optimizer's scalars on the host, writes words and scalars into the
+  static buffer with one copy (through `ops.capture.HostRing`), and
+  replays.  Outputs and ``last_step_finite`` are copies of the graph's
+  buffers.
+
+A parameter bound to a new tensor (`Parameter.set_data`, ``cast``,
+``load_parameters``) has a new ``generation``, and the next call
+captures the step again; in-place copies (`Trainer.load_states`) keep
+the graph.  A capture that fails raises: the step does not fall back
+to the eager path.  The capture differentiates to fresh leaves over the
+trainable parameters' storage (`_fresh_leaves`), so an eager step's
+loss whose autograd graph is still alive does not reach into it.  On
+the CPU every call runs eagerly.
+
+Deferred parameter shapes are settled before the first step by one
+forward in predict mode (`Block._ensure_shapes`).  Train-mode randomness
+draws from ``generator`` (a CPU ``torch.Generator``), or from an
+enclosing ``autograd.record``/``train_mode`` scope's.  SPMD (``mesh``,
+``recipe``, ``partition_rules``, ``data_spec``) and loss scaling
+(``scaler``) are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
+
+import numpy as onp
 import torch
 
 from .. import autograd
+from ..ops import capture
 from ..ops.aux_scope import aux_update_scope
-from ..optimizer.optimizer import Optimizer, write_back
+from ..ops.invoke import current_generator, set_seed_table
+from ..ops.seeds import SeedTable, draw_words
+from ..optimizer.optimizer import Optimizer, write_back_multi
 
 __all__ = ["FusedTrainStep"]
 
@@ -51,11 +82,63 @@ def _first_leaf(out):
     return out
 
 
+def _detached(outs, copy=False):
+    if isinstance(outs, torch.Tensor):
+        return outs.detach().clone() if copy else outs.detach()
+    return tuple(_detached(o, copy) for o in outs)
+
+
+@contextlib.contextmanager
+def _fresh_leaves(params):
+    """Bind each of ``params`` to a new leaf over the same storage
+    (``detach``), without a new ``generation``, and back on exit; yields
+    the leaves.  A leaf's gradient accumulator lives as long as an
+    autograd graph that reaches it, and belongs to the stream that graph
+    was recorded on: a capture that differentiated to a leaf of a live
+    eager step would make that stream wait on the capture's, which
+    invalidates the capture."""
+    old = [p._data for p in params]
+    leaves = [t.detach().requires_grad_(t.requires_grad) for t in old]
+    for p, t in zip(params, leaves):
+        p._data = t
+    try:
+        yield leaves
+    finally:
+        for p, t in zip(params, old):
+            p._data = t
+
+
+@contextlib.contextmanager
+def _seed_table(table):
+    prev = set_seed_table(table)
+    try:
+        yield
+    finally:
+        set_seed_table(prev)
+
+
+class _Captured:
+    """One signature's captured step: the graph, its static inputs, the
+    buffer of seed words then packed scalars, its outputs, and what the
+    capture saw (the draw kinds, the parameters' generations)."""
+
+    def __init__(self, graph, args, buf, outs, finite, kinds, generations):
+        self.graph = graph
+        self.args = args
+        self.buf = buf
+        self.outs = outs
+        self.finite = finite
+        self.kinds = kinds
+        self.generations = generations
+        self.ring = capture.HostRing(buf.numel(), buf.device)
+
+
 class FusedTrainStep:
     """Fuse ``loss = block(*inputs); loss.backward(); trainer.step(bs)``
     into one call.  ``block`` must produce the loss (its first output
     leaf is summed as the backward seed) and the trainer's optimizer
-    must implement ``update_math``.
+    must implement ``update_multi``.  ``captures`` counts the steps
+    captured into CUDA graphs so far.
 
     >>> step = FusedTrainStep(mod, trainer, generator=torch.Generator())
     >>> loss = step(x, y, batch_size=128)
@@ -75,27 +158,34 @@ class FusedTrainStep:
         self._trainer = trainer
         self._generator = generator
         self.last_step_finite = None
+        self.captures = 0
         self._plist = None
+        self._managed = None
         self._train_idx = None
         self._opt_index = None
+        self._kinds = {}       # signature -> draw kinds of its first call
+        self._graphs = {}      # signature -> _Captured
 
     def _setup(self, args):
         trainer = self._trainer
         opt = trainer._optimizer
-        if type(opt).update_math is Optimizer.update_math:
-            raise ValueError(f"{type(opt).__name__} has no update_math; "
+        if type(opt).update_multi is Optimizer.update_multi:
+            raise ValueError(f"{type(opt).__name__} has no update_multi; "
                              "use the eager record/backward/step path")
         self._block._ensure_shapes(*args)
         trainer._init_kvstore()
         trainer._init_states()
         params = self._block.collect_params()
         self._plist = [params[k] for k in sorted(params)]
-        # trainable = has a gradient AND is managed by this trainer
-        by_id = {id(p): i for i, p in enumerate(trainer._params)}
+        self._managed = {id(p): i for i, p in enumerate(trainer._params)}
+
+    def _trainable(self):
+        """The trainable parameters: a gradient AND managed by this
+        trainer (positions in the block's list, and the trainer's)."""
         self._train_idx = tuple(
             k for k, p in enumerate(self._plist)
-            if p.grad_req != "null" and id(p) in by_id)
-        self._opt_index = tuple(by_id[id(self._plist[k])]
+            if p.grad_req != "null" and id(p) in self._managed)
+        self._opt_index = tuple(self._managed[id(self._plist[k])]
                                 for k in self._train_idx)
 
     def __call__(self, *args, batch_size=1):
@@ -104,29 +194,131 @@ class FusedTrainStep:
     def step(self, *args, batch_size=1):
         if self._plist is None:
             self._setup(args)
+        self._trainable()
         trainer = self._trainer
         trainer._optimizer.rescale_grad = trainer._scale / batch_size
         weights = [self._plist[k].data() for k in self._train_idx]
+        plan = trainer._plan(self._opt_index)
+        if not weights or not capture.capturable(weights[0].device):
+            return self._eager(args, weights, plan)
+        sig = (tuple((tuple(a.shape), a.dtype, a.device)
+                     if isinstance(a, torch.Tensor) else ("value", a)
+                     for a in args),
+               batch_size, self._train_idx, plan.key)
+        entry = self._graphs.get(sig)
+        if entry is not None and entry.generations != self._generations():
+            entry = None                  # a parameter was rebound
+        if entry is None and sig not in self._kinds:
+            table = SeedTable()
+            with _seed_table(table):
+                outs = self._eager(args, weights, plan)
+            self._kinds[sig] = tuple(table.kinds)
+            return outs
+        if entry is None:
+            entry, words = self._capture(args, weights, plan,
+                                         self._kinds[sig])
+            self._graphs[sig] = entry
+        else:
+            words = draw_words(entry.kinds, self._generator_for(entry))
+        return self._replay(entry, args, plan, words)
 
+    # -- the step's work -----------------------------------------------------
+    def _body(self, args, weights, plan, rescale, rows, leaves=None):
+        """Forward, gradients, verdict and update on device tensors, the
+        optimizer's scalars read from ``rescale`` and ``rows``; the
+        gradients are taken to ``leaves`` (the weights by default)."""
+        trainer = self._trainer
         with autograd.record(train_mode=True, generator=self._generator), \
                 aux_update_scope() as aux:
             outs = self._block(*args)
             seed = _first_leaf(outs).float().sum()
-        grads = torch.autograd.grad(seed, weights, allow_unused=True)
+        grads = torch.autograd.grad(seed, leaves or weights,
+                                    allow_unused=True)
 
         with torch.no_grad():
-            gs = list(trainer._rescaled(
-                torch.zeros_like(w) if g is None else g
-                for w, g in zip(weights, grads)))
+            gs = trainer._rescaled([torch.zeros_like(w) if g is None else g
+                                    for w, g in zip(weights, grads)],
+                                   rescale)
             del grads
             # one verdict over every rescaled gradient, before clipping
             # (a clip would launder an inf into a finite value)
             finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
-        trainer._apply(self._opt_index, weights, gs, cast_back=True,
-                       keep=finite)
-        for arr, new in aux.updates:
-            write_back(arr, new, (), (), keep=finite)
-        self.last_step_finite = finite
-        if isinstance(outs, torch.Tensor):
-            return outs.detach()
-        return tuple(o.detach() for o in outs)
+        trainer._apply(plan, rows, self._opt_index, weights, gs,
+                       cast_back=True, keep=finite)
+        write_back_multi([arr for arr, _ in aux.updates],
+                         [new for _, new in aux.updates], keep=finite)
+        return _detached(outs), finite
+
+    def _eager(self, args, weights, plan):
+        rescale, rows = plan.views(capture.upload(plan.host, weights[0].device
+                                          if weights else "cpu"))
+        outs, self.last_step_finite = self._body(args, weights, plan,
+                                                 rescale, rows)
+        return outs
+
+    # -- capture and replay --------------------------------------------------
+    def _generations(self):
+        return (tuple(p.generation for p in self._plist),
+                id(self._trainer._states))
+
+    def _generator_for(self, entry):
+        gen = self._generator or current_generator()
+        if entry.kinds and gen is None:
+            raise ValueError("this step draws dropout seeds in train mode "
+                             "and needs a torch.Generator: pass "
+                             "generator= or run under autograd.record("
+                             "generator=...)")
+        return gen
+
+    def _capture(self, args, weights, plan, kinds):
+        """Capture the step of this signature; returns the entry and the
+        seed words the capture drew (this call's)."""
+        device = weights[0].device
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.device != device:
+                raise ValueError(
+                    f"FusedTrainStep captures its step on {device}: every "
+                    f"tensor input must lie there; got one on {a.device}")
+        static = tuple(a.detach().clone() if isinstance(a, torch.Tensor)
+                       else a for a in args)
+        n_seed = 2 * len(kinds)
+        buf = torch.zeros(n_seed + plan.host.size, dtype=torch.int32,
+                          device=device)
+        table = SeedTable(buffer=buf[:n_seed].view(len(kinds), 2))
+        rescale, rows = plan.views(buf[n_seed:].view(torch.float32))
+        graph = capture.Graph(device)
+
+        trainable = [self._plist[k] for k in self._train_idx]
+
+        def body():
+            with _seed_table(table), _fresh_leaves(trainable) as leaves:
+                return self._body(static, weights, plan, rescale, rows,
+                                  leaves)
+
+        outs, finite = graph.capture(body)
+        if tuple(table.kinds) != kinds:
+            raise RuntimeError(
+                f"the captured step drew {list(table.kinds)}, its first "
+                f"run {list(kinds)}: a step must reach the same draw "
+                "sites every time")
+        self.captures += 1
+        return (_Captured(graph, static, buf, outs, finite, kinds,
+                          self._generations()), table.words)
+
+    def _replay(self, entry, args, plan, words):
+        n_seed = 2 * len(entry.kinds)
+        host = onp.empty(entry.buf.numel(), dtype=onp.int32)
+        host[:n_seed] = onp.asarray(words, dtype=onp.uint32).reshape(
+            -1).view(onp.int32)
+        host[n_seed:] = plan.host.view(onp.int32)
+        entry.ring.upload(host, entry.buf)
+        for static, a in zip(entry.args, args):
+            if isinstance(static, torch.Tensor):
+                static.copy_(a, non_blocking=True)
+        # the eager backward clears a 'write' parameter's stored gradient
+        for k in self._train_idx:
+            if self._plist[k].grad_req == "write":
+                self._plist[k].data().grad = None
+        entry.graph.replay()
+        self.last_step_finite = entry.finite.clone()
+        return _detached(entry.outs, copy=True)

@@ -19,8 +19,17 @@ the new one into it, so a parameter reached along several paths in one
 backward (a tied embedding) still gets their sum.  ``'add'`` keeps
 torch's accumulation across backward passes until `zero_grad`.
 Optimizers update the tensor in place, outside autograd.
+
+Each time a new tensor is bound (`initialize`, `set_data`, `cast`,
+`reset_ctx`, a change of ``grad_req``, `load_parameters`) the parameter
+takes a new ``generation``: a CUDA graph captured over the old tensor
+(`gluon.FusedTrainStep`) sees the change and captures again, where an
+in-place copy into the tensor (`Trainer.load_states`, ``data()[...] =``)
+keeps the graph valid.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -33,6 +42,7 @@ _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64,
            "int32": torch.int32, "int64": torch.int64}
 _GRAD_REQS = ("write", "add", "null")
+_GENERATIONS = itertools.count(1)
 
 
 def to_torch_dtype(dtype):
@@ -67,6 +77,7 @@ class Parameter:
         self._deferred_init = None   # (init, device, default_init, generator)
         self._grad_req = None
         self._data = None
+        self.generation = 0
         self.grad_req = grad_req
         self._structure_name = None  # dotted name, set by collect_params
 
@@ -119,6 +130,7 @@ class Parameter:
             tensor.requires_grad_(True)
             tensor.register_hook(self._before_accumulate)
         self._data = tensor
+        self.generation = next(_GENERATIONS)
 
     def _before_accumulate(self, grad):
         # runs once per backward, with the summed gradient of every path

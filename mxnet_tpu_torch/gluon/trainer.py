@@ -5,10 +5,17 @@ Owns the optimizer and applies its update to every parameter whose
 ``grad_req`` is not ``'null'``, from the gradients the last backward
 left in them.  The update follows the reference's fused path
 (`_try_fused_update`): each gradient is rescaled in f32 by
-``1 / batch_size``, clipped, and handed to ``update_math`` with the
-per-parameter lr, wd and an f32 update count.  The reference compiled
-that loop into one XLA program; here it is plain torch ops per
-parameter, in place, outside autograd.
+``1 / batch_size``, clipped, and updated with the per-parameter lr, wd
+and an f32 update count.  As the reference ships its per-parameter lrs,
+wds and ts as packed f32 arrays, the host computes each step's scalars
+(`StepPlan`: the rescale, then one row of the optimizer's
+``step_scalars`` for each group of parameters whose rows are equal) into
+one f32 array, which reaches the device with one copy; the update is the
+optimizer's multi-tensor form, ``update_multi``, one list of
+``torch._foreach_*`` ops a group, reading 0-dim views of that array, in
+place and outside autograd.  `FusedTrainStep` captures the same update
+inside its CUDA graph, with the array in a static buffer it rewrites
+before each replay.
 
 Only one device is supported: ``kvstore`` may be ``None``, ``'local'``
 or ``'device'`` (each a no-op on one device), and ``allreduce_grads``
@@ -27,12 +34,38 @@ import numpy as onp
 import torch
 
 from .. import optimizer as opt
-from ..optimizer.optimizer import write_back
+from ..ops import capture
+from ..optimizer.optimizer import write_back_multi
 from .parameter import Parameter
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "StepPlan"]
 
 _LOCAL_KVSTORES = (None, False, "local", "device")
+
+
+class StepPlan:
+    """One step's optimizer scalars on the host.  ``host`` is the packed
+    f32 array: the gradient rescale, then one row of the optimizer's
+    ``scalar_names`` for each group; ``groups[g]`` holds the positions
+    (into the step's parameter list) of the parameters whose rows equal
+    row ``g`` in f32, the group the update's ``_foreach_*`` lists run
+    over.  ``key`` says how the array is laid out: a step captured with
+    one layout replays only under the same one."""
+
+    def __init__(self, rescale, rows, groups, names):
+        self.names = tuple(names)
+        self.groups = tuple(tuple(g) for g in groups)
+        self.host = onp.asarray([rescale] + [x for row in rows for x in row],
+                                dtype=onp.float32)
+        self.key = (self.names, self.groups)
+
+    def views(self, buf):
+        """The rescale and each group's scalars as 0-dim views of
+        ``buf``, the array's copy on the device (f32, 1-D)."""
+        k = len(self.names)
+        rows = [{n: buf[1 + g * k + j] for j, n in enumerate(self.names)}
+                for g in range(len(self.groups))]
+        return buf[0], rows
 
 
 class Trainer:
@@ -159,31 +192,62 @@ class Trainer:
     def _update(self, ignore_stale_grad=False):
         self._init_states()
         idx = self._trainable()
-        self._apply(idx, [self._params[i].data() for i in idx],
-                    self._rescaled(self._params[i].grad() for i in idx))
+        if not idx:
+            return
+        weights = [self._params[i].data() for i in idx]
+        plan = self._plan(idx)
+        rescale, rows = plan.views(capture.upload(plan.host,
+                                                  weights[0].device))
+        grads = self._rescaled([self._params[i].grad() for i in idx],
+                               rescale)
+        self._apply(plan, rows, idx, weights, grads)
 
-    def _rescaled(self, grads):
-        """Each gradient in f32 times ``rescale_grad`` (lazily, one at a
-        time)."""
-        rescale = float(onp.float32(self._optimizer.rescale_grad))
-        return (g.float() * rescale for g in grads)
+    def _plan(self, indices):
+        """This step's `StepPlan` for parameters ``indices`` (their update
+        counts move on by one, in the reference's order)."""
+        optimizer = self._optimizer
+        rows, groups, where = [], [], {}
+        for pos, i in enumerate(indices):
+            lr, wd, t = self._scalars(i)
+            row = onp.asarray(optimizer.step_scalars(lr, wd, t),
+                              dtype=onp.float32)
+            g = where.setdefault(row.tobytes(), len(rows))
+            if g == len(rows):
+                rows.append(row.tolist())
+                groups.append([])
+            groups[g].append(pos)
+        return StepPlan(onp.float32(optimizer.rescale_grad), rows, groups,
+                        optimizer.scalar_names)
 
-    def _apply(self, indices, weights, grads, cast_back=False, keep=None):
-        """Clip each rescaled f32 gradient and apply ``update_math`` to
-        its weight and state in place, with the per-parameter lr, wd and
-        f32 update count.  ``cast_back`` casts the clipped gradient to
-        the weight's dtype first (the fused step's rounding point);
-        ``keep`` (a 0-dim bool on the device) holds weights and states
-        bitwise where it is False."""
+    @staticmethod
+    def _rescaled(grads, rescale):
+        """Each gradient in f32 times ``rescale`` (a 0-dim f32 tensor)."""
+        return torch._foreach_mul([g.float() for g in grads], rescale)
+
+    def _apply(self, plan, rows, indices, weights, grads, cast_back=False,
+               keep=None):
+        """Clip the rescaled f32 gradients and apply the optimizer's
+        ``update_multi`` to the weights and states in place, one group of
+        ``plan`` at a time with its scalars ``rows[g]``.  ``cast_back``
+        casts each clipped gradient to its weight's dtype first (the fused
+        step's rounding point); ``keep`` (a 0-dim bool on the device)
+        holds weights and states bitwise where it is False."""
         optimizer = self._optimizer
         clip = optimizer.clip_gradient
         with torch.no_grad():
-            for i, w, g in zip(indices, weights, grads):
-                lr, wd, t = self._scalars(i)
-                if clip is not None:
-                    g = torch.clamp(g, -clip, clip)
-                if cast_back:
-                    g = g.to(w.dtype)
-                new_w, new_st = optimizer.update_math(w, g, self._states[i],
-                                                      lr, wd, t)
-                write_back(w, new_w, self._states[i], new_st, keep=keep)
+            if clip is not None:
+                grads = torch._foreach_clamp_max(
+                    torch._foreach_clamp_min(list(grads), -clip), clip)
+            if cast_back:
+                grads = [g.to(w.dtype) for g, w in zip(grads, weights)]
+            grads = [g.float() for g in grads]
+            for positions, scalars in zip(plan.groups, rows):
+                ws = [weights[p] for p in positions]
+                states = [self._states[indices[p]] for p in positions]
+                new_w, new_st = optimizer.update_multi(
+                    [w.float() for w in ws], [grads[p] for p in positions],
+                    states, scalars)
+                olds = ws + [x for st in states for x in st]
+                news = [n.to(w.dtype) for n, w in zip(new_w, ws)] + \
+                    [x for st in new_st for x in st]
+                write_back_multi(olds, news, keep=keep)

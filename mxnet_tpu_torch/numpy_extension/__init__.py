@@ -6,19 +6,20 @@ train/predict mode and the dropout generator come from `ops/invoke.py`.
 `ops/aux_scope.apply_aux_update`.
 
 Train-mode randomness takes its seeds from the scope's CPU generator on
-the host: a dropout mask is then drawn on the data's device, and the
-flash kernels' two seed words are host integers, so neither syncs with
-the card.  The reference draws its dropout bits from XLA's ``rbg``
-generator, so model-level dropout masks differ between the packages
-(the flash kernels' own bits match, given the same seed words)."""
+the host (`ops.seeds.draw_seed`): each draw's two seed words go to the
+device, where the dropout kernel (`ops.nn.dropout`) and the flash
+kernels read them, so no draw syncs with the card and a captured step
+replays with fresh words.  The reference draws its dropout bits from
+XLA's ``rbg`` generator, so model-level dropout masks differ between the
+packages (the flash kernels' own bits match, given the same seed
+words)."""
 from __future__ import annotations
-
-import torch
 
 from ..ops import nn as _nn
 from ..ops import stem as _stem
 from ..ops.aux_scope import apply_aux_update
-from ..ops.invoke import current_generator, is_training
+from ..ops.invoke import is_training
+from ..ops.seeds import draw_seed
 
 __all__ = ["activation", "dropout", "embedding", "fully_connected", "gelu",
            "layer_norm", "leaky_relu", "log_softmax", "pick", "softmax",
@@ -43,22 +44,12 @@ def gelu(data, approximation="erf"):
     return leaky_relu(data, act_type=act)
 
 
-def _generator(what):
-    gen = current_generator()
-    if gen is None:
-        raise ValueError(f"{what} in train mode needs a torch.Generator: "
-                         "run under autograd.record(generator=...) or "
-                         "autograd.train_mode(generator=...)")
-    return gen
-
-
 def dropout(data, p=0.5):
     """Active only in train mode; the mask is drawn on the data's device
-    from a seed the scope's generator gives on the host."""
+    from the two seed words of one draw of the scope's generator."""
     if not is_training() or p == 0.0:
         return data
-    seed = int(torch.randint(0, 2 ** 62, (), generator=_generator("dropout")))
-    return _nn.dropout(data, seed, p=p)
+    return _nn.dropout(data, draw_seed("dropout", data.device), p=p)
 
 
 def flash_attention(q, k, v, **kwargs):
@@ -66,12 +57,11 @@ def flash_attention(q, k, v, **kwargs):
     plain versions on the CPU (see `ops/flash_attention.py`).  Accepts
     ``causal``, ``scale``, ``mask`` (key-padding (B, T)), ``bias`` and
     in-kernel ``dropout``; with dropout and no ``key``, the two seed
-    words are drawn on the host from the train-mode generator."""
+    words are one draw of the train-mode generator."""
     from ..ops.flash_attention import flash_attention as _fa
     if kwargs.get("dropout") and kwargs.get("key") is None:
-        kwargs["key"] = torch.randint(
-            0, 2 ** 32, (2,),
-            generator=_generator("attention dropout")).tolist()
+        kwargs["key"] = draw_seed("attention", q.device,
+                                  what="attention dropout")
     return _fa(q, k, v, **kwargs)
 
 

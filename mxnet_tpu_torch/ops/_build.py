@@ -20,8 +20,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "Kernel", "find_nvcc", "build",
-           "load", "stream_of"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "KERNELS", "Kernel",
+           "find_nvcc", "build", "launch_counts", "load", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -35,11 +35,23 @@ BUILD_LOG = {}        # source name -> {"seconds": float, "ptxas": str}
 
 class Kernel:
     """A CUDA kernel's launch count (a plain integer, read and reset by
-    whoever checks that a path went through the kernel)."""
+    whoever checks that a path went through the kernel).  Every kernel
+    registers in `KERNELS`, so that a captured CUDA graph can record the
+    launches it holds and add them at each replay, where no wrapper
+    runs."""
 
     def __init__(self, name):
         self.name = name
         self.launches = 0
+        KERNELS.append(self)
+
+
+KERNELS = []
+
+
+def launch_counts():
+    """``{kernel: launches}`` of every registered kernel."""
+    return {k: k.launches for k in KERNELS}
 
 
 def stream_of(x):

@@ -31,12 +31,23 @@ f32; with bf16 or f16 inputs p is rounded to the input type before the
 PV product, and in the backward ds and p*keep are rounded to it before
 their products, which accumulate in f32.
 
-The kernels take f32, bf16 and f16, any head_dim up to 128 and any
-batch*heads (`flash_supported` says so, and the model's ``"auto"``
-policy asks it).  B3 takes a head_dim that is a multiple of 8 as it is
-(16-bit types); the wrappers zero-pad D for the rest, and for B4/B5 to
-the next of 16, 32, 64, 128: zero columns add exact zeros to every
-product and sum, and the gradients are sliced back.
+The kernels take f32, bf16 and f16, any head_dim up to
+`FLASH_MAX_HEAD_DIM` and any batch*heads (`flash_supported` says so, and
+the model's ``"auto"`` policy asks it).  Up to 128, B3 takes a head_dim
+that is a multiple of 8 as it is (16-bit types); the wrappers zero-pad D
+for the rest, and for B4/B5 to the next of 16, 32, 64, 128: zero columns
+add exact zeros to every product and sum, and the gradients are sliced
+back.  Past 128 all three take D as it is, through chunked kernels that
+sum the scores over D in chunks and give each block a chunk of the
+output's columns (see the sources' headers); B4's delta there follows the
+order of torch's CUDA row sum (`torch_row_sum` in the backward's source).
+
+The dropout seed words reach the kernels through a pointer to two
+uint32 words in device memory, never by value: a training step captured
+as a CUDA graph (`gluon.FusedTrainStep`) rewrites those words before each
+replay.  ``key`` may be that device tensor (int32, two words, on the
+inputs' device, as `ops.seeds` hands it out) or host words, which the
+wrapper copies to the device without a sync.
 
 The gradient is a `torch.autograd.Function` around the three kernels:
 q, k and v get gradients; the mask, the bias (a constant, as in the
@@ -57,6 +68,7 @@ import ctypes
 import torch
 
 from ._build import Kernel, stream_of
+from .seeds import words_tensor
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_backward_reference",
@@ -68,9 +80,10 @@ _NEG_INF = -1e30
 _MASKED_ROW = -1e29
 _BH_FOLD = 0x9E3779B9
 _M32 = 0xFFFFFFFF
-# the head dims B4/B5 (and B3 in f32) are built for; others are padded
+# the head dims B4/B5 (and B3 in f32) are built for; others up to 128 are
+# padded, and past 128 the chunked kernels take D as it is
 _HEAD_DIMS = (16, 32, 64, 128)
-FLASH_MAX_HEAD_DIM = _HEAD_DIMS[-1]
+FLASH_MAX_HEAD_DIM = 32768
 # batch*heads is folded over two grid dimensions and indexed in int32
 _MAX_BATCH_HEADS = 2 ** 31 - 1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -80,9 +93,10 @@ _TYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 def flash_supported(dtype, head_dim, batch_heads):
     """Whether the CUDA kernels take (B, H, T, head_dim) inputs of
     ``dtype`` with B * H = ``batch_heads``: f32, bf16 or f16, any head
-    dim up to `FLASH_MAX_HEAD_DIM`, any sequence length.  `_LaunchArgs`
-    refuses the rest, and the model's ``"auto"`` policy never picks
-    flash for them."""
+    dim up to `FLASH_MAX_HEAD_DIM` (past 128 through the chunked kernels;
+    up to there B4's delta follows torch's one-block row sum), any
+    sequence length.  `_LaunchArgs` refuses the rest, and the model's
+    ``"auto"`` policy never picks flash for them."""
     return (dtype in _DTYPES and 1 <= head_dim <= FLASH_MAX_HEAD_DIM and
             1 <= batch_heads <= _MAX_BATCH_HEADS)
 
@@ -373,7 +387,7 @@ def _tail_types():
     """ctypes of the arguments every kernel's C entry ends with."""
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     ll = ctypes.c_longlong
-    return [p, p, p, ll, ll, i, i, i, i, i, i, f, i, i, u, u, u, f, p]
+    return [p, p, p, ll, ll, i, i, i, i, i, i, f, i, i, p, u, f, p]
 
 
 def _declare_fwd(lib):
@@ -394,13 +408,24 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _seed_on(key, device):
+    """The two seed words of ``key`` as an int32 (2,) tensor on
+    ``device``: ``key`` itself when it already is one (a slot of a step's
+    seed table), else the host words, copied without a sync."""
+    if isinstance(key, torch.Tensor) and key.device == device and \
+            key.dtype == torch.int32 and key.numel() == 2 and \
+            key.is_contiguous():
+        return key
+    return words_tensor(_seed_words(key), device)
+
+
 class _LaunchArgs:
     """What the three kernels take besides q, k, v: the int32 mask and
     its ``kend``, the f32 bias with its batch and head strides, the
-    dropout seed words, threshold and rescale, and the head dims the
-    kernels run at (``fwd_d`` for B3, ``bwd_d`` for B4/B5; the true one
-    when no padding is needed).  Built once per forward and reused by
-    its backward."""
+    dropout seed words (on the device), threshold and rescale, the head
+    dims the kernels run at (``fwd_d`` for B3, ``bwd_d`` for B4/B5; the
+    true one when no padding is needed, always past 128).  Built once per
+    forward and reused by its backward."""
 
     def __init__(self, q, causal, sc, mask, bias, dropout, key):
         b, h, t, d = q.shape
@@ -413,9 +438,12 @@ class _LaunchArgs:
                 f"and batch*heads up to {_MAX_BATCH_HEADS}; got head_dim "
                 f"{d}, batch*heads {b * h}")
         self.dims = (b, h, t, d, _DTYPES[q.dtype])
-        self.bwd_d = next(n for n in _HEAD_DIMS if n >= d)
-        self.fwd_d = self.bwd_d if q.dtype == torch.float32 else \
-            -(-d // 8) * 8
+        if d > _HEAD_DIMS[-1]:
+            self.fwd_d = self.bwd_d = d
+        else:
+            self.bwd_d = next(n for n in _HEAD_DIMS if n >= d)
+            self.fwd_d = self.bwd_d if q.dtype == torch.float32 else \
+                -(-d // 8) * 8
         self.causal = int(bool(causal))
         self.scale = float(sc)
         self.mask = self.kend = None
@@ -433,12 +461,13 @@ class _LaunchArgs:
             bb, hb = self.bias.shape[0], self.bias.shape[1]
             self.bias_sb = hb * t * t if bb > 1 else 0
             self.bias_sh = t * t if hb > 1 else 0
-        self.seed = (0, 0, 0, 1.0)      # seed0, seed1, threshold, 1/keep
+        self.seed = None                # int32 (2,) on the device
+        self.keep = (0, 1.0)            # threshold, 1/keep
         if dropout:
             if key is None:
                 raise ValueError("dropout > 0 needs an explicit key")
-            s0, s1 = _seed_words(key)
-            self.seed = (s0, s1, _keep_threshold(1.0 - dropout),
+            self.seed = _seed_on(key, q.device)
+            self.keep = (_keep_threshold(1.0 - dropout),
                          1.0 / (1.0 - dropout))
         self.dropout = int(bool(dropout))
 
@@ -446,10 +475,10 @@ class _LaunchArgs:
         """The arguments every kernel's C entry ends with, for a launch
         on rows of ``d_kernel`` elements."""
         b, h, t, d, dt = self.dims
-        s0, s1, thr, inv_keep = self.seed
+        thr, inv_keep = self.keep
         return (_ptr(self.mask), _ptr(self.kend), _ptr(self.bias),
                 self.bias_sb, self.bias_sh, b, h, t, d_kernel, d, dt,
-                self.scale, self.causal, self.dropout, s0, s1, thr,
+                self.scale, self.causal, self.dropout, _ptr(self.seed), thr,
                 float(inv_keep), stream)
 
 

@@ -6,7 +6,9 @@ autograd is torch's own, so only the thread-local mode flags remain:
 (dropout active) and ``is_backward_expected`` (a backward pass will run
 through this forward — what the flash auto policy's training crossover
 reads).  ``generator`` is the explicit CPU ``torch.Generator`` that
-train-mode randomness draws its seeds from.
+train-mode randomness draws its seeds from, and ``seed_table`` the
+`ops.seeds.SeedTable` that hands the draws their device slots while a
+step is captured (None otherwise).
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import threading
 
 __all__ = ["is_recording", "set_recording", "is_training", "set_training",
            "is_backward_expected", "set_backward_expected",
-           "current_generator", "set_generator"]
+           "current_generator", "set_generator", "current_seed_table",
+           "set_seed_table"]
 
 _state = threading.local()
 
@@ -62,4 +65,15 @@ def current_generator():
 def set_generator(gen):
     prev = current_generator()
     _state.generator = gen
+    return prev
+
+
+def current_seed_table():
+    """The `ops.seeds.SeedTable` installed on this thread, or None."""
+    return getattr(_state, "seed_table", None)
+
+
+def set_seed_table(table):
+    prev = current_seed_table()
+    _state.seed_table = table
     return prev

@@ -10,6 +10,14 @@ reduction as the hand-written CUDA kernel B1 (`bn_bwd_reduce`, source
 A tensor on the card launches the kernel or the wrapper raises; a
 tensor on the CPU takes its plain version, `bn_bwd_reduce_reference`.
 The wrapper counts its launches in ``BN_BWD_REDUCE.launches``.
+
+Dropout in train mode is a hand-written CUDA kernel too (`dropout`,
+source `csrc/dropout.cu`; not the port of a TPU kernel: the reference
+draws its mask from XLA's random bits).  It reads the draw's two seed
+words from device memory, so a captured training step draws fresh bits
+at every replay; its plain version, `dropout_reference`, hashes the same
+counters with the int64 threefry of `ops/flash_attention.py`.  Launches
+count in ``DROPOUT.launches``.
 """
 from __future__ import annotations
 
@@ -19,14 +27,17 @@ import torch
 import torch.nn.functional as F
 
 from ._build import Kernel, stream_of
+from .flash_attention import (_DTYPES, _M32, _keep_threshold, _seed_words,
+                              _threefry2x32)
 
 __all__ = ["layer_norm", "fully_connected", "softmax", "log_softmax",
            "activation", "leaky_relu", "dropout", "embedding", "pick",
            "convolution", "pooling", "batch_norm_train",
            "batch_norm_inference", "bn_bwd_reduce", "bn_bwd_reduce_reference",
-           "BN_BWD_REDUCE"]
+           "BN_BWD_REDUCE", "dropout_reference", "DROPOUT"]
 
 BN_BWD_REDUCE = Kernel("bn_bwd_reduce")
+DROPOUT = Kernel("dropout")
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
@@ -76,17 +87,82 @@ def leaky_relu(data, act_type="gelu"):
     raise ValueError(f"unknown act_type {act_type!r}")
 
 
+def dropout_reference(data, seed, p):
+    """Plain version of the dropout kernel: element ``i`` of ``data`` (in
+    flat order) is kept where threefry2x32(seed words, (i mod 2^32,
+    i div 2^32)) is below the keep threshold, and scaled by 1/(1 - p) in
+    ``data``'s dtype; the rest are zeros.  ``seed``: two uint32 words (a
+    tensor or a sequence)."""
+    s0, s1 = _seed_words(seed)
+    idx = torch.arange(data.numel(), dtype=torch.int64, device=data.device)
+    bits = _threefry2x32(s0, s1, idx & _M32, idx >> 32)
+    keep = (bits < _keep_threshold(1.0 - p)).reshape(data.shape)
+    return torch.where(keep, data * (1.0 / (1.0 - p)),
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+def _declare_dropout(lib):
+    p = ctypes.c_void_p
+    lib.dropout_apply.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_uint, ctypes.c_float, p]
+    lib.dropout_apply.restype = ctypes.c_int
+
+
+def _dropout_apply(x, seed, p):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return dropout_reference(x, seed, p)
+    if x.device.type != "cuda":
+        raise ValueError(f"dropout runs on CUDA or the CPU; got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the dropout kernel takes float32, bfloat16 or "
+                        f"float16; got {x.dtype}")
+    if seed.device != x.device or seed.dtype != torch.int32 or \
+            seed.numel() != 2:
+        raise ValueError(f"dropout's seed must be two int32 words on "
+                         f"{x.device}")
+    from . import _build
+
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _build.load("dropout", _declare_dropout)
+    err = lib.dropout_apply(x.data_ptr(), out.data_ptr(),
+                            seed.contiguous().data_ptr(), x.numel(),
+                            _DTYPES[x.dtype], _keep_threshold(1.0 - p),
+                            1.0 / (1.0 - p), stream_of(x))
+    if err != 0:
+        raise RuntimeError(f"dropout launch failed: CUDA error {err}")
+    DROPOUT.launches += 1
+    return out
+
+
+class _Dropout(torch.autograd.Function):
+    """The kernel forward; the backward is the same mask (the same seed
+    words) applied to the output gradient."""
+
+    @staticmethod
+    def forward(ctx, data, seed, p):
+        ctx.save_for_backward(seed)
+        ctx.p = p
+        return _dropout_apply(data, seed, p)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (seed,) = ctx.saved_tensors
+        return _dropout_apply(grad, seed, ctx.p), None, None
+
+
 def dropout(data, seed, p=0.5):
     """Zero elements at rate ``p`` and rescale the rest by 1/(1-p), with
-    the keep mask drawn on the data's own device from a generator seeded
-    with the integer ``seed`` (no host-device copy, no sync)."""
+    the keep mask hashed on the data's own device from the two seed words
+    ``seed`` (an int32 (2,) tensor on that device, as `ops.seeds` hands
+    them out): the kernel on the card, `dropout_reference` on the CPU.
+    No host-device copy, no sync."""
     if p == 0.0:
         return data
-    keep = 1.0 - p
-    gen = torch.Generator(device=data.device)
-    gen.manual_seed(seed)
-    u = torch.rand(data.shape, generator=gen, device=data.device)
-    return torch.where(u < keep, data / keep, torch.zeros_like(data))
+    return _Dropout.apply(data, seed, float(p))
 
 
 def embedding(data, weight):

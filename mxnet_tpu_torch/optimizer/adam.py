@@ -6,7 +6,8 @@ copy, the states are f32, and the new weight is cast back to the
 weight's dtype.  ``t`` may be an int (the optimizer's own `update`) or
 an f32 scalar (the Trainer and `FusedTrainStep` pass it as the
 reference's fused programs do); the bias corrections are computed from
-it on the host.
+it on the host, and in the multi-tensor form (`update_multi`) reach the
+device among the step's packed scalars.
 """
 from __future__ import annotations
 
@@ -22,6 +23,23 @@ def _f32_zeros(weight):
     return torch.zeros_like(weight, dtype=torch.float32)
 
 
+def _bias_corrections(beta1, beta2, t):
+    """``(1 - beta1^t, 1 - beta2^t)`` as the host computes them."""
+    return float(1 - beta1 ** t), float(1 - beta2 ** t)
+
+
+def _moments(opt, grads, states):
+    """``beta1 m + (1 - beta1) g`` and ``beta2 v + (1 - beta2) g^2`` over
+    lists."""
+    new_mean = torch._foreach_add(
+        torch._foreach_mul([st[0] for st in states], opt.beta1),
+        torch._foreach_mul(grads, 1 - opt.beta1))
+    new_var = torch._foreach_add(
+        torch._foreach_mul([st[1] for st in states], opt.beta2),
+        torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - opt.beta2))
+    return new_mean, new_var
+
+
 @register
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
@@ -35,15 +53,33 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (_f32_zeros(weight), _f32_zeros(weight))
 
-    def update_math(self, weight, grad, states, lr, wd, t):
-        grad = grad.float()
-        w32 = weight.float()
-        mean, var = states
+    def _lr(self, lr, t):
         if self.correct_bias:
             # the bias correction folds into lr
             coef1 = 1.0 - self.beta1 ** t
             coef2 = 1.0 - self.beta2 ** t
             lr = float(lr * onp.sqrt(coef2) / coef1)
+        return lr
+
+    def step_scalars(self, lr, wd, t):
+        return (self._lr(lr, t), wd)
+
+    def update_multi(self, weights, grads, states, scalars):
+        g = torch._foreach_add(grads,
+                               torch._foreach_mul(weights, scalars["wd"]))
+        new_mean, new_var = _moments(self, g, states)
+        denom = torch._foreach_add(torch._foreach_sqrt(new_var),
+                                   self.epsilon)
+        step = torch._foreach_div(
+            torch._foreach_mul(new_mean, scalars["lr"]), denom)
+        return (torch._foreach_sub(weights, step),
+                list(zip(new_mean, new_var)))
+
+    def update_math(self, weight, grad, states, lr, wd, t):
+        grad = grad.float()
+        w32 = weight.float()
+        mean, var = states
+        lr = self._lr(lr, t)
         g = grad + wd * w32
         new_mean = self.beta1 * mean + (1 - self.beta1) * g
         new_var = self.beta2 * var + (1 - self.beta2) * torch.square(g)
@@ -74,11 +110,35 @@ class AdamW(Optimizer):
         new_var = self.beta2 * var + (1 - self.beta2) * torch.square(grad)
         m_hat, v_hat = new_mean, new_var
         if self.correct_bias:
-            m_hat = new_mean / float(1 - self.beta1 ** t)
-            v_hat = new_var / float(1 - self.beta2 ** t)
+            c1, c2 = _bias_corrections(self.beta1, self.beta2, t)
+            m_hat = new_mean / c1
+            v_hat = new_var / c2
         new_w = w32 - lr * (m_hat / (torch.sqrt(v_hat) + self.epsilon) +
                             wd * w32)
         return new_w.to(weight.dtype), (new_mean, new_var)
+
+    @property
+    def scalar_names(self):
+        return ("lr", "wd", "c1", "c2") if self.correct_bias else ("lr", "wd")
+
+    def step_scalars(self, lr, wd, t):
+        if self.correct_bias:
+            return (lr, wd, *_bias_corrections(self.beta1, self.beta2, t))
+        return (lr, wd)
+
+    def update_multi(self, weights, grads, states, scalars):
+        new_mean, new_var = _moments(self, grads, states)
+        m_hat, v_hat = new_mean, new_var
+        if self.correct_bias:
+            m_hat = torch._foreach_div(new_mean, scalars["c1"])
+            v_hat = torch._foreach_div(new_var, scalars["c2"])
+        u = torch._foreach_add(
+            torch._foreach_div(m_hat, torch._foreach_add(
+                torch._foreach_sqrt(v_hat), self.epsilon)),
+            torch._foreach_mul(weights, scalars["wd"]))
+        return (torch._foreach_sub(weights,
+                                   torch._foreach_mul(u, scalars["lr"])),
+                list(zip(new_mean, new_var)))
 
 
 @register
@@ -108,8 +168,9 @@ class LAMB(Optimizer):
         new_mean = self.beta1 * mean + (1 - self.beta1) * grad
         new_var = self.beta2 * var + (1 - self.beta2) * torch.square(grad)
         if self.bias_correction:
-            m_hat = new_mean / float(1 - self.beta1 ** t)
-            v_hat = new_var / float(1 - self.beta2 ** t)
+            c1, c2 = _bias_corrections(self.beta1, self.beta2, t)
+            m_hat = new_mean / c1
+            v_hat = new_var / c2
         else:
             m_hat, v_hat = new_mean, new_var
         g = m_hat / (torch.sqrt(v_hat) + self.epsilon) + wd * w32
@@ -124,3 +185,37 @@ class LAMB(Optimizer):
                             torch.ones_like(r1))
         new_w = w32 - lr * ratio * g
         return new_w.to(weight.dtype), (new_mean, new_var)
+
+    @property
+    def scalar_names(self):
+        return ("lr", "wd", "c1", "c2") if self.bias_correction \
+            else ("lr", "wd")
+
+    def step_scalars(self, lr, wd, t):
+        if self.bias_correction:
+            return (lr, wd, *_bias_corrections(self.beta1, self.beta2, t))
+        return (lr, wd)
+
+    def update_multi(self, weights, grads, states, scalars):
+        new_mean, new_var = _moments(self, grads, states)
+        m_hat, v_hat = new_mean, new_var
+        if self.bias_correction:
+            m_hat = torch._foreach_div(new_mean, scalars["c1"])
+            v_hat = torch._foreach_div(new_var, scalars["c2"])
+        g = torch._foreach_add(
+            torch._foreach_div(m_hat, torch._foreach_add(
+                torch._foreach_sqrt(v_hat), self.epsilon)),
+            torch._foreach_mul(weights, scalars["wd"]))
+        r1 = torch.stack(torch._foreach_norm(weights))
+        if self.lower_bound is not None:
+            r1 = torch.clamp(r1, min=self.lower_bound)
+        if self.upper_bound is not None:
+            r1 = torch.clamp(r1, max=self.upper_bound)
+        r2 = torch.stack(torch._foreach_norm(g))
+        # the trust ratios stay on the device: no sync
+        ratio = torch.where((r1 > 0) & (r2 > 0), r1 / r2,
+                            torch.ones_like(r1))
+        lr_ratio = (scalars["lr"] * ratio).unbind()
+        step = [x * s for x, s in zip(g, lr_ratio)]
+        return (torch._foreach_sub(weights, step),
+                list(zip(new_mean, new_var)))

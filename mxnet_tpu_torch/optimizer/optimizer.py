@@ -3,11 +3,26 @@
 
 Each optimizer implements ``update_math``, a pure function
 ``(weight, grad, states, lr, wd, t) -> (new_weight, new_states)`` over
-torch tensors, with ``lr``, ``wd`` and ``t`` host scalars.  `update`
-applies it per parameter and writes the results back in place; the
-Trainer and `FusedTrainStep` loop over the parameters with it.  The
-reference fused that loop into one XLA program; in the port it is plain
-torch ops, one set per parameter.
+torch tensors, with ``lr``, ``wd`` and ``t`` host scalars: the rule for
+one parameter, which `update` applies per parameter.
+
+The Trainer and `FusedTrainStep` take the multi-tensor form instead, the
+counterpart of the reference's one fused update program
+(`_try_fused_update`): ``step_scalars(lr, wd, t)`` computes on the host
+the values ``update_math`` would compute from its scalars (named by
+``scalar_names``), the Trainer packs them for every parameter into one
+f32 array that reaches the device with one copy, and
+``update_multi(weights, grads, states, scalars)`` applies the same rule
+to lists of f32 tensors with ``torch._foreach_*`` ops, ``scalars`` being
+0-dim f32 device tensors.  Every intermediate rounds where
+``update_math`` rounds it, and an f32 tensor scalar gives the product a
+Python float gives (both round the scalar to f32 first), so the two forms
+agree bitwise on the CPU.  A division by a scalar (AdamW's and LAMB's
+bias corrections) is a true f32 division in both forms on the CPU; on the
+card torch turns ``tensor / python_float`` into a product with the f32
+reciprocal, which the multi-tensor form, dividing by a device tensor,
+does not.  `write_back_multi` writes the results in place, holding
+weights and states bitwise where the step's verdict is False.
 
 `Updater` holds per-index states and (de)serializes them in the JAX
 package's format: a pickle of ``{index: tuple of numpy arrays}``.
@@ -23,7 +38,8 @@ import torch
 from ..base import registry
 from ..utils.serialization import ArraysOnlyUnpickler
 
-__all__ = ["Optimizer", "Updater", "register", "create"]
+__all__ = ["Optimizer", "Updater", "register", "create", "write_back",
+           "write_back_multi"]
 
 
 class Optimizer:
@@ -137,6 +153,23 @@ class Optimizer:
         already rescaled and clipped."""
         raise NotImplementedError
 
+    # the per-step host values ``update_multi`` reads, in packing order
+    scalar_names = ("lr", "wd")
+
+    def step_scalars(self, lr, wd, t):
+        """The values named by ``scalar_names`` for one parameter's step,
+        computed on the host as ``update_math`` computes them from
+        ``lr``, ``wd`` and ``t``."""
+        return (lr, wd)
+
+    def update_multi(self, weights, grads, states, scalars):
+        """``update_math`` over lists: ``weights`` and ``grads`` f32
+        tensors (the weights widened), ``states`` one tuple a parameter,
+        ``scalars`` a dict of 0-dim f32 tensors named by
+        ``scalar_names``, shared by every parameter of the list.  Returns
+        ``(new f32 weights, new state tuples)``; nothing is written."""
+        raise NotImplementedError
+
     def update(self, indices, weights, grads, states):
         """Update ``weights`` and ``states`` in place (reference
         signature; lists or single values accepted)."""
@@ -197,15 +230,27 @@ class Updater:
                        for i, st in payload.items()}
 
 
-def write_back(weight, new_w, state, new_states, keep=None):
+def write_back(weight, new_w, state, new_states):
     """Copy an update into the weight and state tensors in place, outside
-    autograd.  ``keep`` (a 0-dim bool tensor on the device) holds both
-    bitwise where it is False."""
+    autograd."""
     with torch.no_grad():
         pairs = [(weight, new_w)] + list(zip(_as_tuple(state),
                                              _as_tuple(new_states)))
         for old, new in pairs:
-            old.copy_(new if keep is None else torch.where(keep, new, old))
+            old.copy_(new)
+
+
+def write_back_multi(olds, news, keep=None):
+    """Copy ``news[i]`` into ``olds[i]`` in place, outside autograd (one
+    fused copy), or, with ``keep`` (a 0-dim bool tensor on the device),
+    ``where(keep, new, old)`` into each old tensor, which holds it bitwise
+    where ``keep`` is False."""
+    with torch.no_grad():
+        if keep is None:
+            torch._foreach_copy_(list(olds), list(news))
+        else:
+            for old, new in zip(olds, news):
+                torch.where(keep, new, old, out=old)
 
 
 def _as_tuple(x):

@@ -42,3 +42,14 @@ class SGD(Optimizer):
         new_mom = self.momentum * mom - lr * (grad + wd * w32)
         new_w = w32 + new_mom
         return new_w.to(weight.dtype), (new_mom,)
+
+    def update_multi(self, weights, grads, states, scalars):
+        lr, wd = scalars["lr"], scalars["wd"]
+        step = torch._foreach_mul(
+            torch._foreach_add(grads, torch._foreach_mul(weights, wd)), lr)
+        if self.momentum == 0.0:
+            return torch._foreach_sub(weights, step), [() for _ in weights]
+        new_mom = torch._foreach_sub(
+            torch._foreach_mul([st[0] for st in states], self.momentum), step)
+        return (torch._foreach_add(weights, new_mom),
+                [(m,) for m in new_mom])

@@ -11,7 +11,10 @@ The same design as the reference:
   requests onto the shape-bucket grid (:class:`BucketSpec`) and runs ONE
   forward per group, in predict mode under ``torch.inference_mode()``;
 * the :class:`ExecutableCache` counts hits and misses per bucket shape
-  (``warmup()`` runs the whole grid once);
+  (``warmup()`` runs the whole grid once); on the card each warmed
+  bucket is a CUDA graph of the forward, replayed once a batch, whose
+  outputs are copied out of the graph's buffers before the next batch
+  reuses them;
 * each request's rows (and sequence positions) are sliced back out of
   the batch and delivered through its own ``Future``; a poisoned request
   fails its own future, never the batch loop (a failed batch is retried
@@ -278,8 +281,11 @@ class Endpoint:
     def swap_model(self, model):
         """Hot-swap to a new model version.
 
-        Warms the new version's cache over the live cache's grid first,
-        then flips the version atomically.  Requests already admitted
+        Warms the new version's cache over the live cache's grid first
+        (on the card: an eager run and a capture per bucket, on torch's
+        capture stream in thread-local mode and under
+        `ops.capture.GRAPH_LOCK`, so the live version's replays go on
+        around it), then flips the version atomically.  Requests already admitted
         keep the version that admitted them; requests submitted after
         the flip get ``model``.  Returns the new version number."""
         staged = None

@@ -212,7 +212,8 @@ def test_wrapper_raises_on_what_the_kernels_do_not_take(monkeypatch):
     _fake_launch(monkeypatch, fake)
     q, k, v, dout, _, _ = _inputs(torch.bfloat16, 32)
     with pytest.raises(ValueError, match="head_dim"):
-        fa._LaunchArgs(torch.zeros(1, 1, 32, 129), False, 1.0, None, None,
+        fa._LaunchArgs(torch.zeros(1, 1, 32, fa.FLASH_MAX_HEAD_DIM + 1,
+                                   device="meta"), False, 1.0, None, None,
                        0.0, None)
     with pytest.raises(TypeError, match="float16"):
         fa._LaunchArgs(q.double(), False, 1.0, None, None, 0.0, None)

@@ -74,7 +74,8 @@ def test_auto_refuses_what_it_should():
     t = tr.FLASH_AUTO_MIN_T
     ok = ("cuda", torch.bfloat16, 64, 96, t, 2, False)
     assert tr.flash_auto(*ok)
-    for i, bad in ((0, "cpu"), (1, torch.float64), (2, 129), (2, 0),
+    for i, bad in ((0, "cpu"), (1, torch.float64),
+                   (2, fa.FLASH_MAX_HEAD_DIM + 1), (2, 0),
                    (3, 2 ** 31), (4, t - 128), (4, t + 1), (5, 3)):
         args = list(ok)
         args[i] = bad
@@ -270,9 +271,11 @@ def test_wrappers_pad_the_head_dim_and_slice_back(monkeypatch, dtype, d,
     assert (n0, n1, n2) == ("flash_attention_fwd", "flash_attention_bwd_dq",
                             "flash_attention_bwd_dkv")
     # the tail: ..., batch, heads, seq, row length, true head dim, dtype
+    # (then scale, causal, dropout, the seed words' pointer, threshold,
+    # 1/keep, stream)
     for a, row in ((a0, fwd_d), (a1, bwd_d), (a2, bwd_d)):
-        assert a[-14:-9] == (2, 3, 20, row, d)
-        assert a[-9] == fa._DTYPES[dtype]
+        assert a[-13:-8] == (2, 3, 20, row, d)
+        assert a[-8] == fa._DTYPES[dtype]
 
 
 # ---------------------------------------------------------------------------
