@@ -108,6 +108,28 @@ the package is missing.  Phases, each fatal on failure:
    step traced: device time, idle share, launches, the host's launch
    calls, top kernels, the device time of B3, B4, B5 and dropout by
    name, and the device-to-host syncs torch's sync debug mode reports.
+3e. **Training in mixed precision, as the reference's amp does it.**
+   ``BertForPretraining`` at the same width with ``remat=True``, f32
+   parameters, ``amp.init("float16")`` and ``amp.init_trainer`` (a
+   dynamic loss scaler from 2^16), LAMB under a linear-warmup
+   ``PolyScheduler``, through a captured ``FusedTrainStep``: peak
+   memory of one eager step with and without remat at (32, 128) and (8,
+   512), and the two's gradients from the same weights and seed words
+   (bitwise, or within ``BWD_TOL["float16"]``; a plain step against a
+   second plain one is printed beside it); 3 warm-up and 15 timed
+   replays, 2 traced (B3 24, B4 12, B5 12 and dropout 74 launches a
+   step: B3 and the layers' dropout run again in the recompute); one
+   traced and profiled replay (host syncs: exactly 1 with the scaler,
+   the verdict's read); the eager triple (``record``, ``scale_loss``,
+   ``backward``, ``Trainer.step``) timed and held against a replay
+   (equal losses, weights within one f16 ulp); the scale forced to
+   2^32: every overflowed replay holds weights and optimizer states
+   bitwise and halves the scale, until two replays train again; a step
+   without a scaler syncs 0 times a replay; the scale's trajectory
+   (halved after an overflow, never below 1, otherwise flat or
+   doubling); a finite, falling loss; the replayed step with and
+   without remat timed alternately (``remat's cost``).  amp's patches
+   are undone after the phase.
 3c. **BERT at other head dims and in f16.**  Full width, 2 layers,
    ``use_flash=True``: head_dim 96 (units 768, 8 heads) and 4 heads of
    256 (units 1024, FFN 4096) in bf16 and BERT-base in f16, one forward
@@ -180,7 +202,7 @@ the package is missing.  Phases, each fatal on failure:
 
 Every measurement is printed on a line of its own (``kernel``,
 ``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``kernel_rtc``,
-``serve:``, ``train:``, ``odd_bert:``, ``flash_crossover:``,
+``serve:``, ``train:``, ``train_amp:``, ``odd_bert:``, ``flash_crossover:``,
 ``resnet:``, ``resnet_s2d:``, ``rtc:``, ``resnet_custom:``,
 ``profile:``).  The last three lines are a ``{"kernels": [...]}``
 object.  A captured path's ``launches`` are counted on the card, from
@@ -188,11 +210,14 @@ the ``torch.profiler`` trace of its traced run (`KERNEL_NAMES`), with
 the wrappers' bookkeeping of the same run beside them as
 ``launches_booked``: B3 at the serving path's main case, bf16 with a
 key-padding mask, with its launches over the traced traffic, at the
-training case with its launches over the 2 traced BERT steps, and its
-D > 128 cases under ``wide_cases``; B4 and B5 at the BERT training
-path's main case, with their launches over the traced steps, and their
-D > 128 cases; the dropout kernel at (32, 128, 768) bf16 with its
-launches over the traced BERT steps; B1 at the stem BatchNorm's shape,
+training case with its launches over the 2 traced BERT steps, its
+D > 128 cases under ``wide_cases``, and under ``amp_f16_case`` the f16
+training case with its launches over the 2 traced amp + remat steps; B4
+and B5 at the BERT training path's main case, with their launches over
+the traced steps, their D > 128 cases, and their ``amp_f16_case``; the
+dropout kernel at (32, 128, 768) bf16 with its launches over the traced
+BERT steps (``amp_launches``: over the traced amp steps); B1 at the
+stem BatchNorm's shape,
 with its launches over the 2 traced ResNet steps; B2 at the bf16 stem,
 with its launches over the 2 traced space-to-depth steps; B6 as
 ``softmax_fwd`` and ``softmax_bwd`` at the head's shape, with their
@@ -294,6 +319,22 @@ TRAIN_CFG = dict(vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512, dropout=0.1,
                  use_flash=True)
 TRAIN_WARMUP, TRAIN_STEPS = 3, 30
+# BERT-base pretraining in mixed precision as the reference's amp runs
+# it: f32 parameters, amp.init("float16"), a dynamic loss scaler from
+# 2^16, LAMB under a linear-warmup PolyScheduler, remat=True
+AMP_CFG = dict(TRAIN_CFG, remat=True)
+AMP_WARMUP, AMP_STEPS = 3, 15
+AMP_SCHEDULE = dict(max_update=1000, base_lr=1e-3, pwr=1, warmup_steps=5)
+# the forced overflow: a scale at which the f16 gradient of the MLM
+# logits (|p - y| / valid tokens, ~3e-4 at most) passes f16's 65504
+AMP_FORCED_SCALE = 2.0 ** 32
+AMP_MAX_BACKOFF = 12
+# eager vs replayed amp step: the f32 master weights within one f16 ulp
+# of the weight (2^-10 |w|, the precision the products run in); bitwise
+# is expected, as for the bf16 step, and elements differing are printed
+AMP_ULP = 2.0 ** -10
+# peak memory with and without remat at the training shape and at T 512
+AMP_MEM_SHAPES = ((B_TRAIN, T_TRAIN), (8, 512))
 # one bf16 ulp of a weight is at most 2^-7 of its magnitude
 EAGER_FUSED_ULP = 2.0 ** -7
 # flash vs dense gradients in f32 with TF32 off: both true f32, they
@@ -1761,17 +1802,17 @@ def pretrain_loss(model):
     return PretrainLoss(model)
 
 
-def train_batch(dev, vocab, seed=12):
+def train_batch(dev, vocab, seed=12, b=B_TRAIN, t=T_TRAIN):
     """Tokens and labels from a seeded numpy generator, segments zero,
-    the ragged valid mask of `train_mask`."""
+    the ragged valid mask of `train_mask`, at (b, t)."""
     import numpy as onp
     import torch
     rng = onp.random.default_rng(seed)
-    tokens = rng.integers(0, vocab, (B_TRAIN, T_TRAIN)).astype(onp.int32)
-    labels = rng.integers(0, vocab, (B_TRAIN, T_TRAIN)).astype(onp.int32)
-    segments = onp.zeros((B_TRAIN, T_TRAIN), onp.int32)
+    tokens = rng.integers(0, vocab, (b, t)).astype(onp.int32)
+    labels = rng.integers(0, vocab, (b, t)).astype(onp.int32)
+    segments = onp.zeros((b, t), onp.int32)
     return [torch.from_numpy(a).to(dev) for a in
-            (tokens, segments, labels, train_mask(B_TRAIN, T_TRAIN))]
+            (tokens, segments, labels, train_mask(b, t))]
 
 
 def _launch_counts():
@@ -1787,17 +1828,23 @@ def _reset_counts():
 
 
 def _snapshot(mod, trainer):
+    """Weights, optimizer states, update counts and, with amp, the loss
+    scaler's state and the trainer's skipped steps."""
     opt = trainer.optimizer
+    scaler = getattr(trainer, "_amp_loss_scaler", None)
     return ({k: p.data().detach().clone()
              for k, p in mod.collect_params().items()},
             {i: tuple(x.clone() for x in st)
              for i, st in trainer._states.items()},
-            (dict(opt._index_update_count), opt.num_update))
+            (dict(opt._index_update_count), opt.num_update),
+            None if scaler is None else (scaler.loss_scale,
+                                         scaler._unskipped,
+                                         trainer.skipped_steps))
 
 
 def _restore(mod, trainer, snap):
     import torch
-    weights, states, (counts, num_update) = snap
+    weights, states, (counts, num_update), scaled = snap
     with torch.no_grad():
         for k, p in mod.collect_params().items():
             p.data().copy_(weights[k])
@@ -1806,6 +1853,9 @@ def _restore(mod, trainer, snap):
                 x.copy_(y)
     trainer.optimizer._index_update_count = dict(counts)
     trainer.optimizer.num_update = num_update
+    if scaled is not None:
+        scaler = trainer._amp_loss_scaler
+        scaler.loss_scale, scaler._unskipped, trainer.skipped_steps = scaled
 
 
 def _replay_with(step, args, seed):
@@ -1816,25 +1866,30 @@ def _replay_with(step, args, seed):
     return step(*args, batch_size=B_TRAIN)
 
 
-def _eager_vs_fused(mod, trainer, args, run_fused=None, what="fused"):
+def _eager_vs_fused(mod, trainer, args, run_fused=None, what="fused",
+                    ulp=EAGER_FUSED_ULP):
     """One eager record/backward/Trainer.step step and one FusedTrainStep
     step from the same weights, optimizer state and dropout seeds: a new
     step's first (eager) call, or ``run_fused()`` (a replay of a captured
     one).  The eager Trainer hands the update an f32 gradient, the fused
     step one cast back to bf16 (the reference's rounding points), so
     Adam's step differs by that rounding only and a bf16 weight by at
-    most one ulp (|diff| <= 2^-7 |w|)."""
+    most one ulp (|diff| <= 2^-7 |w|): ``ulp``.  With a loss scaler on
+    the trainer (amp), the eager backward runs through
+    ``amp.scale_loss``, as the fused step scales its seed."""
     import torch
-    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import amp, autograd
     from mxnet_tpu_torch.gluon import FusedTrainStep
 
     snap = _snapshot(mod, trainer)
     with autograd.record(generator=torch.Generator().manual_seed(77)):
         loss_e = mod(*args)
-    loss_e.backward()
+    with amp.scale_loss(loss_e, trainer) as scaled:
+        autograd.backward(scaled)
     # loss_e keeps its autograd graph, and with it the parameters'
     # gradient accumulators, alive across a capture in run_fused
     trainer.step(B_TRAIN)
+    amp.unscale(trainer)
     eager = {k: p.data().detach().clone()
              for k, p in mod.collect_params().items()}
     _restore(mod, trainer, snap)
@@ -1848,8 +1903,7 @@ def _eager_vs_fused(mod, trainer, args, run_fused=None, what="fused"):
     for k, p in mod.collect_params().items():
         w_f, w_e = p.data().detach().float(), eager[k].float()
         diff = (w_e - w_f).abs()
-        worst = max(worst, (diff / (EAGER_FUSED_ULP * w_f.abs() + 1e-30)
-                            ).max().item())
+        worst = max(worst, (diff / (ulp * w_f.abs() + 1e-30)).max().item())
         n_diff += int((diff != 0).sum())
         n_all += diff.numel()
     out = {"loss_eager": loss_e.item(), "loss_fused": loss_f.item(),
@@ -2076,6 +2130,343 @@ def phase_train(dev):
     torch.cuda.empty_cache()
     out["flash_vs_dense"] = _flash_vs_dense_grads(dev, args)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: BERT-base pretraining in mixed precision (amp float16, remat)
+# ---------------------------------------------------------------------------
+def _amp_grads(mod, trainer, args, seed):
+    """One eager forward and loss-scaled backward: the loss, the true
+    (unscaled) gradients, and the peak memory above what was allocated
+    before, in GB; the stored gradients are cleared after."""
+    import torch
+    from mxnet_tpu_torch import amp, autograd
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with autograd.record(generator=torch.Generator().manual_seed(seed)):
+        loss = mod(*args)
+    scale = trainer._amp_loss_scaler.loss_scale
+    with amp.scale_loss(loss, trainer) as scaled:
+        autograd.backward(scaled)
+    amp.unscale(trainer)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    grads = {k: p.grad() / scale for k, p in mod.collect_params().items()
+             if p.grad_req != "null"}
+    mod.zero_grad()
+    return loss.item(), grads, {"peak_gb": peak / 1e9,
+                                "above_start_gb": (peak - base) / 1e9}
+
+
+def _remat_memory_and_grads(net, mod, trainer, dev):
+    """Peak memory of one eager step's forward and backward with and
+    without remat at `AMP_MEM_SHAPES`, and, at the training shape, the
+    gradients of the two from the same weights and seed words: bitwise,
+    or within ``BWD_TOL["float16"]`` of the largest magnitude of each
+    parameter's gradient and of each element (a recompute runs the same
+    kernels on the same inputs, so equal is expected; the allowance is
+    the flash backward's f16 rounding points)."""
+    import torch
+    atol, rtol = BWD_TOL["float16"]
+    encoder = net.bert.encoder
+    mem, grads = {}, {}
+    for b, t in AMP_MEM_SHAPES:
+        args = train_batch(dev, AMP_CFG["vocab_size"], seed=21, b=b, t=t)
+        for remat in (True, False):
+            encoder._remat = remat
+            loss, g, m = _amp_grads(mod, trainer, args, seed=31)
+            mem[f"({b}, {t}) remat={remat}"] = m
+            if (b, t) == (B_TRAIN, T_TRAIN):
+                grads[remat] = (loss, g)
+            del g
+        if (b, t) == (B_TRAIN, T_TRAIN):
+            # the plain step again: are two plain runs bitwise equal?
+            loss, g, _ = _amp_grads(mod, trainer, args, seed=31)
+            differ = {k: int((g[k] != x).sum())
+                      for k, x in grads[False][1].items()
+                      if not torch.equal(g[k], x)}
+            repeat = loss == grads[False][0] and not differ
+            del g
+        del args
+        torch.cuda.empty_cache()
+    encoder._remat = True
+    (loss_r, g_r), (loss_p, g_p) = grads[True], grads[False]
+    bitwise = loss_r == loss_p and all(
+        torch.equal(g_r[k], g_p[k]) for k in g_r)
+    worst, worst_name = 0.0, None
+    for k, ref in g_p.items():
+        diff = (g_r[k] - ref).abs()
+        over = (diff / (atol * ref.abs().max() + rtol * ref.abs() + 1e-30)
+                ).max().item()
+        if over > worst:
+            worst, worst_name = over, k
+    out = {"loss_remat": loss_r, "loss_plain": loss_p, "bitwise": bitwise,
+           "plain_repeat_bitwise": repeat,
+           "plain_repeat_elements_differing": differ,
+           "worst_over_tol": worst,
+           "worst_param": worst_name,
+           "tol": [atol, rtol], "memory": mem}
+    log("train_amp: remat vs plain: " + json.dumps(out))
+    if not (bitwise or (worst <= 1.0 and loss_r == loss_p)):
+        raise SystemExit("remat and plain gradients disagree")
+    return out
+
+
+def _scale_trajectory_ok(traj):
+    """Each step's scale (before it) and whether it overflowed, None
+    where the scale was set by hand (the forced overflow): the scale
+    halves after an overflow (never below 1) and otherwise stays or
+    doubles."""
+    for a, b in zip(traj, traj[1:]):
+        if a is None or b is None:
+            continue
+        (s0, over), (s1, _) = a, b
+        if (over and s1 != max(s0 / 2, 1.0)) or \
+                (not over and s1 not in (s0, 2 * s0)):
+            return False
+    return all(x[0] >= 1.0 for x in traj if x is not None)
+
+
+def _forced_overflow(mod, trainer, args, step, traj):
+    """The scale set to `AMP_FORCED_SCALE`: the replay overflows, holds
+    every weight and optimizer state bitwise, counts a skipped step and
+    halves the scale; further replays back off until one trains (the
+    weights move), and the next trains too."""
+    import torch
+    scaler = trainer._amp_loss_scaler
+    before_scale = scaler.loss_scale
+    scaler.loss_scale = AMP_FORCED_SCALE
+    traj.append(None)
+    rows, held = [], True
+    for _ in range(AMP_MAX_BACKOFF + 2):
+        snap = _snapshot(mod, trainer)
+        scale, skipped = scaler.loss_scale, trainer.skipped_steps
+        loss = step(*args, batch_size=B_TRAIN).item()
+        over = trainer.skipped_steps == skipped + 1
+        traj.append((scale, over))
+        weights, states = snap[0], snap[1]
+        same = all(torch.equal(p.data(), weights[k])
+                   for k, p in mod.collect_params().items()) and all(
+            torch.equal(x, y) for i, st in trainer._states.items()
+            for x, y in zip(st, states[i]))
+        rows.append({"scale": scale, "overflow": over, "loss": loss,
+                     "held_bitwise": same})
+        if over:
+            held = held and same and scaler.loss_scale == scale / 2
+        elif sum(not r["overflow"] for r in rows) == 2:
+            break
+    clean = [r for r in rows if not r["overflow"]]
+    out = {"forced_scale": AMP_FORCED_SCALE, "scale_before": before_scale,
+           "steps": rows, "overflows": len(rows) - len(clean),
+           "ok": bool(rows[0]["overflow"] and held and len(clean) == 2 and
+                      not any(r["held_bitwise"] for r in clean) and
+                      all(r["loss"] == r["loss"] for r in clean))}
+    log("train_amp: forced overflow: " + json.dumps(out))
+    if not out["ok"]:
+        raise SystemExit("the forced overflow was not held, or training "
+                         "did not resume")
+    return out
+
+
+def _remat_cost(net, mod, trainer, args, step):
+    """What remat's recompute costs a step: the replayed amp step with
+    remat (``step``) against the same step captured without it, timed
+    alternately (5 replays each, twice) and by device time."""
+    import torch
+    from mxnet_tpu_torch.gluon import FusedTrainStep
+    encoder = net.bert.encoder
+    encoder._remat = False
+    plain = FusedTrainStep(mod, trainer,
+                           generator=torch.Generator().manual_seed(6))
+    for _ in range(3):                  # eager, capture, replay
+        plain(*args, batch_size=B_TRAIN)
+    encoder._remat = True
+    wall = {"remat": [], "plain": []}
+    for _ in range(2):
+        for name, s in (("remat", step), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                s(*args, batch_size=B_TRAIN)
+            torch.cuda.synchronize()
+            wall[name].append((time.perf_counter() - t0) / 5 * 1e3)
+    dev_ms = {name: device_ms(lambda s=s: s(*args, batch_size=B_TRAIN),
+                              iters=3)
+              for name, s in (("remat", step), ("plain", plain))}
+    out = {"step_ms": wall, "device_ms": dev_ms,
+           "recompute_device_ms": dev_ms["remat"] - dev_ms["plain"]}
+    log("train_amp: remat's cost: " + json.dumps(out))
+    return out
+
+
+def phase_train_amp(dev):
+    """BERT-base pretraining as the tentpole runs it: 12 layers at full
+    width, (32, 128), f32 parameters, ``amp.init("float16")`` and
+    ``amp.init_trainer`` (a dynamic loss scaler from 2^16), LAMB under a
+    linear-warmup PolyScheduler, ``remat=True``, through a captured
+    FusedTrainStep.  Gates: remat against plain gradients; the replayed
+    step against the eager triple (``record``/``scale_loss``/
+    ``backward``/``Trainer.step``); launches a step from the trace (B3
+    twice a layer: forward and recompute; B4 and B5 once; dropout twice
+    a site and once more for each recomputed one); 1 host sync a
+    replayed step with the scaler, 0 without; a forced overflow held
+    bitwise with the scale halved, then training again; the scale's
+    trajectory; a finite, falling loss.  amp's patches are undone at
+    the end."""
+    import torch
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
+    from mxnet_tpu_torch.lr_scheduler import PolyScheduler
+    from mxnet_tpu_torch.models import BertForPretraining
+    from mxnet_tpu_torch.ops.nn import DROPOUT
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(what):
+        marks.append((what, time.perf_counter()))
+
+    amp.init("float16")
+    try:
+        net = BertForPretraining(**AMP_CFG).initialize(
+            ctx=dev, generator=torch.Generator().manual_seed(0))
+        mod = pretrain_loss(net)
+        args = train_batch(dev, AMP_CFG["vocab_size"])
+        trainer = Trainer(mod.collect_params(), "lamb", {
+            "learning_rate": AMP_SCHEDULE["base_lr"],
+            "lr_scheduler": PolyScheduler(**AMP_SCHEDULE)})
+        plain_step = FusedTrainStep(mod, trainer,
+                                    generator=torch.Generator().manual_seed(4))
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        out = {"model": "BertForPretraining (bert_base width), remat",
+               "amp": "float16", "params": "float32",
+               "batch": [B_TRAIN, T_TRAIN], "optimizer": "lamb",
+               "schedule": AMP_SCHEDULE}
+        mark("model")
+        out["remat_vs_plain"] = _remat_memory_and_grads(net, mod, trainer,
+                                                        dev)
+        mark("remat vs plain, memory")
+        step = FusedTrainStep(mod, trainer,
+                              generator=torch.Generator().manual_seed(1))
+        traj, losses, lrs = [], [], []
+
+        def one():
+            scale, skipped = scaler.loss_scale, trainer.skipped_steps
+            loss = step(*args, batch_size=B_TRAIN)
+            traj.append((scale, trainer.skipped_steps != skipped))
+            lrs.append(trainer.optimizer.learning_rate)
+            return loss
+
+        losses += [one() for _ in range(AMP_WARMUP)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [one() for _ in range(AMP_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = AMP_CFG["num_layers"]
+        _reset_counts()
+        DROPOUT.launches = 0
+        _, traced = traced_launches(lambda: [one()
+                                             for _ in range(TRACED_STEPS)])
+        booked = dict(_launch_counts(), dropout=DROPOUT.launches)
+        traced = {k: traced[k] for k in booked}
+        per_step = {"flash_attention_fwd": 2 * n,
+                    "flash_attention_bwd_dq": n,
+                    "flash_attention_bwd_dkv": n,
+                    # the embeddings' and two a layer, forward and
+                    # backward, and each layer's two again in its recompute
+                    "dropout": 2 * (2 * n + 1) + 2 * n}
+        expect = {k: TRACED_STEPS * v for k, v in per_step.items()}
+        launches_ok = traced == expect and booked == expect
+        log(f"train_amp: {TRACED_STEPS} replayed steps traced: launches on "
+            f"the card {json.dumps(traced)}, by the wrappers "
+            f"{json.dumps(booked)}, expected {json.dumps(expect)}")
+        seen, _ = _count_syncs(lambda: torch.ones(1, device=dev).item())
+        syncs, examples = _count_syncs(one)
+        out["profile"] = phase_train_profile(
+            one, f"replayed amp + remat step at ({B_TRAIN}, {T_TRAIN})",
+            named={tag: KERNEL_NAMES[k] for tag, k in (
+                ("B3 flash_fwd", "flash_attention_fwd"),
+                ("B4 flash_bwd_dq", "flash_attention_bwd_dq"),
+                ("B5 flash_bwd_dkv", "flash_attention_bwd_dkv"),
+                ("dropout", "dropout"))})
+        mark("replayed steps, trace, profile")
+        gen_e = torch.Generator().manual_seed(3)
+
+        def eager_one():
+            with autograd.record(generator=gen_e):
+                loss = mod(*args)
+            with amp.scale_loss(loss, trainer) as scaled:
+                autograd.backward(scaled)
+            trainer.step(B_TRAIN)
+            amp.unscale(trainer)
+            return loss.detach()
+
+        eager_one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eager_one()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / 3 * 1e3
+        out["eager_vs_replay"] = _eager_vs_fused(
+            mod, trainer, args, lambda: _replay_with(step, args, 77),
+            what="amp replayed", ulp=AMP_ULP)
+        mark("eager steps, eager vs replay")
+        step._generator = torch.Generator().manual_seed(5)
+        out["forced_overflow"] = _forced_overflow(mod, trainer, args, step,
+                                                  traj)
+        losses.append(one())
+        mark("forced overflow")
+        plain_syncs, _ = _count_syncs(
+            lambda: plain_step(*args, batch_size=B_TRAIN))
+        plain_syncs = [plain_syncs] + [
+            _count_syncs(lambda: plain_step(*args, batch_size=B_TRAIN))[0]
+            for _ in range(2)]
+        mark("step without a scaler")
+        out["remat_cost"] = _remat_cost(net, mod, trainer, args, step)
+        mark("remat's cost")
+        loss_vals = [x.item() for x in losses]
+        measured = loss_vals[AMP_WARMUP:AMP_WARMUP + AMP_STEPS]
+        finite = all(x == x and abs(x) != float("inf") for x in loss_vals)
+        falling = sum(measured[-5:]) / 5 < measured[0]
+        trajectory_ok = _scale_trajectory_ok(traj)
+        syncs_ok = seen >= 1 and syncs == 1 and plain_syncs[-1] == 0
+        out.update({
+            "steps": AMP_STEPS, "warmup_steps": AMP_WARMUP,
+            "step_ms": wall / AMP_STEPS * 1e3,
+            "tokens_per_s": B_TRAIN * T_TRAIN * AMP_STEPS / wall,
+            "eager_step_ms": eager_ms,
+            "loss_first": measured[0],
+            "loss_last5_mean": sum(measured[-5:]) / 5, "losses": measured,
+            "lrs": lrs[:AMP_WARMUP + AMP_STEPS],
+            "scale_trajectory": [x and x[0] for x in traj],
+            "overflowed_steps": [i for i, x in enumerate(traj)
+                                 if x and x[1]],
+            "scale_trajectory_ok": trajectory_ok,
+            "skipped_steps": trainer.skipped_steps,
+            "traced_steps": TRACED_STEPS, "launches": traced,
+            "launches_booked_traced": booked,
+            "launches_per_step_expected": per_step,
+            "launches_ok": launches_ok,
+            "host_syncs_replayed_step": syncs, "sync_examples": examples,
+            "host_syncs_without_scaler": plain_syncs,
+            "captures": step.captures, "card": nvidia_smi(),
+            "seconds": {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}})
+        log("train_amp: " + json.dumps(out))
+        if not (finite and falling and launches_ok and syncs_ok and
+                trajectory_ok and step.captures == 1):
+            raise SystemExit(
+                f"amp training failed: finite={finite} falling={falling} "
+                f"launches ok={launches_ok} syncs={syncs} (without a "
+                f"scaler {plain_syncs}) trajectory ok={trajectory_ok} "
+                f"captures={step.captures}")
+        del step, plain_step, trainer, mod, net
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        amp._reset()
 
 
 def _dense_attention(q, k, v):
@@ -3157,6 +3548,7 @@ def main():
     del net
     torch.cuda.empty_cache()
     trained = phase_train(dev)
+    trained_amp = phase_train_amp(dev)
     phase_odd_berts(dev)
     phase_flash_crossover(dev)
     bn_rows = phase_bn_reduce(dev)
@@ -3176,6 +3568,19 @@ def main():
     bwd_case = next(r for r in bwd_rows
                     if r["dtype"] == "bfloat16" and
                     r["case"] == "train_mask_dropout")
+    # the amp path's f16 case, (32, 12, 128, 64) with mask and dropout,
+    # with its launches over the traced amp + remat steps
+    f16_fwd = next(r for r in rows if r["dtype"] == "float16" and
+                   r["case"] == "train_mask_dropout")
+    f16_bwd = next(r for r in bwd_rows if r["dtype"] == "float16" and
+                   r["case"] == "train_mask_dropout")
+    amp_launches = trained_amp["launches"]
+    amp_booked = trained_amp["launches_booked_traced"]
+
+    def amp_case(name, row, keys):
+        return {"launches": amp_launches[name],
+                "launches_booked": amp_booked[name],
+                **{k: row[k] for k in keys}}
     # B1 at the stem BatchNorm, B2 at the bf16 stem: the largest shapes
     bn_case = bn_rows[0]
     stem_case = next(r for r in stem_rows if r["dtype"] == "bfloat16")
@@ -3214,6 +3619,9 @@ def main():
             **{k: train_case[k] for k in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms")}},
+        "amp_f16_case": amp_case("flash_attention_fwd", f16_fwd, (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")),
     }, {
         "name": "flash_attention_bwd_dq", "route": "cuda",
         "source": bwd_src,
@@ -3227,6 +3635,9 @@ def main():
         "bound_by": bwd_case["dq_bound_by"],
         "library_ms": bwd_case["library_ms"],
         "wide_cases": wide_bwd,
+        "amp_f16_case": amp_case("flash_attention_bwd_dq", f16_bwd, (
+            "max_abs_err", "dq_ms", "dq_device_ms", "plain_ms",
+            "dq_bound_ms", "dq_bound_by", "library_ms")),
     }, {
         "name": "flash_attention_bwd_dkv", "route": "cuda",
         "source": bwd_src,
@@ -3241,6 +3652,9 @@ def main():
         "bound_by": bwd_case["dkv_bound_by"],
         "library_ms": bwd_case["library_ms"],
         "wide_cases": wide_bwd,
+        "amp_f16_case": amp_case("flash_attention_bwd_dkv", f16_bwd, (
+            "max_abs_err", "dkv_ms", "dkv_device_ms", "plain_ms",
+            "dkv_bound_ms", "dkv_bound_by", "library_ms")),
     }, {
         "name": "bn_bwd_reduce", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/bn_bwd_reduce.cu",
@@ -3276,6 +3690,8 @@ def main():
         "bound_ms": drop_case["bound_ms"], "bound_by": drop_case["bound_by"],
         "library_ms": drop_case["library_ms"],
         "torch_dropout_ms": drop_case["torch_dropout_ms"],
+        "amp_launches": amp_launches["dropout"],
+        "amp_launches_booked": amp_booked["dropout"],
     }] + [{
         "name": f"rtc:{name}", "route": "cuda",
         "source": "chip_smoke.py:USER_KERNELS_SRC",

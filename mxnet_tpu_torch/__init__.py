@@ -13,14 +13,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import autograd, gluon, initializer, models, serve  # noqa: E402
-from . import operator, optimizer, rtc  # noqa: E402
+from . import amp, lr_scheduler, operator, optimizer, rtc  # noqa: E402
 from . import ndarray as nd  # noqa: E402
+from . import numpy as np  # noqa: E402
 from . import numpy_extension as npx  # noqa: E402
 from .base import MXNetError  # noqa: E402
 from .context import cpu, current_context, gpu, num_gpus  # noqa: E402
 
 init = initializer
 
-__all__ = ["autograd", "gluon", "initializer", "init", "models", "optimizer",
-           "serve", "npx", "nd", "operator", "rtc",
+__all__ = ["amp", "autograd", "gluon", "initializer", "init", "lr_scheduler",
+           "models", "optimizer", "serve", "np", "npx", "nd", "operator", "rtc",
            "MXNetError", "cpu", "gpu", "num_gpus", "current_context"]

@@ -56,8 +56,21 @@ Deferred parameter shapes are settled before the first step by one
 forward in predict mode (`Block._ensure_shapes`).  Train-mode randomness
 draws from ``generator`` (a CPU ``torch.Generator``), or from an
 enclosing ``autograd.record``/``train_mode`` scope's.  SPMD (``mesh``,
-``recipe``, ``partition_rules``, ``data_spec``) and loss scaling
-(``scaler``) are not ported yet and raise ``NotImplementedError``.
+``recipe``, ``partition_rules``, ``data_spec``) is not ported yet and
+raises ``NotImplementedError``.
+
+Loss scaling (amp): a `amp.LossScaler`, ``scaler=`` or the one
+``amp.init_trainer`` attached to the trainer, multiplies the backward
+seed by its ``loss_scale``, and the rescale divides it back out
+(``rescale_grad / loss_scale``).  Both values are read from the packed
+f32 scalars (`StepPlan`) that each call rewrites, so a replay runs with
+the scale of its own step.  After the step, one read of the verdict
+drives the scale (``update_scale(not finite)``) and counts a skipped
+step in the trainer's ``skipped_steps``: one host sync a step, where a
+step without a scaler syncs never.  As in the reference, the update
+counts move on before the verdict is known, so a skipped step advances
+them too.  An optimizer with ``supports_fused = False`` is refused
+(``ValueError``).
 """
 from __future__ import annotations
 
@@ -69,9 +82,9 @@ import torch
 from .. import autograd
 from ..ops import capture
 from ..ops.aux_scope import aux_update_scope
-from ..ops.invoke import current_generator, set_seed_table
+from ..ops.invoke import current_generator, set_seed_table, set_tracing
 from ..ops.seeds import SeedTable, draw_words
-from ..optimizer.optimizer import Optimizer, write_back_multi
+from ..optimizer.optimizer import Optimizer, all_finite, write_back_multi
 
 __all__ = ["FusedTrainStep"]
 
@@ -106,6 +119,15 @@ def _fresh_leaves(params):
     finally:
         for p, t in zip(params, old):
             p._data = t
+
+
+@contextlib.contextmanager
+def _tracing():
+    prev = set_tracing(True)
+    try:
+        yield
+    finally:
+        set_tracing(prev)
 
 
 @contextlib.contextmanager
@@ -151,11 +173,10 @@ class FusedTrainStep:
             raise NotImplementedError(
                 "FusedTrainStep is single-device in the port: SPMD meshes "
                 "and recipes are ROADMAP queue A (distribution)")
-        if scaler is not None:
-            raise NotImplementedError(
-                "loss scaling (amp) is not ported yet (ROADMAP queue A)")
         self._block = block
         self._trainer = trainer
+        self._scaler = scaler if scaler is not None else \
+            getattr(trainer, "_amp_loss_scaler", None)
         self._generator = generator
         self.last_step_finite = None
         self.captures = 0
@@ -169,7 +190,8 @@ class FusedTrainStep:
     def _setup(self, args):
         trainer = self._trainer
         opt = trainer._optimizer
-        if type(opt).update_multi is Optimizer.update_multi:
+        if not opt.supports_fused or \
+                type(opt).update_multi is Optimizer.update_multi:
             raise ValueError(f"{type(opt).__name__} has no update_multi; "
                              "use the eager record/backward/step path")
         self._block._ensure_shapes(*args)
@@ -198,7 +220,8 @@ class FusedTrainStep:
         trainer = self._trainer
         trainer._optimizer.rescale_grad = trainer._scale / batch_size
         weights = [self._plist[k].data() for k in self._train_idx]
-        plan = trainer._plan(self._opt_index)
+        plan = trainer._plan(self._opt_index, None if self._scaler is None
+                             else float(self._scaler.loss_scale))
         if not weights or not capture.capturable(weights[0].device):
             return self._eager(args, weights, plan)
         sig = (tuple((tuple(a.shape), a.dtype, a.device)
@@ -223,15 +246,19 @@ class FusedTrainStep:
         return self._replay(entry, args, plan, words)
 
     # -- the step's work -----------------------------------------------------
-    def _body(self, args, weights, plan, rescale, rows, leaves=None):
+    def _body(self, args, weights, plan, buf, leaves=None):
         """Forward, gradients, verdict and update on device tensors, the
-        optimizer's scalars read from ``rescale`` and ``rows``; the
-        gradients are taken to ``leaves`` (the weights by default)."""
+        optimizer's scalars (and a loss-scaled step's seed multiplier)
+        read from ``buf``, the packed array on the device; the gradients
+        are taken to ``leaves`` (the weights by default)."""
         trainer = self._trainer
+        rescale, rows = plan.views(buf)
         with autograd.record(train_mode=True, generator=self._generator), \
-                aux_update_scope() as aux:
+                aux_update_scope() as aux, _tracing():
             outs = self._block(*args)
             seed = _first_leaf(outs).float().sum()
+            if plan.scaled:
+                seed = seed * plan.loss_scale(buf)
         grads = torch.autograd.grad(seed, leaves or weights,
                                     allow_unused=True)
 
@@ -242,7 +269,7 @@ class FusedTrainStep:
             del grads
             # one verdict over every rescaled gradient, before clipping
             # (a clip would launder an inf into a finite value)
-            finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
+            finite = all_finite(gs)
         trainer._apply(plan, rows, self._opt_index, weights, gs,
                        cast_back=True, keep=finite)
         write_back_multi([arr for arr, _ in aux.updates],
@@ -250,11 +277,21 @@ class FusedTrainStep:
         return _detached(outs), finite
 
     def _eager(self, args, weights, plan):
-        rescale, rows = plan.views(capture.upload(plan.host, weights[0].device
-                                          if weights else "cpu"))
-        outs, self.last_step_finite = self._body(args, weights, plan,
-                                                 rescale, rows)
+        buf = capture.upload(plan.host, weights[0].device if weights
+                             else "cpu")
+        outs, self.last_step_finite = self._body(args, weights, plan, buf)
+        self._update_scale()
         return outs
+
+    def _update_scale(self):
+        """With a scaler: read the step's verdict (the one sync) and move
+        the scale."""
+        if self._scaler is None:
+            return
+        ok = bool(self.last_step_finite)
+        if not ok:
+            self._trainer.skipped_steps += 1
+        self._scaler.update_scale(not ok)
 
     # -- capture and replay --------------------------------------------------
     def _generations(self):
@@ -285,15 +322,14 @@ class FusedTrainStep:
         buf = torch.zeros(n_seed + plan.host.size, dtype=torch.int32,
                           device=device)
         table = SeedTable(buffer=buf[:n_seed].view(len(kinds), 2))
-        rescale, rows = plan.views(buf[n_seed:].view(torch.float32))
+        scalars = buf[n_seed:].view(torch.float32)
         graph = capture.Graph(device)
 
         trainable = [self._plist[k] for k in self._train_idx]
 
         def body():
             with _seed_table(table), _fresh_leaves(trainable) as leaves:
-                return self._body(static, weights, plan, rescale, rows,
-                                  leaves)
+                return self._body(static, weights, plan, scalars, leaves)
 
         outs, finite = graph.capture(body)
         if tuple(table.kinds) != kinds:
@@ -321,4 +357,5 @@ class FusedTrainStep:
                 self._plist[k].data().grad = None
         entry.graph.replay()
         self.last_step_finite = entry.finite.clone()
+        self._update_scale()
         return _detached(entry.outs, copy=True)

@@ -26,23 +26,43 @@ takes a new ``generation``: a CUDA graph captured over the old tensor
 (`gluon.FusedTrainStep`) sees the change and captures again, where an
 in-place copy into the tensor (`Trainer.load_states`, ``data()[...] =``)
 keeps the graph valid.
+
+Inside `constant_parameters()`, `Parameter.data` hands out its tensor
+detached: the forward inside treats every parameter as a constant, as a
+function closed over parameters is treated at an `npx.remat` boundary.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import threading
 
 import torch
 
 from ..context import resolve_device
 from .. import initializer
 
-__all__ = ["Parameter", "DeferredInitializationError", "to_torch_dtype"]
+__all__ = ["Parameter", "DeferredInitializationError", "to_torch_dtype",
+           "constant_parameters"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64,
            "int32": torch.int32, "int64": torch.int64}
 _GRAD_REQS = ("write", "add", "null")
 _GENERATIONS = itertools.count(1)
+_CONSTANT = threading.local()
+
+
+@contextlib.contextmanager
+def constant_parameters():
+    """A scope (on this thread) in which `Parameter.data` returns its
+    tensor detached, so no gradient reaches a parameter."""
+    prev = getattr(_CONSTANT, "on", False)
+    _CONSTANT.on = True
+    try:
+        yield
+    finally:
+        _CONSTANT.on = prev
 
 
 def to_torch_dtype(dtype):
@@ -191,6 +211,8 @@ class Parameter:
 
     def data(self):
         self._check_init()
+        if getattr(_CONSTANT, "on", False):
+            return self._data.detach()
         return self._data
 
     def list_ctx(self):

@@ -23,6 +23,19 @@ does nothing.  Other kvstores, ``update_on_kvstore``, gradient
 compression and multi-device parameters raise ``NotImplementedError``
 (ROADMAP queue A, distribution).
 
+An optimizer with ``supports_fused = False`` (Nadam, SGLD) is applied
+parameter by parameter instead (`Optimizer.update`: the gradient
+rescaled and clipped in its own dtype, ``update_math`` with the host's
+scalars), as the reference's Trainer does.
+
+With a loss scaler attached (``amp.init_trainer``), `step` consults it
+before the update, as the reference's step guard does: a step whose
+gradients hold an inf or a NaN leaves weights and optimizer states
+bitwise as they were (and the update counts where they were), counts
+itself in ``skipped_steps`` and backs the scale off; a clean step lets
+the scaler count it.  The check is one verdict over all gradients on the
+device and one read of it.
+
 ``save_states`` / ``load_states`` write and read the optimizer states
 in the JAX package's format (`optimizer.Updater`): the file of either
 package loads in the other.  As in the reference, the file holds the
@@ -46,18 +59,26 @@ _LOCAL_KVSTORES = (None, False, "local", "device")
 class StepPlan:
     """One step's optimizer scalars on the host.  ``host`` is the packed
     f32 array: the gradient rescale, then one row of the optimizer's
-    ``scalar_names`` for each group; ``groups[g]`` holds the positions
-    (into the step's parameter list) of the parameters whose rows equal
-    row ``g`` in f32, the group the update's ``_foreach_*`` lists run
-    over.  ``key`` says how the array is laid out: a step captured with
-    one layout replays only under the same one."""
+    ``scalar_names`` for each group, then, for a loss-scaled step, the
+    loss scale; ``groups[g]`` holds the positions (into the step's
+    parameter list) of the parameters whose rows equal row ``g`` in f32,
+    the group the update's ``_foreach_*`` lists run over.  ``key`` says
+    how the array is laid out: a step captured with one layout replays
+    only under the same one."""
 
-    def __init__(self, rescale, rows, groups, names):
+    def __init__(self, rescale, rows, groups, names, loss_scale=None):
         self.names = tuple(names)
         self.groups = tuple(tuple(g) for g in groups)
-        self.host = onp.asarray([rescale] + [x for row in rows for x in row],
-                                dtype=onp.float32)
-        self.key = (self.names, self.groups)
+        self.scaled = loss_scale is not None
+        self.host = onp.asarray(
+            [rescale] + [x for row in rows for x in row] +
+            ([loss_scale] if self.scaled else []), dtype=onp.float32)
+        self.key = (self.names, self.groups, self.scaled)
+
+    def loss_scale(self, buf):
+        """The loss scale as a 0-dim view of ``buf`` (the array's copy on
+        the device), for a loss-scaled step."""
+        return buf[self.host.size - 1]
 
     def views(self, buf):
         """The rescale and each group's scalars as 0-dim views of
@@ -90,6 +111,7 @@ class Trainer:
                 "distributed kvstore (ROADMAP queue A, distribution)")
         self._params = list(params)
         self._scale = 1.0
+        self.skipped_steps = 0
         self._states = None
         self._init_optimizer(optimizer, optimizer_params or {})
 
@@ -175,10 +197,19 @@ class Trainer:
 
     # -- step -------------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):
-        """Normalize the gradients by ``batch_size`` and update."""
+        """Normalize the gradients by ``batch_size`` and update; with a
+        loss scaler attached, skip a step whose gradients overflowed."""
         self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and scaler.has_overflow(
+                [p for p in self._params if p.grad_req != "null"]):
+            self.skipped_steps += 1
+            scaler.update_scale(True)
+            return
         self._update(ignore_stale_grad)
+        if scaler is not None:
+            scaler.update_scale(False)
 
     def allreduce_grads(self):
         """Nothing to reduce on one device."""
@@ -195,6 +226,11 @@ class Trainer:
         if not idx:
             return
         weights = [self._params[i].data() for i in idx]
+        if not self._optimizer.supports_fused:
+            self._optimizer.update(idx, weights,
+                                   [self._params[i].grad() for i in idx],
+                                   [self._states[i] for i in idx])
+            return
         plan = self._plan(idx)
         rescale, rows = plan.views(capture.upload(plan.host,
                                                   weights[0].device))
@@ -202,9 +238,11 @@ class Trainer:
                                rescale)
         self._apply(plan, rows, idx, weights, grads)
 
-    def _plan(self, indices):
+    def _plan(self, indices, loss_scale=None):
         """This step's `StepPlan` for parameters ``indices`` (their update
-        counts move on by one, in the reference's order)."""
+        counts move on by one, in the reference's order).  With
+        ``loss_scale`` (the backward seed's multiplier), the rescale
+        divides it back out and the plan carries it."""
         optimizer = self._optimizer
         rows, groups, where = [], [], {}
         for pos, i in enumerate(indices):
@@ -216,8 +254,10 @@ class Trainer:
                 rows.append(row.tolist())
                 groups.append([])
             groups[g].append(pos)
-        return StepPlan(onp.float32(optimizer.rescale_grad), rows, groups,
-                        optimizer.scalar_names)
+        rescale = optimizer.rescale_grad if loss_scale is None else \
+            optimizer.rescale_grad / loss_scale
+        return StepPlan(onp.float32(rescale), rows, groups,
+                        optimizer.scalar_names, loss_scale)
 
     @staticmethod
     def _rescaled(grads, rescale):

@@ -10,10 +10,14 @@ attention dropout in-kernel; ``False`` takes the dense path (two batched
 products and a softmax); ``"auto"`` takes flash on a CUDA tensor once T
 reaches the crossover, where the kernels take the dtype and head dim
 (`flash_auto`).  `BertForPretraining` adds the MLM and NSP heads.
+The dense attention's two products and the MLM head's product go
+through ``mx.np`` (``np.einsum``, ``np.matmul``), and the Dense layers
+through ``npx.fully_connected``, so that ``amp.init`` reaches them as it
+reaches the reference's.  ``remat=True`` puts an `npx.remat` boundary
+around every encoder layer: the backward recomputes each layer from its
+input, drawing the dropout and attention-dropout bits its forward drew.
 
-Not ported yet: the sequence-parallel ring (`bind_sp_mesh`), `remat`
-(torch's checkpointing does not replay draws from an explicit
-generator, so a recompute would draw new dropout bits) and the
+Not ported yet: the sequence-parallel ring (`bind_sp_mesh`) and the
 tensor-parallel partition rules.
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ import math
 import torch
 
 from .. import initializer as init
+from .. import numpy as np
 from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
@@ -117,7 +122,7 @@ class MultiHeadAttention(HybridBlock):
                 v.transpose(1, 2).contiguous(), mask=mask, dropout=drop)
             out = out.transpose(1, 2).reshape(b, t, h * d)
             return self.proj(out)
-        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(d)
+        scores = np.einsum("bthd,bshd->bhts", q, k) / math.sqrt(d)
         if mask is not None:
             # (b, s) valid-token mask or (b, t, s) attention mask
             mask = mask.reshape(b, 1, 1, t) if mask.ndim == 2 else \
@@ -128,7 +133,7 @@ class MultiHeadAttention(HybridBlock):
             scores = scores.masked_fill(mask == 0, fill)
         attn = npx.softmax(scores, axis=-1)
         attn = self.attn_dropout(attn)
-        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, h * d)
+        out = np.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, h * d)
         return self.proj(out)
 
 
@@ -171,11 +176,16 @@ class TransformerEncoderLayer(HybridBlock):
 
 
 class TransformerEncoder(HybridBlock):
+    """``num_layers`` encoder layers; ``remat=True`` runs each through an
+    `npx.remat` boundary, so the backward keeps a layer's input instead
+    of its intermediates and recomputes them."""
+
     def __init__(self, num_layers, units, hidden_size, num_heads,
                  dropout=0.0, layer_norm_eps=1e-12, dtype="float32",
-                 use_flash="auto"):
+                 use_flash="auto", remat=False):
         super().__init__()
         self._num_layers = num_layers
+        self._remat = remat
         for i in range(num_layers):
             setattr(self, f"layer{i}",
                     TransformerEncoderLayer(units, hidden_size, num_heads,
@@ -186,7 +196,8 @@ class TransformerEncoder(HybridBlock):
 
     def forward(self, x, mask=None):
         for i in range(self._num_layers):
-            x = getattr(self, f"layer{i}")(x, mask)
+            layer = getattr(self, f"layer{i}")
+            x = npx.remat(layer)(x, mask) if self._remat else layer(x, mask)
         return x
 
 
@@ -197,7 +208,7 @@ class BertModel(HybridBlock):
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
                  num_segments=2, dropout=0.1, layer_norm_eps=1e-12,
-                 dtype="float32", use_flash="auto"):
+                 dtype="float32", use_flash="auto", remat=False):
         super().__init__()
         self._units = units
         std = init.Normal(0.02)
@@ -213,7 +224,8 @@ class BertModel(HybridBlock):
         self.encoder = TransformerEncoder(num_layers, units, hidden_size,
                                           num_heads, dropout=dropout,
                                           layer_norm_eps=layer_norm_eps,
-                                          dtype=dtype, use_flash=use_flash)
+                                          dtype=dtype, use_flash=use_flash,
+                                          remat=remat)
         self.pooler = nn.Dense(units, flatten=False, activation="tanh",
                                weight_initializer=std, dtype=dtype,
                                in_units=units)
@@ -257,7 +269,7 @@ class BertForPretraining(HybridBlock):
         seq, pooled = self.bert(tokens, segments, valid_mask)
         h = self.mlm_ln(self.mlm_act(self.mlm_transform(seq)))
         embed_w = self.bert.word_embed.weight.data()     # (vocab, units)
-        mlm_logits = torch.matmul(h, embed_w.t()) + self.mlm_bias.data()
+        mlm_logits = np.matmul(h, embed_w.t()) + self.mlm_bias.data()
         nsp_logits = self.nsp(pooled)
         return mlm_logits, nsp_logits
 

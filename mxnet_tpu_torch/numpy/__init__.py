@@ -1,0 +1,225 @@
+"""``mx.np``, the part the port needs (counterpart of
+`mxnet_tpu/numpy/__init__.py`).
+
+The functions here are those that amp's lists name under ``"numpy"``
+(`amp._TARGET_FUNCS`, `amp._F32_FUNCS`): the products that amp runs in
+the target dtype, and the exponentials, reductions and sorts that it
+runs in f32.  The models call the products through this namespace
+(`models/transformer.py`: the attention's two einsums, the MLM head's
+matmul), so that ``amp.init`` reaches them as it reaches the
+reference's.  Each is a plain function on tensors with numpy's
+signature and its ``axis`` / ``keepdims`` / ``dtype`` semantics; the
+products promote mixed operand dtypes as numpy does (same-dtype
+operands go through untouched).  The rest of ``mx.np`` (array creation,
+shape manipulation, the ``NDArray`` type) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["matmul", "dot", "einsum", "tensordot", "inner", "outer",
+           "exp", "expm1", "log", "log10", "log2", "log1p", "square",
+           "reciprocal", "power", "sum", "nansum", "prod", "nanprod",
+           "mean", "std", "var", "cumsum", "trace", "average", "arccos",
+           "arcsin", "cosh", "sinh", "tan", "arctanh", "sqrt", "cbrt",
+           "argsort", "sort"]
+
+
+def _promote(*arrays):
+    """The operands in their common dtype (numpy's promotion); an
+    operand already in it is returned as it is."""
+    dtype = arrays[0].dtype
+    for a in arrays[1:]:
+        dtype = torch.promote_types(dtype, a.dtype)
+    return [a if a.dtype == dtype else a.to(dtype) for a in arrays]
+
+
+def _as_dtype(a, dtype):
+    if dtype is None:
+        return a
+    from ..gluon.parameter import to_torch_dtype
+    return a.to(to_torch_dtype(dtype))
+
+
+def _float(a):
+    """``a``, or ``a`` in f32 when it is not floating (numpy's mean of
+    integers is a float)."""
+    return a if a.is_floating_point() else a.float()
+
+
+def _dims(a, axis):
+    """``axis`` as a tuple of non-negative dims (None: every dim)."""
+    if axis is None:
+        return tuple(range(a.ndim))
+    axes = axis if isinstance(axis, (tuple, list)) else (axis,)
+    return tuple(x % a.ndim if a.ndim else 0 for x in axes)
+
+
+def _reduce(fn, a, axis, keepdims):
+    """``fn(a, dims, keepdim)`` over ``axis`` with numpy's keepdims."""
+    dims = _dims(a, axis)
+    if a.ndim == 0 or not dims:
+        return fn(a, None, False) if a.ndim == 0 else a
+    return fn(a, dims, keepdims)
+
+
+# -- products (amp: the target dtype) ----------------------------------------
+def matmul(a, b):
+    a, b = _promote(a, b)
+    return torch.matmul(a, b)
+
+
+def dot(a, b):
+    """numpy's ``dot``: a product for scalars, the last axis of ``a``
+    against the second-to-last of ``b`` (the only one for a vector)."""
+    a, b = _promote(a, b)
+    if a.ndim == 0 or b.ndim == 0:
+        return a * b
+    return torch.tensordot(a, b, dims=([a.ndim - 1], [max(b.ndim - 2, 0)]))
+
+
+def einsum(subscripts, *operands, **_kwargs):
+    return torch.einsum(subscripts, *_promote(*operands))
+
+
+def tensordot(a, b, axes=2):
+    a, b = _promote(a, b)
+    if not isinstance(axes, int):
+        axes = [list(x) if isinstance(x, (tuple, list)) else [x]
+                for x in axes]
+    return torch.tensordot(a, b, dims=axes)
+
+
+def inner(a, b):
+    a, b = _promote(a, b)
+    return torch.inner(a, b)
+
+
+def outer(a, b):
+    a, b = _promote(a, b)
+    return torch.outer(a.reshape(-1), b.reshape(-1))
+
+
+# -- elementwise (amp: f32) --------------------------------------------------
+exp = torch.exp
+expm1 = torch.expm1
+log = torch.log
+log10 = torch.log10
+log2 = torch.log2
+log1p = torch.log1p
+square = torch.square
+reciprocal = torch.reciprocal
+arccos = torch.arccos
+arcsin = torch.arcsin
+cosh = torch.cosh
+sinh = torch.sinh
+tan = torch.tan
+arctanh = torch.arctanh
+sqrt = torch.sqrt
+
+
+def power(x1, x2):
+    return torch.pow(x1, x2)
+
+
+def cbrt(x):
+    """The real cube root (negative for negative ``x``)."""
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+# -- reductions and sorts (amp: f32) -----------------------------------------
+def sum(a, axis=None, dtype=None, keepdims=False):  # noqa: A001
+    a = _as_dtype(a, dtype)
+    return _reduce(lambda x, d, k: torch.sum(x) if d is None else
+                   torch.sum(x, dim=d, keepdim=k), a, axis, keepdims)
+
+
+def nansum(a, axis=None, dtype=None, keepdims=False):
+    a = _as_dtype(a, dtype)
+    return _reduce(lambda x, d, k: torch.nansum(x) if d is None else
+                   torch.nansum(x, dim=d, keepdim=k), a, axis, keepdims)
+
+
+def _prod(x, dims, keepdim):
+    if dims is None:
+        return torch.prod(x)
+    for d in sorted(dims, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+def prod(a, axis=None, dtype=None, keepdims=False):
+    return _reduce(_prod, _as_dtype(a, dtype), axis, keepdims)
+
+
+def nanprod(a, axis=None, dtype=None, keepdims=False):
+    a = _as_dtype(a, dtype)
+    if a.is_floating_point():
+        a = torch.where(torch.isnan(a), torch.ones_like(a), a)
+    return _reduce(_prod, a, axis, keepdims)
+
+
+def mean(a, axis=None, dtype=None, keepdims=False):
+    a = _float(_as_dtype(a, dtype))
+    return _reduce(lambda x, d, k: torch.mean(x) if d is None else
+                   torch.mean(x, dim=d, keepdim=k), a, axis, keepdims)
+
+
+def var(a, axis=None, dtype=None, ddof=0, keepdims=False):
+    a = _float(_as_dtype(a, dtype))
+    return _reduce(lambda x, d, k: torch.var(x, correction=ddof)
+                   if d is None else
+                   torch.var(x, dim=d, correction=ddof, keepdim=k),
+                   a, axis, keepdims)
+
+
+def std(a, axis=None, dtype=None, ddof=0, keepdims=False):
+    a = _float(_as_dtype(a, dtype))
+    return _reduce(lambda x, d, k: torch.std(x, correction=ddof)
+                   if d is None else
+                   torch.std(x, dim=d, correction=ddof, keepdim=k),
+                   a, axis, keepdims)
+
+
+def cumsum(a, axis=None, dtype=None):
+    a = _as_dtype(a, dtype)
+    if axis is None:
+        return torch.cumsum(a.reshape(-1), dim=0)
+    return torch.cumsum(a, dim=axis)
+
+
+def trace(a, offset=0, axis1=0, axis2=1, dtype=None):
+    return torch.diagonal(_as_dtype(a, dtype), offset, axis1,
+                          axis2).sum(-1)
+
+
+def average(a, axis=None, weights=None, returned=False):
+    """The mean, or with ``weights`` (of ``a``'s shape, or 1-D along a
+    single ``axis``) the weighted mean; ``returned`` adds the sum of
+    the weights."""
+    a = _float(a)
+    if weights is None:
+        avg = mean(a, axis)
+        scl = torch.full_like(avg, a.numel() / max(avg.numel(), 1))
+    else:
+        w = weights.to(a.dtype)
+        if w.shape != a.shape:
+            shape = [1] * a.ndim
+            shape[axis % a.ndim] = -1
+            w = w.reshape(shape).expand_as(a)
+        scl = sum(w, axis)
+        avg = sum(a * w, axis) / scl
+    return (avg, scl) if returned else avg
+
+
+def argsort(a, axis=-1, kind=None, order=None):
+    """Stable ascending sort's indices (torch's int64)."""
+    if axis is None:
+        return torch.argsort(a.reshape(-1), stable=True)
+    return torch.argsort(a, dim=axis, stable=True)
+
+
+def sort(a, axis=-1, kind=None, order=None):
+    if axis is None:
+        return torch.sort(a.reshape(-1), stable=True).values
+    return torch.sort(a, dim=axis, stable=True).values

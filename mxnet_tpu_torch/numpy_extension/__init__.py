@@ -12,19 +12,31 @@ kernels read them, so no draw syncs with the card and a captured step
 replays with fresh words.  The reference draws its dropout bits from
 XLA's ``rbg`` generator, so model-level dropout masks differ between the
 packages (the flash kernels' own bits match, given the same seed
-words)."""
+words).
+
+`remat` is the reference's rematerialization boundary, built on torch's
+non-reentrant checkpointing: the backward recomputes what the boundary's
+forward did not save, reading the seed words its first run drew
+(`ops.seeds.DrawTape`)."""
 from __future__ import annotations
+
+import contextlib
+import warnings
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import nn as _nn
 from ..ops import stem as _stem
-from ..ops.aux_scope import apply_aux_update
-from ..ops.invoke import is_training
-from ..ops.seeds import draw_seed
+from ..ops.aux_scope import apply_aux_update, aux_update_scope
+from ..ops.invoke import (draw_tapes, is_recording, is_tracing, is_training,
+                          modes, set_modes)
+from ..ops.seeds import DrawTape, draw_seed
 
 __all__ = ["activation", "dropout", "embedding", "fully_connected", "gelu",
            "layer_norm", "leaky_relu", "log_softmax", "pick", "softmax",
            "flash_attention", "convolution", "pooling", "batch_norm",
-           "stem_conv"]
+           "stem_conv", "remat"]
 
 activation = _nn.activation
 convolution = _nn.convolution
@@ -84,3 +96,108 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
         return out
     return _nn.batch_norm_inference(x, gamma, beta, running_mean,
                                     running_var, eps, axis)
+
+
+def remat(fn):
+    """Rematerialization boundary around ``fn``, a Block or a function of
+    tensors (counterpart of the reference's ``npx.remat``): under
+    autograd, the intermediates of ``fn`` are not kept for the backward,
+    which recomputes them from the boundary's inputs.  Memory per
+    boundary drops to its inputs and outputs; the forward runs twice.
+
+    ``x = npx.remat(layer)(x, mask)``; ``TransformerEncoder(remat=True)``
+    wraps every layer so.  The wrapper is cached on ``fn``.
+
+    What the recompute keeps of the first run:
+    - the random draws: the recompute is handed the seed tensors the
+      first run drew (`ops.seeds.DrawTape`), so a dropout mask or the
+      flash kernels' keep bits are bit for bit the forward's.  It draws
+      nothing from the generator and, while `gluon.FusedTrainStep`
+      captures a step, takes no new row of its seed table; torch's own
+      RNG state is not stashed (``preserve_rng_state=False``: the port
+      draws no bits from it, and a capture may not read it);
+    - the modes (recording, training, backward expected), which the
+      recompute sets on the thread that runs it;
+    - auxiliary updates (BatchNorm running statistics) are taken from
+      the first run only and applied outside the boundary, at once or
+      into the enclosing `ops.aux_scope` (a fused step's, under its
+      verdict); the recompute's are dropped.
+
+    A Block's parameters get their gradients through the boundary.  A
+    function that is not a Block is differentiated with respect to its
+    tensor arguments only when called eagerly, as in the reference:
+    parameters it closes over are constants inside
+    (`gluon.parameter.constant_parameters`) and get no gradient, and
+    calling it under ``autograd.record()`` warns.  Inside a
+    `gluon.FusedTrainStep` (the reference's traced step, where they do
+    get gradients) they are differentiated too.  Deferred parameter
+    shapes of a Block are settled first by one forward without
+    gradients in predict mode."""
+    cached = getattr(fn, "_npx_remat_wrapped", None)
+    if cached is not None:
+        return cached
+    from ..gluon.parameter import constant_parameters
+
+    is_block = hasattr(fn, "collect_params")
+    first_call = True
+
+    def wrapped(*args, **kwargs):
+        nonlocal first_call
+        if first_call:
+            first_call = False
+            if is_block:
+                _settle_shapes(fn, args, kwargs)
+            elif is_recording():
+                warnings.warn(
+                    "npx.remat over a non-Block callable under "
+                    "autograd.record(): gradients will not flow to "
+                    "parameters closed over by the callable — wrap the "
+                    "Block itself", stacklevel=2)
+        scope = contextlib.nullcontext if is_block or is_tracing() \
+            else constant_parameters
+        if not torch.is_grad_enabled():
+            with scope():
+                return fn(*args, **kwargs)
+        flags = modes()
+        tape = DrawTape()
+        updates = []
+
+        def run(*a, **kw):
+            first = not updates and not tape.replaying
+            if not first:
+                tape.replay()
+            prev = set_modes(flags)
+            tapes = draw_tapes()
+            tapes.append(tape)
+            try:
+                with aux_update_scope() as aux, scope():
+                    out = fn(*a, **kw)
+            finally:
+                tapes.pop()
+                set_modes(prev)
+            if first:
+                updates.append(aux.updates)
+            return out
+
+        out = checkpoint(run, *args, use_reentrant=False,
+                         preserve_rng_state=False, **kwargs)
+        for arr, new in updates[0]:
+            apply_aux_update(arr, new)
+        return out
+
+    try:
+        fn._npx_remat_wrapped = wrapped
+    except AttributeError:
+        pass
+    return wrapped
+
+
+def _settle_shapes(block, args, kwargs):
+    """One forward without gradients in predict mode when ``block`` has
+    parameters of unknown shape (running statistics untouched, no
+    draws)."""
+    if any(p._deferred_init is not None
+           for p in block.collect_params().values()):
+        from .. import autograd
+        with torch.no_grad(), autograd.predict_mode():
+            block(*args, **kwargs)

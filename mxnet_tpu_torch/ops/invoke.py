@@ -8,7 +8,14 @@ through this forward — what the flash auto policy's training crossover
 reads).  ``generator`` is the explicit CPU ``torch.Generator`` that
 train-mode randomness draws its seeds from, and ``seed_table`` the
 `ops.seeds.SeedTable` that hands the draws their device slots while a
-step is captured (None otherwise).
+step is captured (None otherwise).  ``draw_tapes`` is the stack of
+`ops.seeds.DrawTape`s of the `npx.remat` boundaries the forward is in.
+`modes` / `set_modes` save and restore the three mode flags at once, for
+a boundary whose recompute runs on another thread (autograd's).
+``is_tracing`` is True inside the body of a `gluon.FusedTrainStep`, the
+counterpart of the reference's traced one-program step, where a remat
+boundary differentiates the parameters a function closes over as the
+reference's trace does.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ import threading
 __all__ = ["is_recording", "set_recording", "is_training", "set_training",
            "is_backward_expected", "set_backward_expected",
            "current_generator", "set_generator", "current_seed_table",
-           "set_seed_table"]
+           "set_seed_table", "draw_tapes", "modes", "set_modes",
+           "is_tracing", "set_tracing"]
 
 _state = threading.local()
 
@@ -76,4 +84,35 @@ def current_seed_table():
 def set_seed_table(table):
     prev = current_seed_table()
     _state.seed_table = table
+    return prev
+
+
+def draw_tapes():
+    """This thread's stack of `ops.seeds.DrawTape`s, innermost last."""
+    tapes = getattr(_state, "draw_tapes", None)
+    if tapes is None:
+        tapes = _state.draw_tapes = []
+    return tapes
+
+
+def modes():
+    """The recording, training and backward-expected flags, as set."""
+    return (is_recording(), is_training(), getattr(_state, "backward", False))
+
+
+def set_modes(flags):
+    """Set the three flags of `modes`; returns the previous ones."""
+    prev = modes()
+    _state.recording, _state.training, _state.backward = \
+        (bool(f) for f in flags)
+    return prev
+
+
+def is_tracing():
+    return getattr(_state, "tracing", False)
+
+
+def set_tracing(flag):
+    prev = is_tracing()
+    _state.tracing = bool(flag)
     return prev

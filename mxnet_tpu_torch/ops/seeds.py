@@ -15,6 +15,15 @@ static device buffer: draw ``i`` of the step takes row ``i`` of it.  Before
 each replay the host draws the same kinds in the same order from the same
 generator (`draw_words`) and writes them into that buffer, so every replay
 draws fresh bits, the same ones the eager step would have drawn.
+
+A rematerialization boundary (`npx.remat`) runs its forward twice: once
+in the forward pass and once more in the backward, to recompute what it
+did not save.  Both runs must draw the same bits, so the boundary holds a
+`DrawTape`: the first run records the device tensor each draw handed
+out, and the recompute is handed the same tensors in the same order.  A
+recompute draws nothing from the generator and takes no row of the
+`SeedTable`, so a captured step's buffer has one row a draw site and a
+replay's `draw_words` counts each site once.
 """
 from __future__ import annotations
 
@@ -22,9 +31,10 @@ import numpy as onp
 import torch
 
 from .capture import upload
-from .invoke import current_generator, current_seed_table
+from .invoke import current_generator, current_seed_table, draw_tapes
 
-__all__ = ["DRAWS", "SeedTable", "draw_seed", "draw_words", "words_tensor"]
+__all__ = ["DRAWS", "DrawTape", "SeedTable", "draw_seed", "draw_words",
+           "words_tensor"]
 
 _M32 = 0xFFFFFFFF
 
@@ -83,10 +93,54 @@ class SeedTable:
         return self._buffer[slot]
 
 
+class DrawTape:
+    """The draws of one run of a remat boundary's forward: ``kinds`` and
+    the device tensors handed out, in order.  Recording, each draw is
+    appended; replaying (``replay()``), each draw is served the next
+    recorded tensor, which must be of the same kind."""
+
+    def __init__(self):
+        self.kinds = []
+        self.tensors = []
+        self.replaying = False
+        self._next = 0
+
+    def replay(self):
+        self.replaying = True
+        self._next = 0
+
+    def serve(self, kind):
+        i = self._next
+        if i >= len(self.kinds) or self.kinds[i] != kind:
+            raise RuntimeError(
+                f"a recomputed forward drew {kind!r} at draw {i}, where its "
+                f"first run drew {self.kinds[i:i + 1] or 'nothing'}: a "
+                "remat boundary must reach the same draw sites every time")
+        self._next += 1
+        return self.tensors[i]
+
+
 def draw_seed(kind, device, what=None):
     """Two seed words for one draw of ``kind`` (a key of `DRAWS`) on
     ``device``: drawn from the scope's generator on the host, handed out
-    by the active `SeedTable` if one is installed."""
+    by the active `SeedTable` if one is installed.  Inside a remat
+    boundary's recompute, the tensor its first run was handed instead
+    (`DrawTape`)."""
+    recording = []
+    for tape in reversed(draw_tapes()):
+        if tape.replaying:
+            seed = tape.serve(kind)
+            break
+        recording.append(tape)
+    else:
+        seed = _draw(kind, device, what)
+    for tape in recording:
+        tape.kinds.append(kind)
+        tape.tensors.append(seed)
+    return seed
+
+
+def _draw(kind, device, what):
     gen = current_generator()
     if gen is None:
         what = what or kind

@@ -24,6 +24,11 @@ reciprocal, which the multi-tensor form, dividing by a device tensor,
 does not.  `write_back_multi` writes the results in place, holding
 weights and states bitwise where the step's verdict is False.
 
+An optimizer whose rule keeps host state that changes with every
+parameter's update (Nadam's momentum schedule, SGLD's noise draws) sets
+``supports_fused = False``: the Trainer applies it parameter by
+parameter through `update`, and `FusedTrainStep` refuses it.
+
 `Updater` holds per-index states and (de)serializes them in the JAX
 package's format: a pickle of ``{index: tuple of numpy arrays}``.
 """
@@ -38,11 +43,15 @@ import torch
 from ..base import registry
 from ..utils.serialization import ArraysOnlyUnpickler
 
-__all__ = ["Optimizer", "Updater", "register", "create", "write_back",
-           "write_back_multi"]
+__all__ = ["Optimizer", "Updater", "register", "create", "get_updater",
+           "Test", "all_finite", "write_back", "write_back_multi"]
 
 
 class Optimizer:
+    # False: the rule runs parameter by parameter (`update`), never in the
+    # multi-tensor form or a captured step
+    supports_fused = True
+
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=None, lr_scheduler=None,
                  begin_num_update=0, param_dict=None, **kwargs):
@@ -230,6 +239,16 @@ class Updater:
                        for i, st in payload.items()}
 
 
+def get_updater(optimizer):
+    return Updater(optimizer)
+
+
+def all_finite(tensors):
+    """One 0-dim bool on the tensors' device: whether every element of
+    every tensor is finite.  Reading it is the one sync."""
+    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+
+
 def write_back(weight, new_w, state, new_states):
     """Copy an update into the weight and state tensors in place, outside
     autograd."""
@@ -263,3 +282,25 @@ def _as_tuple(x):
 
 register = Optimizer.register
 create = Optimizer.create_optimizer
+
+
+@register
+class Test(Optimizer):
+    """The reference's trivial optimizer for tests: ``weight + grad *
+    rescale_grad``, one state of zeros that it leaves as it is."""
+
+    scalar_names = ("lr", "wd", "rescale")
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight),)
+
+    def update_math(self, weight, grad, states, lr, wd, t):
+        return weight + grad * self.rescale_grad, states
+
+    def step_scalars(self, lr, wd, t):
+        return (lr, wd, self.rescale_grad)
+
+    def update_multi(self, weights, grads, states, scalars):
+        return (torch._foreach_add(
+            weights, torch._foreach_mul(grads, scalars["rescale"])),
+            [tuple(st) for st in states])

@@ -49,7 +49,10 @@ def test_import_leaves_jax_out():
             "mxnet_tpu_torch.optimizer.sgd, mxnet_tpu_torch.rtc, "
             "mxnet_tpu_torch.operator, mxnet_tpu_torch.ndarray, "
             "mxnet_tpu_torch.utils.serialization, "
-            "mxnet_tpu_torch.utils.legacy_format, chip_smoke; "
+            "mxnet_tpu_torch.utils.legacy_format, mxnet_tpu_torch.amp, "
+            "mxnet_tpu_torch.amp.loss_scaler, mxnet_tpu_torch.lr_scheduler, "
+            "mxnet_tpu_torch.numpy, mxnet_tpu_torch.optimizer.adam, "
+            "mxnet_tpu_torch.optimizer.rmsprop, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -465,8 +465,9 @@ def test_single_device_contract():
         Trainer(mod.collect_params(), "adam", kvstore="dist_sync")
     with pytest.raises(NotImplementedError, match="single-device"):
         FusedTrainStep(mod, trainer, mesh=object())
-    with pytest.raises(NotImplementedError, match="amp"):
-        FusedTrainStep(mod, trainer, scaler=object())
+    # loss scaling is ported: an explicit scaler is taken, not refused
+    scaler = mxt.amp.LossScaler()
+    assert FusedTrainStep(mod, trainer, scaler=scaler)._scaler is scaler
     assert trainer.learning_rate == 0.01
     trainer.set_learning_rate(0.02)
     assert trainer.learning_rate == 0.02
