@@ -114,9 +114,10 @@ the package is missing.  Phases, each fatal on failure:
    dynamic loss scaler from 2^16), LAMB under a linear-warmup
    ``PolyScheduler``, through a captured ``FusedTrainStep``: peak
    memory of one eager step with and without remat at (32, 128) and (8,
-   512), and the two's gradients from the same weights and seed words
-   (bitwise, or within ``BWD_TOL["float16"]``; a plain step against a
-   second plain one is printed beside it); 3 warm-up and 15 timed
+   512), and the two's gradients from the same weights and seed words,
+   and a plain step's against a second plain one's: both bitwise (the
+   embedding's backward sums in a fixed order; the worst difference
+   against ``BWD_TOL["float16"]`` is printed beside); 3 warm-up and 15 timed
    replays, 2 traced (B3 24, B4 12, B5 12 and dropout 74 launches a
    step: B3 and the layers' dropout run again in the recompute); one
    traced and profiled replay (host syncs: exactly 1 with the scaler,
@@ -173,6 +174,33 @@ the package is missing.  Phases, each fatal on failure:
    steps (the loss spikes at lr 0.1 over steps 4-8, so ten would leave
    the last five close to the first): falling losses, 1 B2 and 53 B1
    launches per step.
+8b. **ResNet-50 trained from a RecordIO file**, ``bench.py``'s recordio
+   rider in the port: the script writes ``bench.py``'s file (2048
+   JPEG-encoded 256 x 256 low-frequency textures, labels 0-999, seed 0)
+   with `recordio` into ``build/chip_smoke/``, then trains ResNet-50 v1
+   as in 7 through a captured ``FusedTrainStep`` fed by
+   ``DevicePrefetcher(depth=3, dtypes=(None, int32))`` (pinned slots, a
+   side stream, events) from (a) ``ImageRecordIter(rand_crop,
+   rand_mirror, shuffle)`` into ``RecNetWithLoss`` (uint8 NHWC to f32,
+   normalised, bf16, NCHW inside the step) and (b) ``ImageRecordIter``'s
+   256 x 256 canvases into ``AugNetWithLoss`` (`DeviceAugment` inside the
+   step).  Where g++ cannot link libjpeg (`_native.jpeg_unavailable`,
+   decided before anything runs), the native pipeline cannot be built:
+   (a) is not run and (b) is fed the file's records decoded by Pillow
+   (``NDArrayIter`` + ``ResizeIter``), and the output says so and why.
+   Each variant: 3 warm-up steps, 20 chip-only steps re-stepping one
+   resident batch (the weights put back after), two windows of 20 steps
+   end to end, one step's host syncs, 2 traced steps.  Printed: the
+   decode pool's and one thread's img/s (or Pillow's), the pinned H2D
+   MB/s and img/s, chip-only and end-to-end img/s, the overlap bound (the
+   least of the three) and the ratio to it; for (b) the augment's device
+   ms alone and its share of a traced replay's device time.  Gates:
+   losses finite, the last five below the first; 53 B1 launches a step
+   counted on the card from the trace and by the wrapper; every batch
+   the prefetcher delivered equal, bitwise on the card, to the host
+   batch the source handed it; one capture; 0 host syncs a step; for
+   (b), the crop offsets and flips of two replays' seed words differ, and
+   on the card equal their plain CPU draw.
 9. **B6 vs plain.**  The user kernels of ``USER_KERNELS_SRC`` (user
    code, as upstream's ``custom_softmax_rtc.py`` writes it) compiled
    once by NVRTC through ``rtc.CudaModule`` (timed): ``axpy``, the
@@ -203,7 +231,7 @@ the package is missing.  Phases, each fatal on failure:
 Every measurement is printed on a line of its own (``kernel``,
 ``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``kernel_rtc``,
 ``serve:``, ``train:``, ``train_amp:``, ``odd_bert:``, ``flash_crossover:``,
-``resnet:``, ``resnet_s2d:``, ``rtc:``, ``resnet_custom:``,
+``resnet:``, ``resnet_s2d:``, ``recordio:``, ``rtc:``, ``resnet_custom:``,
 ``profile:``).  The last three lines are a ``{"kernels": [...]}``
 object.  A captured path's ``launches`` are counted on the card, from
 the ``torch.profiler`` trace of its traced run (`KERNEL_NAMES`), with
@@ -218,7 +246,8 @@ the traced steps, their D > 128 cases, and their ``amp_f16_case``; the
 dropout kernel at (32, 128, 768) bf16 with its launches over the traced
 BERT steps (``amp_launches``: over the traced amp steps); B1 at the
 stem BatchNorm's shape,
-with its launches over the 2 traced ResNet steps; B2 at the bf16 stem,
+with its launches over the 2 traced ResNet steps (``recordio_launches``:
+over the 2 traced steps of each recordio variant); B2 at the bf16 stem,
 with its launches over the 2 traced space-to-depth steps; B6 as
 ``softmax_fwd`` and ``softmax_bwd`` at the head's shape, with their
 launches over the 20 timed custom-head steps), the card's name and
@@ -388,6 +417,17 @@ RESNET_BATCH, RESNET_IMAGE = 128, 224
 RESNET_WARMUP, RESNET_STEPS = 3, 20
 S2D_WARMUP, S2D_STEPS = 2, 15
 BN_LAYERS = 53
+# ResNet-50 trained from a RecordIO file as `bench.py`'s recordio rider
+# does: its file (2048 JPEG 256 x 256 low-frequency textures), its
+# normalisation, a prefetch depth of 3; 3 warm-up steps, 20 re-stepping
+# one resident batch (chip-only), two windows of 20 through the
+# prefetcher (end to end)
+REC_IMAGES, REC_SIDE = 2048, 256
+REC_MEAN, REC_STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
+REC_DEPTH, REC_WARMUP, REC_CHIP_STEPS = 3, 3, 20
+REC_WINDOW, REC_WINDOWS = 20, 2
+# batches timed through the decode pool, and through one decode thread
+REC_POOL_BATCHES, REC_SINGLE_BATCHES = 8, 2
 # ResNet-50 with the softmax_rtc head, trained in the eager loop; the
 # checkpoint is taken after the warm-up and timed steps.  As phase 7's,
 # its loss spikes at lr 0.1 until about step 10, so the last five of 13
@@ -2162,11 +2202,10 @@ def _amp_grads(mod, trainer, args, seed):
 def _remat_memory_and_grads(net, mod, trainer, dev):
     """Peak memory of one eager step's forward and backward with and
     without remat at `AMP_MEM_SHAPES`, and, at the training shape, the
-    gradients of the two from the same weights and seed words: bitwise,
-    or within ``BWD_TOL["float16"]`` of the largest magnitude of each
-    parameter's gradient and of each element (a recompute runs the same
-    kernels on the same inputs, so equal is expected; the allowance is
-    the flash backward's f16 rounding points)."""
+    gradients of the two from the same weights and seed words, and of a
+    second plain step: both bitwise (a recompute runs the same kernels on
+    the same inputs, and every backward sums in a fixed order); the worst
+    difference against ``BWD_TOL["float16"]`` is printed beside them."""
     import torch
     atol, rtol = BWD_TOL["float16"]
     encoder = net.bert.encoder
@@ -2208,8 +2247,14 @@ def _remat_memory_and_grads(net, mod, trainer, dev):
            "worst_param": worst_name,
            "tol": [atol, rtol], "memory": mem}
     log("train_amp: remat vs plain: " + json.dumps(out))
-    if not (bitwise or (worst <= 1.0 and loss_r == loss_p)):
-        raise SystemExit("remat and plain gradients disagree")
+    # the embedding's backward sums in a fixed order, so a backward is
+    # bitwise repeatable on the card, and a recompute runs the same
+    # kernels on the same inputs: both must agree bitwise
+    if not (repeat and bitwise):
+        raise SystemExit(f"a plain backward again (bitwise: {repeat}, "
+                         f"differing elements {differ}) or remat against "
+                         f"plain (bitwise: {bitwise}, worst "
+                         f"{worst:.3g} of the allowance) disagrees")
     return out
 
 
@@ -3097,6 +3142,392 @@ def phase_resnet_s2d(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: ResNet-50 trained from a RecordIO file (bench.py's recordio rider)
+# ---------------------------------------------------------------------------
+def make_bench_rec(path):
+    """`bench.py`'s ``_ensure_bench_rec`` through the port's `recordio`:
+    `REC_IMAGES` JPEG-encoded (Pillow, quality 85) `REC_SIDE` squared
+    low-frequency textures (32 x 32 noise resized bilinearly) and labels
+    in 0..999, from seed 0."""
+    import io as pio
+
+    import numpy as onp
+    from PIL import Image
+    from mxnet_tpu_torch import recordio
+
+    rs = onp.random.RandomState(0)
+    w = recordio.MXRecordIO(path, "w")
+    for i in range(REC_IMAGES):
+        small = rs.randint(0, 255, (32, 32, 3), dtype=onp.uint8)
+        img = Image.fromarray(small).resize((REC_SIDE, REC_SIDE),
+                                            Image.BILINEAR)
+        buf = pio.BytesIO()
+        img.save(buf, "JPEG", quality=85)
+        w.write(recordio.pack(
+            recordio.IRHeader(0, float(rs.randint(0, 1000)), i, 0),
+            buf.getvalue()))
+    w.close()
+
+
+class _Tee:
+    """A prefetcher's source that keeps every batch it hands out (the
+    host arrays, by reference): what the prefetcher delivers is held
+    against them afterwards."""
+
+    def __init__(self, source):
+        self.source = source
+        self.batches = []
+
+    def __call__(self):
+        src = self.source
+        if hasattr(src, "next_arrays"):
+            arrays = src.next_arrays()
+        else:
+            batch = src.next()
+            arrays = tuple(a.numpy() for a in batch.data + batch.label)
+        self.batches.append(arrays)
+        return arrays
+
+
+def rec_net_with_loss(net, dev):
+    """`bench.py`'s ``RecNetWithLoss``: uint8 NHWC in; f32, normalised,
+    bf16 and NCHW inside the step."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    class RecNetWithLoss(HybridBlock):
+        def __init__(self, n):
+            super().__init__()
+            self.net = n
+            self.loss_fn = SoftmaxCrossEntropyLoss()
+            self.mean = mx.np.array(REC_MEAN, ctx=dev)
+            self.std = mx.np.array(REC_STD, ctx=dev)
+
+        def forward(self, x_u8, y):
+            x = x_u8.to(torch.float32)
+            x = ((x - self.mean) / self.std).to(torch.bfloat16)
+            x = mx.np.transpose(x, (0, 3, 1, 2))
+            return self.loss_fn(self.net(x), y)
+
+    return RecNetWithLoss(net)
+
+
+def aug_net_with_loss(net, dev):
+    """`bench.py`'s ``AugNetWithLoss``: the uint8 canvas in; random
+    224 x 224 crop, flip, normalisation, bf16 and NCHW by `DeviceAugment`
+    inside the step."""
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.gluon.data import DeviceAugment
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    class AugNetWithLoss(HybridBlock):
+        def __init__(self, n):
+            super().__init__()
+            self.net = n
+            self.loss_fn = SoftmaxCrossEntropyLoss()
+            self.aug = DeviceAugment(
+                (RESNET_IMAGE, RESNET_IMAGE), rand_crop=True,
+                rand_mirror=True, mean=REC_MEAN, std=REC_STD,
+                dtype="bfloat16")
+
+        def forward(self, x_u8, y):
+            return self.loss_fn(self.net(self.aug(x_u8)), y)
+
+    return AugNetWithLoss(net)
+
+
+def _decode_rates(rec):
+    """img/s of the native pipeline (`bench.py`'s shapes: 224 crops and
+    flips of the shuffled file), one decode thread and the default pool
+    (`env.decode_threads`), each on a fresh handle after one batch."""
+    from mxnet_tpu_torch.env import decode_threads
+    from mxnet_tpu_torch.io import ImageRecordIter
+
+    out = {}
+    for name, threads, n in (("single", 1, REC_SINGLE_BATCHES),
+                             ("pool", None, REC_POOL_BATCHES)):
+        it = ImageRecordIter(rec, RESNET_BATCH, (3, RESNET_IMAGE,
+                                                 RESNET_IMAGE),
+                             rand_crop=True, rand_mirror=True, shuffle=True,
+                             preprocess_threads=threads)
+        it.next_arrays()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            it.next_arrays()
+        out[f"decode_{name}_img_per_s"] = RESNET_BATCH * n / (
+            time.perf_counter() - t0)
+        it.close()
+    out["decode_pool_threads"] = decode_threads()
+    return out
+
+
+def _pil_canvases(rec):
+    """Every record of ``rec`` decoded on the host by Pillow
+    (`recordio.unpack_img`), one thread: (N, S, S, 3) uint8 canvases,
+    f32 labels, and the img/s it took."""
+    import numpy as onp
+    from mxnet_tpu_torch import recordio
+
+    r = recordio.MXRecordIO(rec, "r")
+    imgs, labels = [], []
+    t0 = time.perf_counter()
+    while (buf := r.read()) is not None:
+        header, img = recordio.unpack_img(buf)
+        imgs.append(img.numpy())
+        labels.append(header.label)
+    rate = len(imgs) / (time.perf_counter() - t0)
+    r.close()
+    return onp.stack(imgs), onp.asarray(labels, onp.float32), rate
+
+
+def _h2d(batch, dev):
+    """ms and MB/s of one pinned host-to-card copy of ``batch`` (a numpy
+    array), by CUDA events."""
+    import torch
+    pinned = torch.from_numpy(batch).pin_memory()
+    dst = torch.empty(pinned.shape, dtype=pinned.dtype, device=dev)
+    ms = cuda_ms(lambda: dst.copy_(pinned, non_blocking=True), iters=10)
+    return ms, batch.nbytes / 2 ** 20 / (ms / 1e3)
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _augment_words_check(step, dev, canvas_hw):
+    """The seed words of the captured step's last replay (its buffer's
+    first row, the augment's draw): their crop offsets and flips on the
+    card against the plain CPU draw of the same words."""
+    import torch
+    from mxnet_tpu_torch.gluon.data.augment import augment_draws
+    from mxnet_tpu_torch.ops.threefry import key_of
+
+    (entry,) = step._graphs.values()
+    if entry.kinds != ("augment",):
+        raise SystemExit(f"recordio: the captured AugNet step drew "
+                         f"{entry.kinds}, not one augment key")
+    words = entry.buf[:2].clone()
+    shape = (RESNET_BATCH, *canvas_hw, RESNET_IMAGE, RESNET_IMAGE)
+    card = augment_draws(key_of(words), *shape)
+    plain = augment_draws(key_of(words.cpu()), *shape)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card, plain))
+    return words.cpu(), plain, same
+
+
+def _recordio_variant(name, dev, make_mod, source, canvas_hw):
+    """Train ResNet-50 through `FusedTrainStep` from ``source`` (a
+    DataIter of uint8 NHWC batches and f32 labels) behind a
+    `DevicePrefetcher`: warm-up, chip-only, two end-to-end windows, one
+    step's host syncs, TRACED_STEPS traced steps; then the gates."""
+    import numpy as onp
+    import torch
+    from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
+    from mxnet_tpu_torch.io import DevicePrefetcher
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    net = resnet50(dev)
+    mod = make_mod(net, dev)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      kvstore="device")
+    step = FusedTrainStep(mod, trainer,
+                          generator=torch.Generator().manual_seed(31))
+    tee = _Tee(source)
+    pf = DevicePrefetcher(tee, ctx=dev, depth=REC_DEPTH,
+                          dtypes=(None, onp.int32))
+    delivered = []
+
+    def one():
+        x, y = next(pf)
+        delivered.append((x, y))
+        return step(x, y, batch_size=RESNET_BATCH)
+
+    t0 = time.perf_counter()
+    losses = [one() for _ in range(REC_WARMUP)]
+    _sync(dev)
+    warm_s = time.perf_counter() - t0
+    # chip-only: re-step the last resident batch, then put the weights
+    # back, so the end-to-end windows train on from the warm-up
+    snap = _snapshot(mod, trainer)
+    x0, y0 = delivered[-1]
+    for _ in range(2):
+        step(x0, y0, batch_size=RESNET_BATCH)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(REC_CHIP_STEPS):
+        step(x0, y0, batch_size=RESNET_BATCH)
+    _sync(dev)
+    chip_rate = RESNET_BATCH * REC_CHIP_STEPS / (time.perf_counter() - t0)
+    _restore(mod, trainer, snap)
+    windows = []
+    for _ in range(REC_WINDOWS):
+        t0 = time.perf_counter()
+        losses += [one() for _ in range(REC_WINDOW)]
+        _sync(dev)
+        windows.append(RESNET_BATCH * REC_WINDOW /
+                       (time.perf_counter() - t0))
+    out = {"variant": name, "batch": RESNET_BATCH, "warmup_s": warm_s,
+           "chip_only_img_per_s": chip_rate,
+           "end_to_end_img_per_s": windows,
+           "prefetcher": pf.stats()}
+    n_syncs, examples = _count_syncs(one)
+    seen, _ = _count_syncs(lambda: torch.ones(1, device=dev).item())
+    out["host_syncs_per_step"] = n_syncs if seen >= 1 else "not measured"
+    _reset_cnn_counts()
+    _, traced = traced_launches(lambda: [one() for _ in range(TRACED_STEPS)])
+    booked = _cnn_counts()
+    out["launches"] = {k: traced[k] for k in booked}
+    out["launches_booked"] = booked
+    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_conv": 0}
+    counts_ok = all(traced[k] == booked[k] == TRACED_STEPS * n
+                    for k, n in expect.items())
+    if canvas_hw is not None:
+        words1, draws1, same1 = _augment_words_check(step, dev, canvas_hw)
+        one()
+        words2, draws2, same2 = _augment_words_check(step, dev, canvas_hw)
+        differ = not all(torch.equal(a, b) for a, b in zip(draws1, draws2))
+        out["augment"] = {"words": [(w.long() & 0xFFFFFFFF).tolist()
+                                    for w in (words1, words2)],
+                          "card_draws_equal_plain": same1 and same2,
+                          "two_replays_crop_differently": differ}
+        aug = mod.aug
+        from mxnet_tpu_torch import autograd
+        xa = delivered[-1][0]
+
+        def augment_alone():
+            with autograd.train_mode(
+                    generator=torch.Generator().manual_seed(5)):
+                return aug(xa)
+        out["augment_device_ms"] = device_ms(augment_alone, iters=5)
+        step_ms = RESNET_BATCH * 1e3 / max(windows)
+        out["profile"] = profile_call(
+            one, f"replayed {name} step at batch {RESNET_BATCH} through "
+            "the prefetcher", step_ms)
+        dev_ms = out["profile"]["device_ms_traced"]
+        out["augment_device_share"] = (
+            out["augment_device_ms"] / dev_ms
+            if isinstance(dev_ms, float) else "not measured")
+    pf.close()
+    # every batch delivered equals, bitwise on the card, the batch the
+    # source handed the prefetcher
+    bitwise = len(tee.batches) >= len(delivered) and all(
+        torch.equal(x, torch.from_numpy(hx).to(dev)) and
+        torch.equal(y, torch.from_numpy(hy.astype(onp.int32)).to(dev))
+        for (x, y), (hx, hy) in zip(delivered, tee.batches))
+    vals, finite, falling = _loss_gates(losses)
+    out.update({"batches_checked": len(delivered),
+                "delivered_bitwise": bitwise, "loss_first": vals[0],
+                "loss_last5_mean": sum(vals[-5:]) / 5, "losses": vals,
+                "launches_per_step_ok": counts_ok,
+                "captures": step.captures,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else "not measured"})
+    log(f"recordio: {name}: " + json.dumps(out))
+    ok = finite and falling and counts_ok and bitwise and \
+        step.captures == 1 and out["host_syncs_per_step"] == 0
+    if canvas_hw is not None:
+        ok = ok and out["augment"]["card_draws_equal_plain"] and \
+            out["augment"]["two_replays_crop_differently"]
+    if not ok:
+        raise SystemExit(
+            f"recordio: {name} failed: finite={finite} falling={falling} "
+            f"launches ok={counts_ok} delivered bitwise={bitwise} "
+            f"captures={step.captures} host syncs="
+            f"{out['host_syncs_per_step']} {examples} augment="
+            f"{out.get('augment')}")
+    del step, trainer, mod, net, delivered, tee, pf
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_recordio(dev):
+    """`bench.py`'s ``_bench_recordio`` in the port: ResNet-50 v1 (bf16,
+    batch 128, Xavier, SGD lr 0.1 momentum 0.9) trained through a
+    captured `FusedTrainStep` from a RecordIO file, ``ImageRecordIter``
+    -> ``DevicePrefetcher(depth=3, dtypes=(None, int32))``, in two
+    variants: (a) host crops and flips, ``RecNetWithLoss``; (b) 256 x 256
+    canvases, `DeviceAugment` inside the step.  Where this machine
+    cannot link libjpeg (`_native.jpeg_unavailable`), the native
+    pipeline cannot be built: (a) is not run, and (b) is fed the
+    file's records decoded by Pillow on the host, through ``NDArrayIter``
+    and ``ResizeIter``; the output says so and why."""
+    import numpy as onp
+    from pathlib import Path
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.io import ImageRecordIter, NDArrayIter, ResizeIter
+
+    rec_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    rec_dir.mkdir(parents=True, exist_ok=True)
+    rec = str(rec_dir / "bench_imagenet.rec")
+    t0 = time.perf_counter()
+    make_bench_rec(rec)
+    out = {"images": REC_IMAGES, "side": REC_SIDE,
+           "rec_build_s": time.perf_counter() - t0,
+           "rec_mb": Path(rec).stat().st_size / 2 ** 20}
+    no_jpeg = _native.jpeg_unavailable()
+    out["native_decode"] = "run" if no_jpeg is None else \
+        "not run: g++ cannot link libjpeg here: " + no_jpeg.splitlines()[0]
+    log(f"recordio: file {json.dumps(out)}")
+    if no_jpeg is None:
+        out.update(_decode_rates(rec))
+        crop_src = ImageRecordIter(rec, RESNET_BATCH,
+                                   (3, RESNET_IMAGE, RESNET_IMAGE),
+                                   rand_crop=True, rand_mirror=True,
+                                   shuffle=True)
+        out["a"] = _recordio_variant("a_host_crop", dev, rec_net_with_loss,
+                                     crop_src, None)
+        crop_src.close()
+        canvas_src = ImageRecordIter(rec, RESNET_BATCH,
+                                     (3, REC_SIDE, REC_SIDE), shuffle=True)
+    else:
+        canvases, labels, out["pil_decode_single_img_per_s"] = \
+            _pil_canvases(rec)
+        onp.random.seed(0)
+        canvas_src = ResizeIter(NDArrayIter(canvases, labels,
+                                            batch_size=RESNET_BATCH,
+                                            shuffle=True), 10 ** 6)
+    out["b"] = _recordio_variant("b_device_augment", dev, aug_net_with_loss,
+                                 canvas_src, (REC_SIDE, REC_SIDE))
+    if hasattr(canvas_src, "close"):
+        canvas_src.close()
+    for v in ("a", "b"):
+        if v not in out:
+            continue
+        shape = (RESNET_BATCH, RESNET_IMAGE if v == "a" else REC_SIDE,
+                 RESNET_IMAGE if v == "a" else REC_SIDE, 3)
+        ms, mb_s = _h2d(onp.zeros(shape, onp.uint8), dev)
+        res = out[v]
+        res["h2d_ms"], res["h2d_mb_per_s"] = ms, mb_s
+        res["h2d_img_per_s"] = RESNET_BATCH / (ms / 1e3)
+        rates = {"h2d": res["h2d_img_per_s"],
+                 "chip_only": res["chip_only_img_per_s"]}
+        if "decode_pool_img_per_s" in out:
+            rates["decode_pool"] = out["decode_pool_img_per_s"]
+        res["overlap_bound_img_per_s"] = min(rates.values())
+        res["bound_by"] = min(rates, key=rates.get)
+        res["overlap_bound_over"] = sorted(rates)
+        res["vs_overlap_bound"] = max(res["end_to_end_img_per_s"]) / \
+            res["overlap_bound_img_per_s"]
+        log(f"recordio: {res['variant']}: end to end "
+            f"{res['end_to_end_img_per_s']} img/s, chip only "
+            f"{res['chip_only_img_per_s']:.2f}, h2d {res['h2d_img_per_s']:.2f}"
+            f" img/s ({mb_s:.1f} MB/s), decode pool "
+            f"{out.get('decode_pool_img_per_s', 'not measured')}; overlap "
+            f"bound {res['overlap_bound_img_per_s']:.2f} ({res['bound_by']}),"
+            f" vs bound {res['vs_overlap_bound']:.4f}")
+    out["card"] = nvidia_smi()
+    log("recordio: " + json.dumps({k: v for k, v in out.items()
+                                   if k not in ("a", "b")}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: B6 (user kernels through rtc.CudaModule) vs plain
 # ---------------------------------------------------------------------------
 def _softmax_tol(cols):
@@ -3555,6 +3986,7 @@ def main():
     stem_rows = phase_stem(dev)
     resnet = phase_resnet(dev)
     resnet_s2d = phase_resnet_s2d(dev)
+    rec = phase_recordio(dev)
     rtc_out = phase_rtc(dev)
     custom = phase_resnet_custom(dev)
     log(f"seconds: {time.perf_counter() - t_start:.1f}")
@@ -3661,6 +4093,9 @@ def main():
         "replaces": "mxnet_tpu/ops/nn.py:340",
         "launches": resnet["launches"]["bn_bwd_reduce"],
         "launches_booked": resnet["launches_booked"]["bn_bwd_reduce"],
+        "recordio_launches": {rec[v]["variant"]:
+                              rec[v]["launches"]["bn_bwd_reduce"]
+                              for v in ("a", "b") if v in rec},
         "max_abs_err": bn_case["max_abs_err"],
         "ms": bn_case["ms"], "plain_ms": bn_case["plain_ms"],
         "bound_ms": bn_case["bound_ms"], "bound_by": bn_case["bound_by"],

@@ -10,11 +10,15 @@ matmul), so that ``amp.init`` reaches them as it reaches the
 reference's.  Each is a plain function on tensors with numpy's
 signature and its ``axis`` / ``keepdims`` / ``dtype`` semantics; the
 products promote mixed operand dtypes as numpy does (same-dtype
-operands go through untouched).  The rest of ``mx.np`` (array creation,
-shape manipulation, the ``NDArray`` type) is not ported yet.
+operands go through untouched).  Beside them, the array creation and
+shape functions `bench.py`'s prologue calls: `array`, `asarray` and
+`transpose`.  The rest of ``mx.np`` (the
+other creation and shape functions, the ``NDArray`` type) is not ported
+yet.
 """
 from __future__ import annotations
 
+import numpy as onp
 import torch
 
 __all__ = ["matmul", "dot", "einsum", "tensordot", "inner", "outer",
@@ -22,7 +26,7 @@ __all__ = ["matmul", "dot", "einsum", "tensordot", "inner", "outer",
            "reciprocal", "power", "sum", "nansum", "prod", "nanprod",
            "mean", "std", "var", "cumsum", "trace", "average", "arccos",
            "arcsin", "cosh", "sinh", "tan", "arctanh", "sqrt", "cbrt",
-           "argsort", "sort"]
+           "argsort", "sort", "array", "asarray", "transpose"]
 
 
 def _promote(*arrays):
@@ -213,13 +217,55 @@ def average(a, axis=None, weights=None, returned=False):
 
 
 def argsort(a, axis=-1, kind=None, order=None):
-    """Stable ascending sort's indices (torch's int64)."""
+    """Stable ascending sort's indices, int32 as the reference's (JAX
+    without x64); torch indexes with int32 tensors as it does with
+    int64."""
     if axis is None:
-        return torch.argsort(a.reshape(-1), stable=True)
-    return torch.argsort(a, dim=axis, stable=True)
+        return torch.argsort(a.reshape(-1), stable=True).to(torch.int32)
+    return torch.argsort(a, dim=axis, stable=True).to(torch.int32)
 
 
 def sort(a, axis=-1, kind=None, order=None):
     if axis is None:
         return torch.sort(a.reshape(-1), stable=True).values
     return torch.sort(a, dim=axis, stable=True).values
+
+
+def array(object, dtype=None, ctx=None, device=None):
+    """A tensor of ``object`` on ``ctx`` (default: the card; a tensor's
+    own device for a tensor).  Without a dtype, Python and numpy floats
+    become f32 and int64 becomes int32, as in the reference (JAX without
+    x64); a tensor keeps its dtype."""
+    from ..context import resolve_device
+    from ..gluon.parameter import to_torch_dtype
+
+    if dtype is None and not isinstance(object, torch.Tensor):
+        probe = onp.asarray(object)
+        if probe.dtype.kind == "f":
+            dtype = torch.float32
+        elif probe.dtype == onp.int64:
+            dtype = torch.int32
+        object = probe
+    ctx = ctx if ctx is not None else device
+    if ctx is None and isinstance(object, torch.Tensor):
+        ctx = object.device
+    return torch.as_tensor(object).to(
+        device=resolve_device(ctx),
+        dtype=None if dtype is None else to_torch_dtype(dtype))
+
+
+def asarray(a, dtype=None):
+    """``a`` itself when it is a tensor and no dtype is asked, else
+    `array` (on the card)."""
+    if isinstance(a, torch.Tensor) and dtype is None:
+        return a
+    return array(a, dtype=dtype)
+
+
+def transpose(a, axes=None):
+    """``a`` with its axes permuted (reversed without ``axes``), as a new
+    contiguous tensor: the reference's arrays are row-major values."""
+    if axes is None:
+        axes = tuple(range(a.ndim))[::-1]
+    return a.permute(*axes).contiguous()
+

@@ -69,6 +69,7 @@ import torch
 
 from ._build import Kernel, stream_of
 from .seeds import words_tensor
+from .threefry import threefry2x32
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_backward_reference",
@@ -106,32 +107,12 @@ FLASH_BWD_DQ = Kernel("flash_attention_bwd_dq")
 FLASH_BWD_DKV = Kernel("flash_attention_bwd_dkv")
 
 
-# ---------------------------------------------------------------------------
-# threefry2x32 dropout bits, in int64 arithmetic masked to 32 bits (torch's
-# uint32 coverage on the CPU is thin); the CUDA kernel uses native uint32
-# ---------------------------------------------------------------------------
-def _rotl32(x, r):
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
 def _threefry2x32(k0, k1, c0, c1):
     """Threefry-2x32 (20 rounds), first output word, on int64 tensors
-    holding uint32 values (broadcasting); bit-identical to the
-    reference's `_threefry2x32`."""
-    k0, k1, c0, c1 = (torch.as_tensor(a, dtype=torch.int64) & _M32
-                      for a in (k0, k1, c0, c1))
-    ks2 = 0x1BD11BDA ^ k0 ^ k1
-    x0 = (c0 + k0) & _M32
-    x1 = (c1 + k1) & _M32
-    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
-    inj = ((k1, ks2), (ks2, k0), (k0, k1), (k1, ks2), (ks2, k0))
-    for i, (a, b) in enumerate(inj):
-        for r in rot[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl32(x1, r) ^ x0
-        x0 = (x0 + a) & _M32
-        x1 = (x1 + b + (i + 1)) & _M32
-    return x0
+    holding uint32 values (broadcasting; `ops.threefry`); bit-identical
+    to the reference's `_threefry2x32`.  The CUDA kernels use native
+    uint32."""
+    return threefry2x32(k0, k1, c0, c1)[0]
 
 
 def _keep_threshold(keep):

@@ -165,8 +165,36 @@ def dropout(data, seed, p=0.5):
     return _Dropout.apply(data, seed, float(p))
 
 
+class _Embedding(torch.autograd.Function):
+    """Row lookup whose backward sums in a fixed order: the rows of the
+    output gradient are accumulated into the weight's gradient by
+    ``index_put_(accumulate=True)``, which on the card sorts the indices
+    (stably) and adds each index's rows one after another, so two
+    backwards of the same inputs agree bitwise.  torch's own embedding
+    backward adds repeated indices with atomics on the card, in a varying
+    order."""
+
+    @staticmethod
+    def forward(ctx, index, weight):
+        ctx.save_for_backward(index)
+        ctx.rows = weight.shape[0]
+        return F.embedding(index, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        width = grad.shape[-1]
+        dw = torch.zeros((ctx.rows, width), dtype=grad.dtype,
+                         device=grad.device)
+        dw.index_put_((index.reshape(-1),), grad.reshape(-1, width),
+                      accumulate=True)
+        return None, dw
+
+
 def embedding(data, weight):
-    return F.embedding(data.long(), weight)
+    """``weight[data]``; the weight's gradient is summed in a fixed order
+    (`_Embedding`)."""
+    return _Embedding.apply(data.long(), weight)
 
 
 def pick(data, index, axis=-1):

@@ -14,16 +14,19 @@ The others keep f32 states for the same reason.  LARS's per-tensor norms
 are one ``torch._foreach_norm`` a list, its trust ratios kept on the
 device.  SGLD draws fresh Gaussian noise at every parameter's update, so
 it runs parameter by parameter (``supports_fused = False``); the noise
-comes from an explicit CPU ``torch.Generator`` (its ``generator=``, or
-the enclosing ``autograd.record`` / ``train_mode`` scope's), never from
-torch's global generator.  Its bits are not the reference's
-(``jax.random.normal``).
+takes a threefry key of two words from an explicit CPU
+``torch.Generator`` (its ``generator=``, or the enclosing
+``autograd.record`` / ``train_mode`` scope's), never from torch's global
+generator, and is what ``jax.random.normal`` draws from that key
+(`ops.threefry.normal`, on the weight's device), as the reference's is.
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops import threefry
 from ..ops.invoke import current_generator
+from ..ops.seeds import DRAWS, words_tensor
 from .optimizer import Optimizer, register
 
 __all__ = ["SGD", "NAG", "Signum", "SGLD", "LARS", "DCASGD"]
@@ -163,8 +166,9 @@ class SGLD(Optimizer):
 
         weight += -lr / 2 * (grad + wd * weight) + N(0, lr)
 
-    The noise is drawn on the host from ``generator`` (a CPU
-    ``torch.Generator``), or from the enclosing train scope's."""
+    The noise is ``jax.random.normal`` of a key whose two words come
+    from ``generator`` (a CPU ``torch.Generator``), or from the enclosing
+    train scope's."""
 
     supports_fused = False
 
@@ -179,8 +183,9 @@ class SGLD(Optimizer):
                 "SGLD draws its noise from a torch.Generator: pass "
                 "generator= or step under autograd.train_mode("
                 "generator=...)")
-        return torch.randn(tuple(weight.shape), generator=gen,
-                           dtype=torch.float32).to(weight.device)
+        key = threefry.key_of(words_tensor(DRAWS["normal"](gen),
+                                           weight.device))
+        return threefry.normal(key, weight.numel()).reshape(weight.shape)
 
     def update_math(self, weight, grad, states, lr, wd, t):
         grad = grad.float()

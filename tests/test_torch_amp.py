@@ -8,8 +8,8 @@ a ``finally``.  Held here, on the CPU, on the same numpy inputs:
 - the lists: every entry the port has gives, under ``amp.init("float16")``,
   the output dtype the reference's gives, for f32 and for f16 inputs,
   with values within f16's rounding (atol = rtol = 2e-3 where the output
-  is f16, 1e-5 where it is f32; argsort's integer type is torch's int64
-  where the reference's is int32, so only its kind is compared); the
+  is f16, 1e-5 where it is f32; argsort's integer type is compared by
+  kind only, as before its int32 was settled in `test_torch_numpy.py`); the
   entries the port lacks are exactly `amp.UNPORTED`; ``_reset`` puts
   every function back;
 - `LossScaler`: the scale over a fixed list of overflow flags equals the

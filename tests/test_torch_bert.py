@@ -138,3 +138,39 @@ def test_layer_norm_matches_reference(axis):
                              torch.from_numpy(b), axis=axis, eps=1e-12)
     onp.testing.assert_allclose(got.numpy(), onp.asarray(expect),
                                 atol=ATOL, rtol=RTOL)
+
+
+def test_embedding_backward_sums_in_a_fixed_order(monkeypatch):
+    """The embedding's weight gradient is accumulated by
+    ``index_put_(accumulate=True)`` (on the card: indices sorted stably,
+    each index's rows added one after another), not by torch's embedding
+    backward, which adds repeated indices with atomics on the card in a
+    varying order.  On the CPU its sum is the sequential f32 sum in
+    position order, bitwise, and two backwards agree bitwise."""
+    from mxnet_tpu_torch import numpy_extension as npx
+
+    rng = onp.random.default_rng(3)
+    idx = torch.from_numpy(rng.integers(0, 3, (4, 64)).astype(onp.int32))
+    weight = torch.from_numpy(rng.standard_normal((5, 8)).astype(
+        onp.float32)).requires_grad_()
+    dout = torch.from_numpy(rng.standard_normal((4, 64, 8)).astype(
+        onp.float32) * 1e3)
+    calls = []
+    real = torch.Tensor.index_put_
+
+    def spy(self, indices, values, accumulate=False):
+        calls.append(accumulate)
+        return real(self, indices, values, accumulate)
+
+    monkeypatch.setattr(torch.Tensor, "index_put_", spy)
+    grads = []
+    for _ in range(2):
+        out = npx.embedding(idx, weight)
+        (g,) = torch.autograd.grad(out, weight, dout)
+        grads.append(g)
+    assert calls == [True, True]
+    assert torch.equal(grads[0], grads[1])
+    want = onp.zeros((5, 8), onp.float32)
+    for i, row in zip(idx.reshape(-1).tolist(), dout.reshape(-1, 8).numpy()):
+        want[i] += row
+    onp.testing.assert_array_equal(grads[0].numpy(), want)

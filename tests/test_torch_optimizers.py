@@ -22,9 +22,12 @@ CPU:
   parameter's update changes) take the per-parameter path in the
   Trainer, and `FusedTrainStep` refuses them;
 - SGLD's deterministic part against the reference's with the noise
-  zeroed in both; its noise, drawn from an explicit generator (the
-  reference's bits are ``jax.random.normal``'s, not comparable), by
-  mean and variance;
+  zeroed in both; its noise, from an explicit generator, by mean and
+  variance; and the noise against the reference's ``jax.random.normal``
+  given the same key (the two words the port draws): within 4 f32 ulps
+  of the reference's value, since XLA's ``erf_inv`` polynomial is
+  computed in torch with torch's own ``log1p`` (every other step of the
+  draw is exact integer arithmetic);
 - the registry covers the reference's set, and each new optimizer's
   ``Updater`` state file loads in the other package.
 """
@@ -270,6 +273,28 @@ def test_sgld_noise_is_gaussian_from_the_explicit_generator():
     again = port_opt.create("sgld", learning_rate=lr,
                             generator=torch.Generator().manual_seed(5))
     assert torch.equal(again.update_math(w, g, (), lr, 0.0, 1)[0], noise)
+
+
+def test_sgld_noise_is_jax_random_normal_of_the_same_key(monkeypatch):
+    from mxnet_tpu import random as ref_random
+    from mxnet_tpu_torch.ops.seeds import DRAWS
+
+    lr, shape = 0.09, (300, 70)
+    words = DRAWS["normal"](torch.Generator().manual_seed(8))
+    monkeypatch.setattr(ref_random, "new_key",
+                        lambda: jnp.asarray(words, jnp.uint32))
+    opt = port_opt.create("sgld", learning_rate=lr,
+                          generator=torch.Generator().manual_seed(8))
+    zeros = onp.zeros(shape, onp.float32)
+    got, _ = opt.update_math(torch.from_numpy(zeros), torch.from_numpy(zeros),
+                             (), lr, 0.0, 1)
+    want, _ = ref_opt.create("sgld", learning_rate=lr).update_math(
+        jnp.asarray(zeros), jnp.asarray(zeros), (), lr, 0.0, 1)
+    want = onp.asarray(want)
+    ulp = onp.spacing(onp.abs(want)).astype(onp.float64)
+    err = onp.abs(got.numpy().astype(onp.float64) - want) / ulp
+    assert err.max() <= 4, err.max()
+    assert (got.numpy() == want).mean() > 0.9
 
 
 # -- the registry and state files --------------------------------------------

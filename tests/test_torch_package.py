@@ -52,7 +52,10 @@ def test_import_leaves_jax_out():
             "mxnet_tpu_torch.utils.legacy_format, mxnet_tpu_torch.amp, "
             "mxnet_tpu_torch.amp.loss_scaler, mxnet_tpu_torch.lr_scheduler, "
             "mxnet_tpu_torch.numpy, mxnet_tpu_torch.optimizer.adam, "
-            "mxnet_tpu_torch.optimizer.rmsprop, chip_smoke; "
+            "mxnet_tpu_torch.optimizer.rmsprop, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.recordio, mxnet_tpu_torch.gluon.data, "
+            "mxnet_tpu_torch._native, mxnet_tpu_torch.env, "
+            "mxnet_tpu_torch.image, mxnet_tpu_torch.ops.threefry, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
