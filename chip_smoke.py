@@ -228,11 +228,44 @@ the package is missing.  Phases, each fatal on failure:
    weights and batch, on the f32 and on the bf16 logits: the three loss
    curves side by side (``resnet_custom: loss curves``).
 
+11. **The LSTM word language model** (BASELINE config 5), at the
+   reference's ``example/rnn`` "medium" width (vocab 10000, embedding =
+   hidden = 650, 2 layers), the recurrence plain torch ops (no TPU
+   kernel lies on this path: the reference's is ``lax.scan`` over
+   ``jnp`` ops).  (a) ``benchmark/rnn_lm_bench.py``'s step: its WordLM
+   (Embedding, ``rnn.LSTM`` TNC, Dense over the vocabulary) in bf16,
+   -mean(pick(log_softmax(f32 logits))), SGD lr 1.0 momentum 0.9
+   through a captured ``FusedTrainStep`` on seeded (35, B) tokens, 3
+   warm-up and 20 timed replays at B = 32 and 128.  Gates: finite
+   losses, the last five below the first, one capture, 1 host launch
+   call and 0 host syncs a replay (from the trace); at B = 32 the
+   eager step against a new step's eager first call and against a
+   replay (one bf16 ulp, equal losses), bf16 h_n and c_n and no f32
+   matrix product in the eager step's trace (``record_shapes``).
+   Printed: step ms replayed and eager, tokens/s, device ms, idle
+   share, kernels a replay, the largest kernels, peak memory and the
+   step's bound.  Beside it, off the path, cuDNN's fused LSTM
+   (``torch.nn.LSTM(650, 650, num_layers=2)``, bf16) forward and
+   backward over (35, 32, 650) against the port's ``rnn.LSTM`` on the
+   same input.  (b) ``examples/rnn/word_lm.py``'s eager loop:
+   ``RNNModel(10000, 650, 650, 2, "lstm", dropout=0.5,
+   tie_weights=True)`` in f32, ``BucketSentenceIter(buckets=[10, 20,
+   30], layout="TN", batch_size=32)`` over `learnable_corpus` (each
+   token its predecessor's image under a fixed permutation with
+   probability 0.9, else uniform: the example's own stream is noise no
+   model can learn), ``record``, the loss, ``backward``,
+   ``clip_global_norm(..., 0.25)``, ``Trainer.step``, SGD lr 1.0.
+   Gates: the last 10 batches' mean loss below the first 10's by
+   WORD_LM_MARGIN; the dropout kernel 2 launches a forward (4 a
+   training batch) on the card and by its wrapper; the mask between
+   the LSTM layers on the card bitwise its plain CPU computation from
+   the same key words.
+
 Every measurement is printed on a line of its own (``kernel``,
 ``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``kernel_rtc``,
 ``serve:``, ``train:``, ``train_amp:``, ``odd_bert:``, ``flash_crossover:``,
 ``resnet:``, ``resnet_s2d:``, ``recordio:``, ``rtc:``, ``resnet_custom:``,
-``profile:``).  The last three lines are a ``{"kernels": [...]}``
+``rnn_lm:``, ``profile:``).  The last three lines are a ``{"kernels": [...]}``
 object.  A captured path's ``launches`` are counted on the card, from
 the ``torch.profiler`` trace of its traced run (`KERNEL_NAMES`), with
 the wrappers' bookkeeping of the same run beside them as
@@ -244,7 +277,8 @@ training case with its launches over the 2 traced amp + remat steps; B4
 and B5 at the BERT training path's main case, with their launches over
 the traced steps, their D > 128 cases, and their ``amp_f16_case``; the
 dropout kernel at (32, 128, 768) bf16 with its launches over the traced
-BERT steps (``amp_launches``: over the traced amp steps); B1 at the
+BERT steps (``amp_launches``: over the traced amp steps;
+``rnn_lm_launches``: over the traced word-LM batches); B1 at the
 stem BatchNorm's shape,
 with its launches over the 2 traced ResNet steps (``recordio_launches``:
 over the 2 traced steps of each recordio variant); B2 at the bf16 stem,
@@ -1358,11 +1392,13 @@ def phase_replay_seeds(dev):
 # ---------------------------------------------------------------------------
 # phase 2d: the dropout kernel vs plain
 # ---------------------------------------------------------------------------
-# BERT-base training's dropout input (32 x 128 tokens x 768) in bf16 and
-# f32, and an odd case
-DROPOUT_CASES = [("bfloat16", (B_TRAIN, T_TRAIN, 768)),
-                 ("float32", (B_TRAIN, T_TRAIN, 768)),
-                 ("bfloat16", (3, 1001, 7))]
+# (dtype, shape, p): BERT-base training's dropout input (32 x 128 tokens
+# x 768) in bf16 and f32, an odd case, and the word LM's (phase 11)
+# nn.Dropout input at its longest bucket: (30, 32, 650) f32, p 0.5
+DROPOUT_CASES = [("bfloat16", (B_TRAIN, T_TRAIN, 768), 0.1),
+                 ("float32", (B_TRAIN, T_TRAIN, 768), 0.1),
+                 ("bfloat16", (3, 1001, 7), 0.1),
+                 ("float32", (30, 32, 650), 0.5)]
 
 
 def phase_dropout(dev):
@@ -1378,29 +1414,30 @@ def phase_dropout(dev):
     gen = torch.Generator().manual_seed(55)
     seed = torch.tensor([0x2468ACE, -0x1357], dtype=torch.int32, device=dev)
     rows = []
-    for dname, shape in DROPOUT_CASES:
+    for dname, shape, p in DROPOUT_CASES:
         dtype = getattr(torch, dname)
         x = torch.randn(*shape, generator=gen).to(dev, dtype)
-        y = tnn._dropout_apply(x, seed, 0.1)
-        ref = tnn.dropout_reference(x, seed, 0.1)
+        y = tnn._dropout_apply(x, seed, p)
+        ref = tnn.dropout_reference(x, seed, p)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
         equal = bool(torch.equal(y, ref))
         kept = float((ref != 0).float().mean())
-        ms = cuda_ms(lambda: tnn._dropout_apply(x, seed, 0.1))
-        plain_ms = cuda_ms(lambda: tnn.dropout_reference(x, seed, 0.1),
+        ms = cuda_ms(lambda: tnn._dropout_apply(x, seed, p))
+        plain_ms = cuda_ms(lambda: tnn.dropout_reference(x, seed, p),
                            iters=5)
-        torch_ms = cuda_ms(lambda: F.dropout(x, 0.1, training=True))
+        torch_ms = cuda_ms(lambda: F.dropout(x, p, training=True))
         bound_ms, bound_by = _bound_ms(dname, 2 * x.numel() *
                                        x.element_size() + 8, 0)
-        row = {"dtype": dname, "shape": list(shape), "max_abs_err": err,
+        row = {"dtype": dname, "shape": list(shape), "p": p,
+               "max_abs_err": err,
                "bitwise": equal, "keep_rate": kept, "ms": ms,
                "plain_ms": plain_ms, "torch_dropout_ms": torch_ms,
                "library_ms": None, "bound_ms": bound_ms,
                "bound_by": bound_by}
         rows.append(row)
         log("kernel_dropout: " + json.dumps(row))
-    if not all(r["bitwise"] and abs(r["keep_rate"] - 0.9) < 0.01
+    if not all(r["bitwise"] and abs(r["keep_rate"] - (1 - r["p"])) < 0.01
                for r in rows):
         raise SystemExit("the dropout kernel disagrees with its plain "
                          "version")
@@ -1717,17 +1754,35 @@ def _named_launches(prof, names):
     return counts
 
 
+# spin kernels (``torch.cuda._sleep``) run at the start of a counted
+# trace, before ``fn``: the profiler now and then loses the first records
+# of a trace (seen on an H100: the leading kernels of a word-LM forward,
+# its first dropout launch among them), so a count is read only from a
+# trace that kept at least one of these
+TRACE_PAD, TRACE_PAD_CYCLES = 256, 10000
+TRACE_PAD_NAME = r"\bspin_kernel\b"
+
+
 def traced_launches(fn):
-    """Run ``fn()`` traced by ``torch.profiler`` (device activity only);
-    returns its result and the launches of each of `KERNEL_NAMES` the
-    trace recorded, a CUDA graph's replayed kernels included."""
+    """Run ``fn()`` traced by ``torch.profiler`` (device activity only)
+    after `TRACE_PAD` spin kernels; returns its result and the launches
+    of each of `KERNEL_NAMES` the trace recorded, a CUDA graph's replayed
+    kernels included.  Fails if the trace lost every spin kernel, since
+    what it lost may then reach into ``fn``'s launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(TRACE_PAD_CYCLES)
+        torch.cuda.synchronize()
         result = fn()
         torch.cuda.synchronize()
-    return result, _named_launches(prof, KERNEL_NAMES)
+    counts = _named_launches(prof, dict(KERNEL_NAMES, pad=TRACE_PAD_NAME))
+    if counts.pop("pad") == 0:
+        raise SystemExit(f"the profiler lost all {TRACE_PAD} spin kernels "
+                         f"at the start of a counted trace")
+    return result, counts
 
 
 def device_ms(fn, iters=20):
@@ -1898,16 +1953,16 @@ def _restore(mod, trainer, snap):
         scaler.loss_scale, scaler._unskipped, trainer.skipped_steps = scaled
 
 
-def _replay_with(step, args, seed):
+def _replay_with(step, args, seed, batch=B_TRAIN):
     """One step of the captured ``step`` whose seed words come from a
     generator seeded ``seed`` (as the eager triple's draws do)."""
     import torch
     step._generator = torch.Generator().manual_seed(seed)
-    return step(*args, batch_size=B_TRAIN)
+    return step(*args, batch_size=batch)
 
 
 def _eager_vs_fused(mod, trainer, args, run_fused=None, what="fused",
-                    ulp=EAGER_FUSED_ULP):
+                    ulp=EAGER_FUSED_ULP, batch=B_TRAIN):
     """One eager record/backward/Trainer.step step and one FusedTrainStep
     step from the same weights, optimizer state and dropout seeds: a new
     step's first (eager) call, or ``run_fused()`` (a replay of a captured
@@ -1928,7 +1983,7 @@ def _eager_vs_fused(mod, trainer, args, run_fused=None, what="fused",
         autograd.backward(scaled)
     # loss_e keeps its autograd graph, and with it the parameters'
     # gradient accumulators, alive across a capture in run_fused
-    trainer.step(B_TRAIN)
+    trainer.step(batch)
     amp.unscale(trainer)
     eager = {k: p.data().detach().clone()
              for k, p in mod.collect_params().items()}
@@ -1936,7 +1991,7 @@ def _eager_vs_fused(mod, trainer, args, run_fused=None, what="fused",
     if run_fused is None:
         step = FusedTrainStep(mod, trainer,
                               generator=torch.Generator().manual_seed(77))
-        loss_f = step(*args, batch_size=B_TRAIN)
+        loss_f = step(*args, batch_size=batch)
     else:
         loss_f = run_fused()
     worst, n_diff, n_all = 0.0, 0, 0
@@ -3947,12 +4002,494 @@ def phase_resnet_custom(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the LSTM word language model (BASELINE config 5)
+# ---------------------------------------------------------------------------
+# benchmark/rnn_lm_bench.py's shape, the reference's example/rnn "medium"
+# word LM: vocab 10000, embedding = hidden = 650, 2 LSTM layers, bptt 35
+RNN_VOCAB, RNN_UNITS, RNN_LAYERS, RNN_BPTT = 10000, 650, 2, 35
+RNN_BATCHES = (32, 128)
+RNN_WARMUP, RNN_STEPS = 3, 20
+# examples/rnn/word_lm.py's loop: buckets, batch, gradient clipping
+WORD_LM_BUCKETS = (10, 20, 30)
+WORD_LM_BATCH = 32
+WORD_LM_CLIP = 0.25
+WORD_LM_DROPOUT = 0.5
+WORD_LM_BATCHES = 400
+WORD_LM_SENTENCES = 6000
+WORD_LM_TRACED = 2
+# each token follows its predecessor through a fixed permutation with
+# this probability, and is uniform otherwise
+WORD_LM_FOLLOW = 0.9
+# the mean loss of the last 10 of the 400 batches must be below the
+# first 10's by this many nats: about half of the 1.255 nats the loop
+# falls at width 650 on an H100 (9.2095 -> 7.9544, the same in two runs
+# of this phase).  On the CPU (``python3 chip_smoke.py --word-lm-curve
+# 64``, and ``256``) the loss sits near ln 10000 for ~150-200 batches,
+# then falls; over the 400 batches by 0.23 nats at width 64 and 0.62 at
+# width 256
+WORD_LM_MARGIN = 0.6
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+            "aten::matmul", "aten::linear")
+
+
+def rnn_lm_flops_per_token(head=True):
+    """``rnn_lm_bench.flops_per_token``: 3 x (forward) with the forward
+    2 x 4H(in + H) a layer, plus 2 H V for the vocabulary head."""
+    fwd = RNN_LAYERS * 8.0 * RNN_UNITS * (RNN_UNITS + RNN_UNITS)
+    if head:
+        fwd += 2.0 * RNN_UNITS * RNN_VOCAB
+    return 3.0 * fwd
+
+
+def rnn_lm_models(dev, seed=0, dtype="bfloat16"):
+    """``rnn_lm_bench.py``'s WordLM (Embedding -> LSTM(TNC) -> Dense over
+    the vocabulary) from the port's blocks, random weights from
+    ``seed``, cast to ``dtype``; and its LMLoss: -mean(pick(log_softmax
+    of the f32 logits))."""
+    import torch
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.gluon import HybridBlock, nn, rnn
+
+    vocab, units, layers = RNN_VOCAB, RNN_UNITS, RNN_LAYERS
+
+    class WordLM(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab, units)
+            self.lstm = rnn.LSTM(units, num_layers=layers, layout="TNC",
+                                 input_size=units)
+            self.decoder = nn.Dense(vocab, flatten=False, in_units=units)
+
+        def forward(self, data):
+            return self.decoder(self.lstm(self.embed(data)))
+
+    class LMLoss(HybridBlock):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, data, target):
+            logp = npx.log_softmax(self.m(data).float(), axis=-1)
+            return -mnp.mean(npx.pick(logp, target, axis=-1))
+
+    model = WordLM()
+    model.initialize(ctx=dev, generator=torch.Generator().manual_seed(seed))
+    if dtype != "float32":
+        model.cast(dtype)
+    return model, LMLoss(model)
+
+
+def rnn_lm_tokens(dev, batch, seed=31):
+    """Random (bptt, batch) int32 tokens and targets, as
+    ``rnn_lm_bench.py`` makes them, from ``seed``."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randint(0, RNN_VOCAB, (RNN_BPTT, batch),
+                               generator=gen, dtype=torch.int32).to(dev)
+                 for _ in range(2))
+
+
+def _gemm_input_types(fn, path):
+    """Run ``fn()`` under ``torch.profiler`` with shapes recorded and
+    return {GEMM op: sorted input types} from the trace it exports to
+    ``path``: every matrix product the host dispatched, backward
+    included."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if torch.cuda.is_available() else [])
+    with profile(activities=acts, record_shapes=True) as prof:
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        trace = json.load(f)
+    path.unlink()
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    found = collections.defaultdict(collections.Counter)
+    for evt in events:
+        if evt.get("name") in GEMM_OPS:
+            types = tuple(t for t in evt.get("args", {}).get("Input type", ())
+                          if t and t != "Scalar")
+            found[evt["name"]][",".join(types)] += 1
+    return {k: dict(v) for k, v in found.items()}
+
+
+def _rnn_lm_bound(model, trainer, batch):
+    """The least time of one training step on the card: its operations
+    (``rnn_lm_flops_per_token`` x tokens) at the bf16 peak, or its bytes
+    (every weight and optimizer state read and written once, the tokens
+    and targets read) at HBM's rate, whichever is larger."""
+    n_par = sum(p.data().numel() * p.data().element_size()
+                for p in model.collect_params().values())
+    n_state = sum(x.numel() * x.element_size()
+                  for st in trainer._states.values() for x in st
+                  if x is not None)
+    nbytes = 2 * (n_par + n_state) + 2 * RNN_BPTT * batch * 4
+    flops = rnn_lm_flops_per_token() * RNN_BPTT * batch
+    ms, by = _bound_ms("bfloat16", nbytes, flops)
+    return ms, by, {"bytes": nbytes, "flops": flops}
+
+
+def _rnn_lm_step(dev, batch, detail):
+    """``rnn_lm_bench.py``'s training step at ``batch``: bf16, SGD lr 1.0
+    momentum 0.9 through a captured `FusedTrainStep`, RNN_WARMUP
+    warm-up and RNN_STEPS timed replays; with ``detail``, also the eager
+    step against a new step's first call and a replay, the bf16 states
+    and products, the eager step's trace."""
+    import pathlib
+
+    import torch
+    from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    model, mod = rnn_lm_models(dev)
+    args = rnn_lm_tokens(dev, batch)
+    trainer = Trainer(model.collect_params(), "sgd",
+                      {"learning_rate": 1.0, "momentum": 0.9})
+    step = FusedTrainStep(mod, trainer)
+    t0 = time.perf_counter()
+    losses = [step(*args, batch_size=batch) for _ in range(RNN_WARMUP)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(RNN_STEPS):
+        losses.append(step(*args, batch_size=batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals, finite, falling = _loss_gates(losses)
+    tokens = batch * RNN_BPTT
+    bound_ms, bound_by, work = _rnn_lm_bound(model, trainer, batch)
+    label = f"replayed LSTM LM step at ({RNN_BPTT}, {batch})"
+    prof = phase_train_profile(lambda: step(*args, batch_size=batch), label)
+    host_calls = sum(prof["host_launch_calls"].values())
+    eager_step, eager_ms, _ = _eager_steps(mod, trainer, args, batch, 2, 5,
+                                           dict)
+    out = {"model": "rnn_lm_bench WordLM (V 10000, E = H = 650, 2 layers)",
+           "dtype": "bfloat16", "batch": batch, "bptt": RNN_BPTT,
+           "warmup_steps": RNN_WARMUP, "steps": RNN_STEPS,
+           "warmup_s": warm_s, "step_ms": wall / RNN_STEPS * 1e3,
+           "tokens_per_s": tokens * RNN_STEPS / wall,
+           "eager_step_ms": eager_ms,
+           "eager_tokens_per_s": tokens / eager_ms * 1e3,
+           "device_ms": prof["device_ms_traced"],
+           "idle_share": prof["idle_share"],
+           "kernels_per_replay": prof["kernel_launches"],
+           "host_launch_calls_per_replay": host_calls,
+           "host_syncs_per_replay": prof["host_syncs_per_step"],
+           "top_kernels_ms": prof["top_kernels_ms"][:5],
+           "captures": step.captures,
+           "bound_ms": bound_ms, "bound_by": bound_by, **work,
+           "flops_per_token": rnn_lm_flops_per_token(),
+           "loss_first": vals[0], "loss_last5_mean": sum(vals[-5:]) / 5,
+           "losses": vals, "peak_mem_gb": prof["peak_mem_gb"],
+           "card": nvidia_smi()}
+    ok = finite and falling and step.captures == 1 and host_calls == 1 \
+        and prof["host_syncs_per_step"] == 0
+    if detail:
+        eager_prof = phase_train_profile(
+            eager_step, f"eager LSTM LM step at ({RNN_BPTT}, {batch})")
+        out["eager_device_ms"] = eager_prof["device_ms_traced"]
+        out["eager_idle_share"] = eager_prof["idle_share"]
+        out["eager_kernels"] = eager_prof["kernel_launches"]
+        out["eager_host_launch_calls"] = sum(
+            eager_prof["host_launch_calls"].values())
+        folder = pathlib.Path(__file__).resolve().parent / "build" / \
+            "chip_smoke"
+        folder.mkdir(parents=True, exist_ok=True)
+        gemms = _gemm_input_types(eager_step, folder / "rnn_lm_trace.json")
+        f32_gemms = {op: {t: n for t, n in types.items() if "float" in
+                          t.split(",")}
+                     for op, types in gemms.items()}
+        f32_gemms = {op: t for op, t in f32_gemms.items() if t}
+        with torch.no_grad():
+            lstm = model.lstm
+            _, (hn, cn) = lstm(model.embed(args[0]),
+                               lstm.begin_state(batch, ctx=dev))
+        out["gemm_input_types"] = gemms
+        out["f32_gemms"] = f32_gemms
+        out["state_dtypes"] = [str(hn.dtype), str(cn.dtype)]
+        bf16_ok = not f32_gemms and hn.dtype == cn.dtype == torch.bfloat16
+        out["bf16_throughout"] = bf16_ok
+        ok = ok and bf16_ok
+    log(f"rnn_lm: step at batch {batch}: " + json.dumps(out))
+    if not ok:
+        raise SystemExit(
+            f"the LSTM LM step at batch {batch} failed: finite={finite} "
+            f"falling={falling} captures={step.captures} host launch "
+            f"calls={host_calls} syncs={prof['host_syncs_per_step']} "
+            f"bf16 throughout={out.get('bf16_throughout')}")
+    if detail:
+        out["eager_vs_fused"] = _eager_vs_fused(mod, trainer, args,
+                                                what="LSTM LM fused",
+                                                batch=batch)
+        out["eager_vs_replay"] = _eager_vs_fused(
+            mod, trainer, args,
+            lambda: _replay_with(step, args, 77, batch=batch),
+            what="LSTM LM replayed", batch=batch)
+    del step, eager_step, trainer, mod, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lstm_yardstick(dev):
+    """Off the path: cuDNN's fused LSTM (``torch.nn.LSTM(650, 650,
+    num_layers=2)`` in bf16) forward and backward over a (35, batch, 650)
+    input, by CUDA events and by device time; beside it the port's
+    ``rnn.LSTM`` alone on the same input and upstream gradient; and the
+    recurrence's bound (its operations at the bf16 peak)."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import rnn
+
+    batch = RNN_BATCHES[0]
+    gen = torch.Generator().manual_seed(41)
+    x = torch.randn(RNN_BPTT, batch, RNN_UNITS, generator=gen).to(
+        dev, torch.bfloat16)
+    dy = torch.randn(RNN_BPTT, batch, RNN_UNITS, generator=gen).to(
+        dev, torch.bfloat16)
+    port = rnn.LSTM(RNN_UNITS, num_layers=RNN_LAYERS, input_size=RNN_UNITS)
+    port.initialize(ctx=dev, generator=torch.Generator().manual_seed(42))
+    port.cast("bfloat16")
+    weights = [p.data() for p in port.collect_params().values()]
+
+    def port_step():
+        with autograd.record():
+            out = port(x)
+        return torch.autograd.grad(out, weights, dy)
+
+    out = {"shape": [RNN_BPTT, batch, RNN_UNITS], "layers": RNN_LAYERS,
+           "dtype": "bfloat16", "port_ms": cuda_ms(port_step, iters=10),
+           "port_device_ms": device_ms(port_step, iters=5)}
+    cudnn = torch.nn.LSTM(RNN_UNITS, RNN_UNITS,
+                          num_layers=RNN_LAYERS).to(dev, torch.bfloat16)
+    # one contiguous weight buffer, as cuDNN wants it (else every call
+    # compacts the weights first)
+    cudnn.flatten_parameters()
+    cparams = list(cudnn.parameters())
+
+    def cudnn_step():
+        y, _ = cudnn(x)
+        return torch.autograd.grad(y, cparams, dy)
+
+    out["cudnn_ms"] = cuda_ms(cudnn_step, iters=10)
+    out["cudnn_device_ms"] = device_ms(cudnn_step, iters=5)
+    flops = rnn_lm_flops_per_token(head=False) * RNN_BPTT * batch
+    nbytes = 2 * sum(w.numel() * w.element_size() for w in weights) + \
+        2 * x.numel() * x.element_size() * 2
+    out["bound_ms"], out["bound_by"] = _bound_ms("bfloat16", nbytes, flops)
+    out["card"] = nvidia_smi()
+    log("rnn_lm: yardstick (not on the path): " + json.dumps(out))
+    return out
+
+
+def learnable_corpus(seed, vocab, n_sentences, follow=WORD_LM_FOLLOW,
+                     lengths=(5, 30)):
+    """Sentences of ids 1..vocab-1, lengths in [5, 30) as
+    ``examples/rnn/word_lm.py`` draws them: the first token uniform,
+    each next one the image of its predecessor under a fixed random
+    permutation with probability ``follow``, uniform otherwise."""
+    import numpy as onp
+    rng = onp.random.default_rng(seed)
+    succ = onp.concatenate([[0], 1 + rng.permutation(vocab - 1)])
+    sentences = []
+    for n in rng.integers(lengths[0], lengths[1], n_sentences):
+        toks = rng.integers(1, vocab, n)
+        keep = rng.random(n) < follow
+        for i in range(1, n):
+            if keep[i]:
+                toks[i] = succ[toks[i - 1]]
+        sentences.append(toks.tolist())
+    return sentences
+
+
+def word_lm_setup(dev, seed=0, units=RNN_UNITS):
+    """``examples/rnn/word_lm.py``'s pieces: `RNNModel(vocab, units,
+    units, 2, "lstm", dropout=0.5, tie_weights=True)` Xavier-initialized
+    from ``seed`` in f32, SGD at lr 1.0, SoftmaxCrossEntropyLoss, and
+    `BucketSentenceIter` over `learnable_corpus`."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.io import BucketSentenceIter
+    from mxnet_tpu_torch.models import RNNModel
+
+    vocab = RNN_VOCAB
+    model = RNNModel(vocab, units, units, RNN_LAYERS, "lstm",
+                     dropout=WORD_LM_DROPOUT, tie_weights=True)
+    model.initialize(init=mx.init.Xavier(), ctx=dev,
+                     generator=torch.Generator().manual_seed(seed))
+    trainer = Trainer(model.collect_params(), "sgd", {"learning_rate": 1.0})
+    onp.random.seed(seed)          # the iterator shuffles with numpy's
+    it = BucketSentenceIter(learnable_corpus(seed, vocab,
+                                             WORD_LM_SENTENCES),
+                            WORD_LM_BATCH, buckets=list(WORD_LM_BUCKETS),
+                            layout="TN")
+    return model, trainer, SoftmaxCrossEntropyLoss(), it
+
+
+def word_lm_batches(it, n):
+    """``n`` batches of ``it``, starting over at its end."""
+    out = []
+    while len(out) < n:
+        it.reset()
+        out.extend(b for _, b in zip(range(n - len(out)), it))
+    return out
+
+
+def word_lm_step(model, trainer, loss_fn, batch, dev, generator):
+    """One batch of the example's loop: record, loss, backward,
+    ``clip_global_norm(..., 0.25)``, ``Trainer.step``."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.utils import clip_global_norm
+    data = batch.data[0].to(dev)
+    label = batch.label[0].to(dev)
+    with autograd.record(generator=generator):
+        loss = loss_fn(model(data), label).mean()
+    loss.backward()
+    clip_global_norm([p.grad() for p in model.collect_params().values()
+                      if p.grad_req != "null"], WORD_LM_CLIP)
+    trainer.step(WORD_LM_BATCH)
+    return loss.detach()
+
+
+def _inter_layer_mask_check(dev):
+    """The mask between the LSTM layers from one draw's key words, on
+    the card and by the plain CPU computation: bitwise equal."""
+    import torch
+    from mxnet_tpu_torch.gluon.rnn.rnn_layer import inter_layer_mask
+    from mxnet_tpu_torch.ops.seeds import DRAWS, words_tensor
+    words = DRAWS["rnn"](torch.Generator().manual_seed(9))
+    shape = (max(WORD_LM_BUCKETS), WORD_LM_BATCH, RNN_UNITS)
+    keep = 1.0 - WORD_LM_DROPOUT
+    on_card = inter_layer_mask(words_tensor(words, dev), 0, keep, shape)
+    plain = inter_layer_mask(words_tensor(words, "cpu"), 0, keep, shape)
+    equal = bool(torch.equal(on_card.cpu(), plain))
+    return {"key_words": list(words), "shape": list(shape),
+            "keep_share": float(plain.float().mean()), "bitwise": equal}
+
+
+def _word_lm(dev):
+    """``examples/rnn/word_lm.py``'s eager loop at the medium width, f32,
+    on `learnable_corpus`: WORD_LM_BATCHES batches timed, then
+    WORD_LM_TRACED more traced (the dropout kernel's launches on the
+    card), one train-mode forward traced alone."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ops.nn import DROPOUT
+
+    torch.cuda.reset_peak_memory_stats()
+    model, trainer, loss_fn, it = word_lm_setup(dev)
+    batches = word_lm_batches(it, WORD_LM_BATCHES + WORD_LM_TRACED + 1)
+    gen = torch.Generator().manual_seed(7)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[:WORD_LM_BATCHES]:
+        losses.append(word_lm_step(model, trainer, loss_fn, batch, dev, gen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(b.data[0].numel() for b in batches[:WORD_LM_BATCHES])
+    vals = torch.stack(losses).cpu().tolist()
+    first, last = sum(vals[:10]) / 10, sum(vals[-10:]) / 10
+    finite = all(v == v and abs(v) != float("inf") for v in vals)
+    DROPOUT.launches = 0
+    traced_batches = batches[WORD_LM_BATCHES:WORD_LM_BATCHES +
+                             WORD_LM_TRACED]
+    _, traced = traced_launches(lambda: [
+        word_lm_step(model, trainer, loss_fn, b, dev, gen)
+        for b in traced_batches])
+    booked = DROPOUT.launches
+    DROPOUT.launches = 0
+    fwd_batch = batches[-1]
+
+    def forward_only():
+        with autograd.record(generator=gen):
+            return model(fwd_batch.data[0].to(dev))
+
+    _, fwd_traced = traced_launches(forward_only)
+    fwd_booked = DROPOUT.launches
+    mask = _inter_layer_mask_check(dev)
+    out = {"model": "RNNModel(10000, 650, 650, 2, lstm, dropout 0.5, tied)",
+           "dtype": "float32", "batch": WORD_LM_BATCH,
+           "buckets": list(WORD_LM_BUCKETS), "batches": WORD_LM_BATCHES,
+           "corpus": f"learnable_corpus: follow a fixed permutation with "
+                     f"p {WORD_LM_FOLLOW}, else uniform; "
+                     f"{WORD_LM_SENTENCES} sentences",
+           "batch_ms": wall / WORD_LM_BATCHES * 1e3,
+           "tokens_per_s": tokens / wall,
+           "loss_first10_mean": first, "loss_last10_mean": last,
+           "margin": WORD_LM_MARGIN, "losses": vals,
+           "traced_batches": WORD_LM_TRACED,
+           "dropout_launches": traced["dropout"],
+           "dropout_launches_booked": booked,
+           "dropout_launches_forward_alone": fwd_traced["dropout"],
+           "dropout_launches_forward_alone_booked": fwd_booked,
+           "inter_layer_mask": mask,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": nvidia_smi()}
+    log("rnn_lm: word_lm loop: " + json.dumps(out))
+    # nn.Dropout on the embedding and on the LSTM's output: two launches
+    # a forward, two more in the backward
+    launches_ok = traced["dropout"] == booked == 4 * WORD_LM_TRACED and \
+        fwd_traced["dropout"] == fwd_booked == 2
+    if not (finite and last < first - WORD_LM_MARGIN and launches_ok and
+            mask["bitwise"]):
+        raise SystemExit(
+            f"the word LM loop failed: finite={finite} first10={first} "
+            f"last10={last} margin={WORD_LM_MARGIN} dropout launches "
+            f"ok={launches_ok} mask bitwise={mask['bitwise']}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def word_lm_curve(units, n_batches):
+    """The word-LM loop of `_word_lm` on the CPU at embedding = hidden =
+    ``units`` (vocab, corpus, buckets, dropout, clipping and lr as on the
+    card) for ``n_batches``: the mean loss of every 10 batches, printed.
+    What WORD_LM_MARGIN was fixed from."""
+    import torch
+    dev = torch.device("cpu")
+    model, trainer, loss_fn, it = word_lm_setup(dev, units=units)
+    gen = torch.Generator().manual_seed(7)
+    vals = [float(word_lm_step(model, trainer, loss_fn, b, dev, gen))
+            for b in word_lm_batches(it, n_batches)]
+    for i in range(0, n_batches, 10):
+        log(f"word_lm_curve: width {units} batches {i}-{i + 9}: mean loss "
+            f"{sum(vals[i:i + 10]) / len(vals[i:i + 10])}")
+
+
+def phase_rnn_lm(dev):
+    """BASELINE config 5 on the card: (a) ``rnn_lm_bench.py``'s captured
+    bf16 step at batch 32 and 128, with cuDNN's LSTM as a yardstick off
+    the path; (b) ``examples/rnn/word_lm.py``'s eager f32 loop with
+    dropout, tied weights and gradient clipping."""
+    out = {"bench": [_rnn_lm_step(dev, b, detail=(b == RNN_BATCHES[0]))
+                     for b in RNN_BATCHES],
+           "yardstick": _lstm_yardstick(dev),
+           "word_lm": _word_lm(dev)}
+    return out
+
+
 def main():
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--word-lm-curve"]:
+        # on the CPU, no result line: how WORD_LM_MARGIN was fixed
+        word_lm_curve(int(sys.argv[2]), int(sys.argv[3]) if len(sys.argv) > 3
+                      else WORD_LM_BATCHES)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs "
               "only on the card", file=sys.stderr)
@@ -3989,6 +4526,7 @@ def main():
     rec = phase_recordio(dev)
     rtc_out = phase_rtc(dev)
     custom = phase_resnet_custom(dev)
+    rnn_lm = phase_rnn_lm(dev)
     log(f"seconds: {time.perf_counter() - t_start:.1f}")
 
     main_case = next(r for r in rows
@@ -4127,6 +4665,12 @@ def main():
         "torch_dropout_ms": drop_case["torch_dropout_ms"],
         "amp_launches": amp_launches["dropout"],
         "amp_launches_booked": amp_booked["dropout"],
+        "rnn_lm_launches": rnn_lm["word_lm"]["dropout_launches"],
+        "rnn_lm_launches_booked":
+            rnn_lm["word_lm"]["dropout_launches_booked"],
+        "rnn_lm_case": {k: drop_rows[-1][k] for k in (
+            "dtype", "shape", "p", "max_abs_err", "bitwise", "keep_rate",
+            "ms", "plain_ms", "bound_ms", "bound_by", "torch_dropout_ms")},
     }] + [{
         "name": f"rtc:{name}", "route": "cuda",
         "source": "chip_smoke.py:USER_KERNELS_SRC",

@@ -12,14 +12,22 @@ package's ``.npz`` checkpoint (`utils.serialization`) under those
 names, so a file crosses between the packages either way; upstream's
 0x112 files load too.
 
-``hybridize()`` is accepted and does nothing in the port: PyTorch runs
-eagerly, and capturing the forward (a CUDA graph) is later work.
+``hybridize()`` compiles nothing in the port: PyTorch runs eagerly, and
+capturing the forward (a CUDA graph) is later work.  A hybridized
+block's forward runs under `ops.invoke.tracing`, the counterpart of the
+reference's trace, so `npx.while_loop` and `npx.cond` inside it take
+the reference's traced contract.
+
+``cast`` recurses through the child blocks' own ``cast``, as the
+reference's does, so a block that keeps a dtype of its own (the RNN
+layers' initial states) follows a cast of its parent.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..ops.invoke import is_tracing, tracing
 from .parameter import Parameter
 
 __all__ = ["Block", "HybridBlock"]
@@ -146,12 +154,19 @@ class Block(nn.Module):
             param.zero_grad()
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for the reference's API; a no-op in the port."""
+        """Hybridize (``active``) or not every child block."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
         return self
 
     def cast(self, dtype):
-        """Cast every floating-point parameter to ``dtype``."""
-        for param in self.collect_params().values():
+        """Cast every floating-point parameter to ``dtype``, through each
+        child block's ``cast``."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child.cast(dtype)
+        for param in self._reg_params.values():
             if param.dtype.is_floating_point:
                 param.cast(dtype)
         return self
@@ -166,4 +181,18 @@ class Block(nn.Module):
 
 class HybridBlock(Block):
     """A Block the reference can compile to one XLA program; in the port
-    the same as `Block`."""
+    the same as `Block`, but for what ``hybridize`` does."""
+
+    def hybridize(self, active=True, **kwargs):
+        """Run this block's forward under `ops.invoke.tracing` (``active``)
+        or not; the reference's compile options are accepted and do
+        nothing.  Children run inside their parent's scope."""
+        self._hybridized = bool(active)
+        super().hybridize(False)
+        return self
+
+    def __call__(self, *args, **kwargs):
+        if self.__dict__.get("_hybridized") and not is_tracing():
+            with tracing():
+                return super().__call__(*args, **kwargs)
+        return super().__call__(*args, **kwargs)

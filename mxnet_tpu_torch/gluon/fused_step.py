@@ -6,8 +6,12 @@
 and ``trainer.step(B)`` do, in the order and at the rounding points of
 the reference's one-program step:
 
-- the forward runs recorded and in train mode; the backward seed is the
-  f32 sum of the block's first output leaf;
+- the forward runs recorded and in train mode, and under
+  `ops.invoke.tracing` at every call (its eager first one too), so
+  control flow inside takes the reference's traced contract
+  (``while_loop`` padded to ``max_iterations``, ``cond`` selected on
+  the device) and call 1 returns what the replays return; the backward
+  seed is the f32 sum of the block's first output leaf;
 - the gradients of the trainable parameters (those the trainer owns,
   ``grad_req`` not ``'null'``) are taken with `torch.autograd.grad`,
   so the parameters' stored gradients are not accumulated into (a
@@ -82,7 +86,7 @@ import torch
 from .. import autograd
 from ..ops import capture
 from ..ops.aux_scope import aux_update_scope
-from ..ops.invoke import current_generator, set_seed_table, set_tracing
+from ..ops.invoke import current_generator, set_seed_table, tracing
 from ..ops.seeds import SeedTable, draw_words
 from ..optimizer.optimizer import Optimizer, all_finite, write_back_multi
 
@@ -119,15 +123,6 @@ def _fresh_leaves(params):
     finally:
         for p, t in zip(params, old):
             p._data = t
-
-
-@contextlib.contextmanager
-def _tracing():
-    prev = set_tracing(True)
-    try:
-        yield
-    finally:
-        set_tracing(prev)
 
 
 @contextlib.contextmanager
@@ -254,7 +249,7 @@ class FusedTrainStep:
         trainer = self._trainer
         rescale, rows = plan.views(buf)
         with autograd.record(train_mode=True, generator=self._generator), \
-                aux_update_scope() as aux, _tracing():
+                aux_update_scope() as aux, tracing():
             outs = self._block(*args)
             seed = _first_leaf(outs).float().sum()
             if plan.scaled:

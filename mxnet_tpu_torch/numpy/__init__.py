@@ -12,7 +12,8 @@ signature and its ``axis`` / ``keepdims`` / ``dtype`` semantics; the
 products promote mixed operand dtypes as numpy does (same-dtype
 operands go through untouched).  Beside them, the array creation and
 shape functions `bench.py`'s prologue calls: `array`, `asarray` and
-`transpose`.  The rest of ``mx.np`` (the
+`transpose`; and those the recurrent layers and cells call: `zeros`,
+`zeros_like`, `ones_like`, `stack`, `concatenate` and `swapaxes`.  The rest of ``mx.np`` (the
 other creation and shape functions, the ``NDArray`` type) is not ported
 yet.
 """
@@ -26,7 +27,8 @@ __all__ = ["matmul", "dot", "einsum", "tensordot", "inner", "outer",
            "reciprocal", "power", "sum", "nansum", "prod", "nanprod",
            "mean", "std", "var", "cumsum", "trace", "average", "arccos",
            "arcsin", "cosh", "sinh", "tan", "arctanh", "sqrt", "cbrt",
-           "argsort", "sort", "array", "asarray", "transpose"]
+           "argsort", "sort", "array", "asarray", "transpose", "zeros",
+           "zeros_like", "ones_like", "stack", "concatenate", "swapaxes"]
 
 
 def _promote(*arrays):
@@ -269,3 +271,36 @@ def transpose(a, axes=None):
         axes = tuple(range(a.ndim))[::-1]
     return a.permute(*axes).contiguous()
 
+
+def _dtype(dtype, default=None):
+    """``dtype`` as a torch dtype, ``default`` for None."""
+    from ..gluon.parameter import to_torch_dtype
+    return default if dtype is None else to_torch_dtype(dtype)
+
+
+def zeros(shape, dtype=None, order="C", ctx=None, device=None):
+    """Zeros on ``ctx`` (default: the card), f32 unless ``dtype``."""
+    from ..context import resolve_device
+    return torch.zeros(shape, dtype=_dtype(dtype, torch.float32),
+                       device=resolve_device(ctx if ctx is not None
+                                             else device))
+
+
+def zeros_like(a, dtype=None, order="C", ctx=None, device=None):
+    return torch.zeros_like(a, dtype=_dtype(dtype))
+
+
+def ones_like(a, dtype=None, order="C", ctx=None, device=None):
+    return torch.ones_like(a, dtype=_dtype(dtype))
+
+
+def stack(seq, axis=0, out=None):
+    return torch.stack(list(seq), dim=axis)
+
+
+def concatenate(seq, axis=0, out=None):
+    return torch.cat(list(seq), dim=axis)
+
+
+def swapaxes(a, axis1, axis2):
+    return torch.swapaxes(a, axis1, axis2)

@@ -14,6 +14,10 @@ XLA's ``rbg`` generator, so model-level dropout masks differ between the
 packages (the flash kernels' own bits match, given the same seed
 words).
 
+`foreach`, `while_loop` and `cond` are `ops.control_flow`'s, with the
+reference's eager and traced contracts; `sequence_mask` and
+`sequence_reverse` are the reference's sequence ops, over the time axis.
+
 `remat` is the reference's rematerialization boundary, built on torch's
 non-reentrant checkpointing: the backward recomputes what the boundary's
 forward did not save, reading the seed words its first run drew
@@ -26,6 +30,7 @@ import warnings
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import control_flow as _cf
 from ..ops import nn as _nn
 from ..ops import stem as _stem
 from ..ops.aux_scope import apply_aux_update, aux_update_scope
@@ -36,7 +41,8 @@ from ..ops.seeds import DrawTape, draw_seed
 __all__ = ["activation", "dropout", "embedding", "fully_connected", "gelu",
            "layer_norm", "leaky_relu", "log_softmax", "pick", "softmax",
            "flash_attention", "convolution", "pooling", "batch_norm",
-           "stem_conv", "remat"]
+           "stem_conv", "remat", "foreach", "while_loop", "cond", "relu",
+           "sigmoid", "sequence_mask", "sequence_reverse"]
 
 activation = _nn.activation
 convolution = _nn.convolution
@@ -49,6 +55,11 @@ leaky_relu = _nn.leaky_relu
 log_softmax = _nn.log_softmax
 pick = _nn.pick
 softmax = _nn.softmax
+foreach = _cf.foreach
+while_loop = _cf.while_loop
+cond = _cf.cond
+relu = torch.relu
+sigmoid = torch.sigmoid
 
 
 def gelu(data, approximation="erf"):
@@ -56,12 +67,59 @@ def gelu(data, approximation="erf"):
     return leaky_relu(data, act_type=act)
 
 
-def dropout(data, p=0.5):
-    """Active only in train mode; the mask is drawn on the data's device
-    from the two seed words of one draw of the scope's generator."""
-    if not is_training() or p == 0.0:
+def dropout(data, p=0.5, axes=None, mode=None):
+    """Active in train mode (``mode=None``) or always (``mode="always"``;
+    any other mode never drops, as in the reference); the mask is drawn
+    on the data's device from the two seed words of one draw of the
+    scope's generator.  With ``axes``, the mask is drawn over those axes
+    only (size 1 along the others, as the reference shapes it) and
+    broadcast over the rest."""
+    active = is_training() if mode is None else mode == "always"
+    if not active or p == 0.0:
         return data
-    return _nn.dropout(data, draw_seed("dropout", data.device), p=p)
+    seed = draw_seed("dropout", data.device)
+    if not axes:
+        return _nn.dropout(data, seed, p=p)
+    shape = [n if i in axes else 1 for i, n in enumerate(data.shape)]
+    mask = _nn.dropout(torch.ones(shape, dtype=data.dtype,
+                                  device=data.device), seed, p=p)
+    return data * mask
+
+
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """``value`` at the steps of each sequence at or past its length
+    (``axis``: the time axis, 0 or 1; the batch axis is the other)."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    shape = [1] * data.ndim
+    shape[axis] = data.shape[axis]
+    steps = torch.arange(data.shape[axis], device=data.device).reshape(shape)
+    ln_shape = [1] * data.ndim
+    ln_shape[1 - axis] = data.shape[1 - axis]
+    ln = sequence_length.to(data.device).reshape(ln_shape)
+    return torch.where(steps < ln, data,
+                       torch.as_tensor(value, dtype=data.dtype,
+                                       device=data.device))
+
+
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    """Each sequence's first ``length`` steps reversed along ``axis`` (0
+    or 1), the steps past it in place; without lengths, the whole axis
+    flipped."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(axis,))
+    t = data.shape[axis]
+    steps = torch.arange(t, device=data.device)
+    ln = sequence_length.to(device=data.device, dtype=torch.int64)
+    idx = torch.where(steps[None, :] < ln[:, None],
+                      ln[:, None] - 1 - steps[None, :], steps[None, :])
+    if axis == 0:
+        return data[idx.T, torch.arange(data.shape[1],
+                                        device=data.device)[None, :]]
+    return torch.take_along_dim(
+        data, idx.reshape(idx.shape + (1,) * (data.ndim - 2)), dim=1)
 
 
 def flash_attention(q, k, v, **kwargs):

@@ -12,20 +12,25 @@ step is captured (None otherwise).  ``draw_tapes`` is the stack of
 `ops.seeds.DrawTape`s of the `npx.remat` boundaries the forward is in.
 `modes` / `set_modes` save and restore the three mode flags at once, for
 a boundary whose recompute runs on another thread (autograd's).
-``is_tracing`` is True inside the body of a `gluon.FusedTrainStep`, the
-counterpart of the reference's traced one-program step, where a remat
-boundary differentiates the parameters a function closes over as the
-reference's trace does.
+``is_tracing`` is True inside `tracing()`: the body of a
+`gluon.FusedTrainStep` (every call, its eager first one too), the
+forward of a hybridized block and a serving cache's function, the
+counterparts of the reference's traced programs.  There a remat
+boundary differentiates the parameters a function closes over, and
+`ops.control_flow` takes the traced contract (``while_loop`` runs
+``max_iterations`` masked steps, ``cond`` selects on the device), as
+the reference's traces do.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 __all__ = ["is_recording", "set_recording", "is_training", "set_training",
            "is_backward_expected", "set_backward_expected",
            "current_generator", "set_generator", "current_seed_table",
            "set_seed_table", "draw_tapes", "modes", "set_modes",
-           "is_tracing", "set_tracing"]
+           "is_tracing", "set_tracing", "tracing"]
 
 _state = threading.local()
 
@@ -116,3 +121,13 @@ def set_tracing(flag):
     prev = is_tracing()
     _state.tracing = bool(flag)
     return prev
+
+
+@contextlib.contextmanager
+def tracing():
+    """Scope (on this thread) in which `is_tracing` is True."""
+    prev = set_tracing(True)
+    try:
+        yield
+    finally:
+        set_tracing(prev)

@@ -193,8 +193,11 @@ class _Embedding(torch.autograd.Function):
 
 def embedding(data, weight):
     """``weight[data]``; the weight's gradient is summed in a fixed order
-    (`_Embedding`)."""
-    return _Embedding.apply(data.long(), weight)
+    (`_Embedding`).  A negative index counts from the end, as the
+    reference's ``take`` reads it (a padding id of -1 is the last row)."""
+    index = data.long()
+    index = torch.where(index < 0, index + weight.shape[0], index)
+    return _Embedding.apply(index, weight)
 
 
 def pick(data, index, axis=-1):

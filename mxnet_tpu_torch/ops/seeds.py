@@ -48,13 +48,14 @@ def _dropout_words(gen):
 def _key_words(gen):
     """Two uint32 words, a threefry key: the flash kernels' dropout key,
     or the key of a ``jax.random`` draw computed in torch
-    (`ops.threefry`: DeviceAugment's crops and flips, SGLD's noise)."""
+    (`ops.threefry`: DeviceAugment's crops and flips, SGLD's noise, the
+    RNN layers' masks between layers)."""
     return tuple(torch.randint(0, 2 ** 32, (2,), generator=gen).tolist())
 
 
 # kind -> how its two words come from the generator
 DRAWS = {"dropout": _dropout_words, "attention": _key_words,
-         "augment": _key_words, "normal": _key_words}
+         "augment": _key_words, "normal": _key_words, "rnn": _key_words}
 
 
 def words_tensor(words, device):

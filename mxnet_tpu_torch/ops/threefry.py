@@ -4,9 +4,10 @@ The JAX package draws with ``jax.random`` from threefry2x32 keys: a
 key is two uint32 words.  The port's draws take their two words from
 the scope's ``torch.Generator`` (`ops.seeds`) and compute from them
 what ``jax.random`` computes from the same key, on the key's own
-device: `split`, `random_bits` (32-bit), `uniform` and `normal`, and
-the pieces of ``randint`` and ``bernoulli`` (`randint_reduce`,
-`unit_floats`) that `gluon.data.DeviceAugment` combines.  jax's threefry is the partitionable one
+device: `split`, `fold_in`, `random_bits` (32-bit), `uniform`,
+`bernoulli` and `normal`, and the pieces of ``randint`` and
+``bernoulli`` (`randint_reduce`, `unit_floats`) that
+`gluon.data.DeviceAugment` combines.  jax's threefry is the partitionable one
 (``jax_threefry_partitionable``, jax's default): element ``i`` of a
 draw of ``shape`` hashes the counter pair ``(i div 2^32, i mod 2^32)``
 and takes both output words, xor-ed for 32-bit bits.
@@ -23,8 +24,9 @@ from __future__ import annotations
 import numpy as onp
 import torch
 
-__all__ = ["threefry2x32", "key_of", "split", "random_bits", "unit_floats",
-           "uniform", "randint_reduce", "erfinv", "normal"]
+__all__ = ["threefry2x32", "key_of", "split", "fold_in", "random_bits",
+           "unit_floats", "uniform", "bernoulli", "randint_reduce", "erfinv",
+           "normal"]
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -73,6 +75,14 @@ def split(key, num=2):
     return torch.stack([b0, b1], dim=-1)
 
 
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)``: the key hashed with the counter
+    pair ``(0, data)`` (``data`` a uint32, as jax's ``threefry_seed``
+    makes it a key), both output words."""
+    b0, b1 = threefry2x32(key[..., 0], key[..., 1], 0, int(data) & M32)
+    return torch.stack([b0, b1], dim=-1)
+
+
 def random_bits(key, n):
     """``jax.random.bits(key, (n,), uint32)`` as int64 values; ``key`` may
     carry leading axes, which lead the result's."""
@@ -95,6 +105,17 @@ def uniform(key, n, minval=0.0, maxval=1.0):
     span = onp.float32(maxval) - lo
     return torch.clamp_min(unit_floats(random_bits(key, n)) * float(span)
                            + float(lo), float(lo))
+
+
+def bernoulli(key, p, shape):
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``
+    (rounded to f32, as jax takes it): a bool tensor, True where the f32
+    `uniform` draw of the element is below ``p``."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    u = unit_floats(random_bits(key, n))
+    return (u < float(onp.float32(p))).reshape(tuple(shape))
 
 
 def randint_reduce(higher, lower, minval, maxval):

@@ -25,8 +25,16 @@ import numpy as onp
 import torch
 
 from ..ops import capture
+from ..ops.invoke import tracing
 
 __all__ = ["ExecutableCache"]
+
+
+def _traced(fn):
+    def run(*tensors):
+        with tracing():
+            return fn(*tensors)
+    return run
 
 
 def _tree_map(fn, out):
@@ -58,7 +66,7 @@ class ExecutableCache:
     endpoint function ``fn(*tensors)`` on ``device``."""
 
     def __init__(self, fn, metrics=None, device=None):
-        self._fn = fn
+        self._fn = _traced(fn)
         self._device = device
         self._metrics = metrics
         self._entries = {}

@@ -6,8 +6,9 @@ block's ``collect_params()`` — a ``{dotted name: numpy array}`` dict, as
 gives it — and writes them into the port's block of the same
 architecture, which then computes the same function.  The layouts are
 the same on both sides (Dense weights (out, in), embeddings
-(vocab, units), conv weights (out, in, kh, kw)), so nothing is
-transposed.  BatchNorm running statistics are parameters on both sides
+(vocab, units), conv weights (out, in, kh, kw), the RNN layers'
+``l0_i2h_weight`` ... ``r1_h2h_bias`` with their gates stacked in the
+reference's order), so nothing is transposed.  BatchNorm running statistics are parameters on both sides
 and come across with the weights.  A parameter whose shape is still
 deferred takes it from the array (no forward is needed first).
 """
