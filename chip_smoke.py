@@ -291,6 +291,7 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import re
 import subprocess
 import sys
@@ -417,6 +418,7 @@ KERNEL_NAMES = {
     "flash_attention_bwd_dkv": r"\bflash_bwd_dkv_\w+_kernel\b",
     "dropout": r"\bdropout_kernel\b",
     "bn_bwd_reduce": r"\bbn_reduce_partial\b",
+    "bn_bwd_reduce_rows": r"\bbn_reduce_rows_partial\b",
     "stem_conv": r"\bstem_conv_\w+_kernel\b",
 }
 # training steps traced after the timed ones, their launches counted
@@ -432,6 +434,23 @@ BN_CASES = [((128, 64, 12544), 1), ((128, 64, 3136), 6),
             ((128, 512, 784), 5), ((128, 256, 196), 12),
             ((128, 1024, 196), 7), ((128, 512, 49), 6), ((128, 2048, 49), 4),
             ((7, 3, 333), 0)]
+# B1's channel-minor form: ResNet-50 v1's nine BatchNorm shapes in NHWC,
+# (N, H, W, C), the kernel reading (N * H * W, C, 1); the N1 = 49 shapes
+# of the last stages of DenseNet-121 and MobileNetV2 at batch 64, which
+# stay on the (N0, C, N1) form; an odd case (W = C * N1 = 111, no float4,
+# three columns a channel)
+BN_NHWC_CASES = [((128, 112, 112, 64), 1), ((128, 56, 56, 64), 6),
+                 ((128, 56, 56, 256), 4), ((128, 28, 28, 128), 8),
+                 ((128, 28, 28, 512), 5), ((128, 14, 14, 256), 12),
+                 ((128, 14, 14, 1024), 7), ((128, 7, 7, 512), 6),
+                 ((128, 7, 7, 2048), 4)]
+BN_ZOO_N1_CASES = [("densenet121", (64, 1024, 49)),
+                   ("densenet121", (64, 128, 49)),
+                   ("mobilenetv2_1.0", (64, 960, 49)),
+                   ("mobilenetv2_1.0", (64, 1280, 49))]
+BN_ODD_ROWS = (4099, 37, 3)
+# where the two forms cross: C = 256, about 100M elements, these N1
+BN_ROUTE_N1 = (1, 2, 4, 8, 16, 32, 49)
 # B2: ResNet-50's packed stem at batch 128 (B, 4 * C_in, H/2, W/2) with
 # C_out 64, and an odd case (H2 = 15 and W2 = 17 off every tile, W2 not a
 # multiple of 8, M = 765; C_out = 40, a partial channel tile)
@@ -2730,79 +2749,149 @@ def phase_train_profile(one, label, named=None):
 def _bn_allowance(n0, c, n1):
     """B1's allowance, per channel, as a multiple of sum|term|: f32
     summation with depth d errs by at most d * 2^-24 * sum|term|.  The
-    kernel's depth is ceil(chunk / 256) sequential adds per thread, 8
-    tree levels and ``splits`` sequential adds of the partials; the plain
-    sum's blocked order is taken to be no deeper, so the two may differ
-    by twice that."""
-    from mxnet_tpu_torch.ops.nn import bn_bwd_reduce_plan
-    splits, chunk = bn_bwd_reduce_plan(n0, c, n1)
-    depth = -(-chunk // 256) + 8 + splits
+    (N0, C, N1) form's depth is ceil(chunk / 256) sequential adds per
+    thread, 8 tree levels and ``splits`` sequential adds of the partials;
+    the channel-minor form's ceil(chunk / rows a pass) in a thread, the
+    rows a pass (256 / tw) in the block and N1 * ``splits`` at the end.
+    The plain sum's blocked order is taken to be no deeper, so the two
+    may differ by twice that."""
+    from mxnet_tpu_torch.ops.nn import (BN_ROWS_BELOW, bn_bwd_reduce_plan,
+                                        bn_bwd_reduce_rows_plan)
+    if n1 < BN_ROWS_BELOW:
+        _vec, tw, splits, chunk = bn_bwd_reduce_rows_plan(n0, c, n1)
+        rows = 256 // tw
+        depth = -(-chunk // rows) + rows + n1 * splits
+    else:
+        splits, chunk = bn_bwd_reduce_plan(n0, c, n1)
+        depth = -(-chunk // 256) + 8 + splits
     return 2 * depth * EPS32
 
 
-def phase_bn_reduce(dev):
-    """B1 against `bn_bwd_reduce_reference` at ResNet-50's BatchNorm
-    shapes and an odd one: worst error over its allowance, kernel time
-    (CUDA events, and the two kernels' device time by the profiler),
-    bound, plain version and the library call
+def _bn_case(dev, gen, shape, view, per_step, what, repeat):
+    """One B1 case: inputs of ``shape`` on the card, read by the kernel
+    as ``view`` (N0, C, N1); its error over the allowance, the form the
+    wrapper took, times (CUDA events and device time), the plain
+    version's time, the bound, and the library call's time
     (``torch.batch_norm_backward_reduce`` with mean 0 and invstd 1, whose
-    ``sum_dy_xmu`` is then sum(dy * xhat)); the stem case twice, bitwise."""
+    ``sum_dy_xmu`` is then sum(dy * xhat), on the NCHW-shaped tensor:
+    channels-last for an NHWC input); with ``repeat``, a second launch
+    bitwise."""
     import torch
     from mxnet_tpu_torch.ops import nn as tnn
 
-    gen = torch.Generator(device=dev).manual_seed(31)
-    rows = []
-    for (n0, c, n1), per_step in BN_CASES:
-        dy = torch.randn(n0, c, n1, generator=gen, device=dev)
-        xh = torch.randn(n0, c, n1, generator=gen, device=dev)
-        s, ss = tnn.bn_bwd_reduce(dy, xh)
-        torch.cuda.synchronize()
-        ps, pss = tnn.bn_bwd_reduce_reference(dy, xh)
-        frac = _bn_allowance(n0, c, n1)
-        allow_s = frac * dy.abs().sum(dim=(0, 2)) + 1e-30
-        allow_ss = frac * (dy * xh).abs().sum(dim=(0, 2)) + 1e-30
-        err = max((s - ps).abs().max().item(), (ss - pss).abs().max().item())
-        ratio = max(((s - ps).abs() / allow_s).max().item(),
-                    ((ss - pss).abs() / allow_ss).max().item())
-        ok = ratio <= 1.0 and bool(torch.isfinite(s).all()) and \
-            bool(torch.isfinite(ss).all())
-        repeat = None
-        if (n0, c, n1) == BN_CASES[0][0]:
-            s2, ss2 = tnn.bn_bwd_reduce(dy, xh)
-            repeat = bool(torch.equal(s, s2) and torch.equal(ss, ss2))
-            ok = ok and repeat
-        zeros = torch.zeros(c, device=dev)
-        ones = torch.ones(c, device=dev)
-        ms = cuda_ms(lambda: tnn.bn_bwd_reduce(dy, xh))
-        dev_ms = device_ms(lambda: tnn.bn_bwd_reduce(dy, xh))
-        plain_ms = cuda_ms(lambda: tnn.bn_bwd_reduce_reference(dy, xh),
-                           iters=5)
-        library_ms = cuda_ms(lambda: torch.batch_norm_backward_reduce(
-            dy, xh, zeros, ones, None, True, False, False))
-        bound_ms, bound_by = _bound_ms(
-            "float32", 2 * dy.numel() * 4 + 2 * c * 4, 2 * dy.numel())
-        row = {"shape": [n0, c, n1], "launches_per_step": per_step,
-               "max_abs_err": err, "err_over_tol": ratio,
-               "tol": f"{frac:.3e} x sum|term| per channel",
-               "bitwise_repeat": repeat, "ms": ms, "device_ms": dev_ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "ok": ok}
-        rows.append(row)
-        rep = "" if repeat is None else f" bitwise_repeat={repeat}"
-        log(f"kernel_bn (N, C, L)={(n0, c, n1)} x{per_step}/step "
-            f"err={err:.3e} ({ratio:.3f} of tol) kernel_ms={ms:.4f} "
-            f"(device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-            f"({bound_by}){rep} {'ok' if ok else 'FAILED'}")
-        del dy, xh, s, ss, ps, pss, allow_s, allow_ss
+    n0, c, n1 = view
+    dy4 = torch.randn(shape, generator=gen, device=dev)
+    xh4 = torch.randn(shape, generator=gen, device=dev)
+    dy, xh = dy4.view(view), xh4.view(view)
+    before = (tnn.BN_BWD_REDUCE.launches, tnn.BN_BWD_REDUCE_ROWS.launches)
+    s, ss = tnn.bn_bwd_reduce(dy, xh)
+    torch.cuda.synchronize()
+    form = "rows" if tnn.BN_BWD_REDUCE_ROWS.launches > before[1] else \
+        "channel"
+    ps, pss = tnn.bn_bwd_reduce_reference(dy, xh)
+    frac = _bn_allowance(n0, c, n1)
+    allow_s = frac * dy.abs().sum(dim=(0, 2)) + 1e-30
+    allow_ss = frac * (dy * xh).abs().sum(dim=(0, 2)) + 1e-30
+    err = max((s - ps).abs().max().item(), (ss - pss).abs().max().item())
+    ratio = max(((s - ps).abs() / allow_s).max().item(),
+                ((ss - pss).abs() / allow_ss).max().item())
+    ok = ratio <= 1.0 and bool(torch.isfinite(s).all()) and \
+        bool(torch.isfinite(ss).all())
+    bitwise = None
+    if repeat:
+        s2, ss2 = tnn.bn_bwd_reduce(dy, xh)
+        bitwise = bool(torch.equal(s, s2) and torch.equal(ss, ss2))
+        ok = ok and bitwise
+    lib_dy, lib_xh = (dy4.permute(0, 3, 1, 2), xh4.permute(0, 3, 1, 2)) \
+        if len(shape) == 4 else (dy, xh)
+    zeros = torch.zeros(c, device=dev)
+    ones = torch.ones(c, device=dev)
+    ms = cuda_ms(lambda: tnn.bn_bwd_reduce(dy, xh))
+    dev_ms = device_ms(lambda: tnn.bn_bwd_reduce(dy, xh))
+    plain_ms = cuda_ms(lambda: tnn.bn_bwd_reduce_reference(dy, xh), iters=5)
+    library_ms = cuda_ms(lambda: torch.batch_norm_backward_reduce(
+        lib_dy, lib_xh, zeros, ones, None, True, False, False))
+    bound_ms, bound_by = _bound_ms(
+        "float32", 2 * dy.numel() * 4 + 2 * c * 4, 2 * dy.numel())
+    row = {"shape": list(shape), "view": list(view), "what": what,
+           "form": form, "launches_per_step": per_step,
+           "max_abs_err": err, "err_over_tol": ratio,
+           "tol": f"{frac:.3e} x sum|term| per channel",
+           "bitwise_repeat": bitwise, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "ok": ok}
+    rep = "" if bitwise is None else f" bitwise_repeat={bitwise}"
+    log(f"kernel_bn {what} {tuple(shape)} as (N0, C, N1)={tuple(view)} "
+        f"[{form}] x{per_step}/step err={err:.3e} ({ratio:.3f} of tol) "
+        f"kernel_ms={ms:.4f} (device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"({bound_by}){rep} {'ok' if ok else 'FAILED'}")
+    return row
+
+
+def _bn_route_sweep(dev, gen):
+    """Both forms of B1 on the same inputs, (N0, 256, N1) at about 100M
+    elements for each N1 of `BN_ROUTE_N1`: where the channel-minor form
+    stops being the faster (`ops.nn.BN_ROWS_BELOW`)."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as tnn
+    out = []
+    for n1 in BN_ROUTE_N1:
+        n0 = 100_000_000 // (256 * n1)
+        dy = torch.randn(n0, 256, n1, generator=gen, device=dev)
+        xh = torch.randn(n0, 256, n1, generator=gen, device=dev)
+        row = {"n1": n1, "shape": [n0, 256, n1],
+               "rows_ms": cuda_ms(lambda: tnn._bn_reduce_rows(dy, xh)),
+               "channel_ms": cuda_ms(
+                   lambda: tnn._bn_reduce_channels(dy, xh)),
+               "bound_ms": _bound_ms("float32", 2 * dy.numel() * 4,
+                                     2 * dy.numel())[0],
+               "taken": "rows" if n1 < tnn.BN_ROWS_BELOW else "channel"}
+        out.append(row)
+        log("kernel_bn_route: " + json.dumps(row))
+        del dy, xh
     torch.cuda.empty_cache()
-    per_step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
-                for k in ("ms", "device_ms", "bound_ms", "library_ms")}
-    log("kernel_bn per ResNet-50 step (53 launches): " + json.dumps(per_step))
-    failed = [r["shape"] for r in rows if not r["ok"]]
+    return out
+
+
+def phase_bn_reduce(dev):
+    """B1 against `bn_bwd_reduce_reference`: at ResNet-50's NCHW
+    BatchNorm shapes and an odd one (the (N0, C, N1) form), at its NHWC
+    shapes and an odd one (the channel-minor form), and at the zoo's
+    N1 = 49 shapes, which stay on the (N0, C, N1) form; each case's
+    worst error over its allowance, kernel time (CUDA events, and the
+    two kernels' device time by the profiler), bound, plain version and
+    the library call; the first case of each form twice, bitwise; then
+    the two forms side by side across N1 (`_bn_route_sweep`)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = [_bn_case(dev, gen, view, view, per_step, "resnet50_nchw",
+                     i == 0)
+            for i, (view, per_step) in enumerate(BN_CASES)]
+    nhwc = [_bn_case(dev, gen, shape, (shape[0] * shape[1] * shape[2],
+                                       shape[3], 1),
+                     per_step, "resnet50_nhwc", i == 0)
+            for i, (shape, per_step) in enumerate(BN_NHWC_CASES)]
+    nhwc.append(_bn_case(dev, gen, BN_ODD_ROWS, BN_ODD_ROWS, 0, "odd_rows",
+                         False))
+    zoo = [_bn_case(dev, gen, view, view, None, what, False)
+           for what, view in BN_ZOO_N1_CASES]
+    torch.cuda.empty_cache()
+    for label, group in (("NCHW", rows), ("NHWC", nhwc[:-1])):
+        per_step = {k: sum(r[k] * r["launches_per_step"] for r in group)
+                    for k in ("ms", "device_ms", "bound_ms", "library_ms")}
+        log(f"kernel_bn per ResNet-50 ({label}) step ({BN_LAYERS} "
+            "launches): " + json.dumps(per_step))
+    route = _bn_route_sweep(dev, gen)
+    failed = [r["shape"] for r in rows + nhwc + zoo if not r["ok"]]
+    forms = [r["shape"] for r in nhwc if r["form"] != "rows"] + \
+        [r["shape"] for r in rows[:-1] + zoo if r["form"] != "channel"]
     if failed:
         raise SystemExit(f"B1 disagrees with its plain version: {failed}")
-    return rows
+    if forms:
+        raise SystemExit(f"B1 took the other form at {forms}")
+    return {"nchw": rows, "nhwc": nhwc, "zoo": zoo, "route": route}
 
 
 # ---------------------------------------------------------------------------
@@ -2938,22 +3027,23 @@ def net_with_loss(net):
     return NetWithLoss(net)
 
 
-def resnet50(dev, seed=0):
-    """``vision.resnet50_v1()``, Xavier from ``seed``, cast to bf16."""
+def resnet50(dev, seed=0, layout="NCHW"):
+    """``vision.resnet50_v1(layout=layout)``, Xavier from ``seed``, cast
+    to bf16."""
     import torch
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo import vision
 
-    net = vision.resnet50_v1()
+    net = vision.resnet50_v1(layout=layout)
     net.initialize(init=mx.init.Xavier(), ctx=dev,
                    generator=torch.Generator().manual_seed(seed))
     net.cast("bfloat16")
     return net
 
 
-def resnet_batch(dev):
+def resnet_batch(dev, layout="NCHW"):
     """uniform(-1, 1) bf16 images and random labels, from a fixed seed,
-    made on the card."""
+    made on the card; in NHWC the same images, contiguous channels-last."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(21)
     x = (torch.rand(RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE, generator=gen,
@@ -2961,23 +3051,28 @@ def resnet_batch(dev):
          * 2 - 1).to(torch.bfloat16)
     y = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen, device=dev,
                       dtype=torch.int32)
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
     return x, y
 
 
 def _cnn_counts():
-    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE, BN_BWD_REDUCE_ROWS
     from mxnet_tpu_torch.ops.stem import STEM_CONV
     return {"bn_bwd_reduce": BN_BWD_REDUCE.launches,
+            "bn_bwd_reduce_rows": BN_BWD_REDUCE_ROWS.launches,
             "stem_conv": STEM_CONV.launches}
 
 
 def _reset_cnn_counts():
-    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE, BN_BWD_REDUCE_ROWS
     from mxnet_tpu_torch.ops.stem import STEM_CONV
-    BN_BWD_REDUCE.launches = STEM_CONV.launches = 0
+    BN_BWD_REDUCE.launches = BN_BWD_REDUCE_ROWS.launches = \
+        STEM_CONV.launches = 0
 
 
-def _train_steps(step, args, n_steps, expect):
+def _train_steps(step, args, n_steps, expect, batch=RESNET_BATCH,
+                 label="ResNet"):
     """Run ``n_steps`` fused steps, timed, then TRACED_STEPS more traced,
     each run from launch counts of 0.  Returns the timed steps' losses
     (on the card) and seconds to the final sync, the traced steps'
@@ -2991,19 +3086,19 @@ def _train_steps(step, args, n_steps, expect):
     t0 = time.perf_counter()
     for _ in range(n_steps):
         before = _cnn_counts()
-        losses.append(step(*args, batch_size=RESNET_BATCH))
+        losses.append(step(*args, batch_size=batch))
         after = _cnn_counts()
         ok = ok and all(after[k] - before[k] == expect[k] for k in expect)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _reset_cnn_counts()
-    _, traced = traced_launches(lambda: [step(*args, batch_size=RESNET_BATCH)
+    _, traced = traced_launches(lambda: [step(*args, batch_size=batch)
                                          for _ in range(TRACED_STEPS)])
     booked = _cnn_counts()
     traced = {k: traced[k] for k in booked}
     ok = ok and all(traced[k] == booked[k] == TRACED_STEPS * expect[k]
                     for k in expect)
-    log(f"{TRACED_STEPS} replayed ResNet steps traced: launches on the card "
+    log(f"{TRACED_STEPS} replayed {label} steps traced: launches on the card "
         f"{json.dumps(traced)}, by the wrappers {json.dumps(booked)}")
     return losses, wall, {"traced": traced, "booked": booked}, ok
 
@@ -3017,18 +3112,20 @@ def _loss_gates(losses):
     return vals, finite, sum(vals[-5:]) / 5 < vals[0]
 
 
-def _resnet_eager_vs_fused(mod, trainer, args):
-    """One eager record/backward/Trainer.step step against a fused step
-    from the same weights, momentum and running statistics: a new
+def _resnet_eager_vs_fused(mod, trainer, args, batch=RESNET_BATCH,
+                           label="resnet"):
+    """One eager record/backward/Trainer.step step of a convolutional
+    net (ResNet-50, LeNet, MobileNetV2) against a fused step from the
+    same weights, momentum and running statistics: a new
     FusedTrainStep's first (eager) call, and its third, a replay of the
     graph its second call captured while the eager step's loss, and its
     autograd graph, were alive.  cuDNN's backward algorithms may sum
     in a run-dependent order, so all of it runs with
     ``cudnn.deterministic`` (the graph captures the deterministic
-    algorithms; this check only).  The gradients' rescale by 1/128 is
-    exact, so the two steps hand SGD the same gradient: weights must
-    agree within one bf16 ulp (2^-7 |w|), the losses and the running
-    statistics exactly."""
+    algorithms; this check only).  The gradients' rescale by 1/batch (a
+    power of two) is exact, so the two steps hand SGD the same
+    gradient: weights must agree within one bf16 ulp (2^-7 |w|), the
+    losses and the running statistics exactly."""
     import torch
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.gluon import FusedTrainStep
@@ -3041,14 +3138,14 @@ def _resnet_eager_vs_fused(mod, trainer, args):
             loss_e = mod(*args)
         autograd.backward(loss_e)
         # loss_e keeps its autograd graph alive across the capture below
-        trainer.step(RESNET_BATCH)
+        trainer.step(batch)
         eager = {k: p.data().detach().clone()
                  for k, p in mod.collect_params().items()}
         fused = {}
         det_step = FusedTrainStep(mod, trainer)
         for call in (1, 2, 3):
             _restore(mod, trainer, snap)
-            loss_f = det_step(*args, batch_size=RESNET_BATCH)
+            loss_f = det_step(*args, batch_size=batch)
             if call != 2:
                 fused["eager" if call == 1 else "replayed"] = (
                     loss_f, {k: p.data().detach().clone()
@@ -3075,22 +3172,29 @@ def _resnet_eager_vs_fused(mod, trainer, args):
                      "running_stats_equal": stats_equal,
                      "losses_equal": losses_equal}
         ok = ok and worst <= 1.0 and stats_equal and losses_equal
-    log("resnet: eager vs fused and replayed step: " + json.dumps(out))
+    log(f"{label}: eager vs fused and replayed step: " + json.dumps(out))
     if not ok:
-        raise SystemExit("eager and fused ResNet steps disagree")
+        raise SystemExit(f"{label}: eager and fused steps disagree")
     return out
 
 
-def phase_resnet(dev):
+# cuDNN's layout transposes, by the names its kernels take in a trace
+TRANSPOSE_NAMES = {"cudnn_transposes": r"(?i)nchwToNhwc|nhwcToNchw"}
+
+
+def phase_resnet(dev, layout="NCHW"):
     """ResNet-50 v1 as `bench.py` builds it, trained with SGD momentum
-    through `Trainer` + `FusedTrainStep` at batch 128, bf16."""
+    through `Trainer` + `FusedTrainStep` at batch 128, bf16, in
+    ``layout`` (NCHW as `bench.py`; NHWC on an NHWC batch, where B1 runs
+    its channel-minor form)."""
     import torch
     from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
 
+    label = "resnet" if layout == "NCHW" else "resnet_nhwc"
     torch.cuda.reset_peak_memory_stats()
-    net = resnet50(dev)
+    net = resnet50(dev, layout=layout)
     mod = net_with_loss(net)
-    args = resnet_batch(dev)
+    args = resnet_batch(dev, layout)
     trainer = Trainer(net.collect_params(), "sgd",
                       {"learning_rate": 0.1, "momentum": 0.9},
                       kvstore="device")
@@ -3100,14 +3204,17 @@ def phase_resnet(dev):
             for _ in range(RESNET_WARMUP)]
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_conv": 0}
+    rows = layout == "NHWC"
+    expect = {"bn_bwd_reduce": 0 if rows else BN_LAYERS,
+              "bn_bwd_reduce_rows": BN_LAYERS if rows else 0,
+              "stem_conv": 0}
     losses, wall, launches, counts_ok = _train_steps(step, args,
                                                      RESNET_STEPS, expect)
     vals, finite, falling = _loss_gates(warm + losses)
     measured = vals[RESNET_WARMUP:]
     n_params = sum(p.data().numel() for p in net.collect_params().values()
                    if p.grad_req != "null")
-    out = {"model": "resnet50_v1", "dtype": "bfloat16",
+    out = {"model": f"resnet50_v1 ({layout})", "dtype": "bfloat16",
            "batch": RESNET_BATCH, "steps": RESNET_STEPS,
            "warmup_steps": RESNET_WARMUP, "warmup_s": warm_s,
            "step_ms": wall / RESNET_STEPS * 1e3,
@@ -3120,9 +3227,9 @@ def phase_resnet(dev):
            "launches_per_step_ok": counts_ok,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "card": nvidia_smi()}
-    log("resnet: " + json.dumps(out))
+    log(f"{label}: " + json.dumps(out))
     if not (finite and falling and counts_ok):
-        raise SystemExit(f"ResNet training failed: finite={finite} "
+        raise SystemExit(f"{label} training failed: finite={finite} "
                          f"falling={falling} launches per step ok="
                          f"{counts_ok}")
     eager_step, eager_ms, eager_counts = _eager_steps(
@@ -3131,18 +3238,22 @@ def phase_resnet(dev):
     out["eager_launches_per_step_ok"] = all(
         s[k] == expect[k] for s in eager_counts for k in expect)
     out["captures"] = step.captures
-    log(f"resnet: eager step {eager_ms:.3f} ms against replayed "
+    log(f"{label}: eager step {eager_ms:.3f} ms against replayed "
         f"{out['step_ms']:.3f} ms; captures {step.captures}; eager "
         f"launches per step ok {out['eager_launches_per_step_ok']}")
     if not out["eager_launches_per_step_ok"] or step.captures != 1:
-        raise SystemExit("eager ResNet steps launched B1 other than 53 "
-                         "times, or the step was captured more than once")
-    out["eager_vs_fused"] = _resnet_eager_vs_fused(mod, trainer, args)
+        raise SystemExit(f"{label}: eager steps launched B1 other than "
+                         f"{BN_LAYERS} times, or the step was captured more "
+                         "than once")
+    out["eager_vs_fused"] = _resnet_eager_vs_fused(mod, trainer, args,
+                                                   label=label)
     out["profile"] = phase_train_profile(
         lambda: step(*args, batch_size=RESNET_BATCH),
-        f"replayed ResNet-50 training step at batch {RESNET_BATCH}")
+        f"replayed ResNet-50 ({layout}) training step at batch "
+        f"{RESNET_BATCH}", TRANSPOSE_NAMES)
     out["eager_profile"] = phase_train_profile(
-        eager_step, f"eager ResNet-50 training step at batch {RESNET_BATCH}")
+        eager_step, f"eager ResNet-50 ({layout}) training step at batch "
+        f"{RESNET_BATCH}", TRANSPOSE_NAMES)
     del step, eager_step, trainer, mod, net, args
     torch.cuda.empty_cache()
     return out
@@ -3173,7 +3284,8 @@ def phase_resnet_s2d(dev):
                       kvstore="device")
     step = FusedTrainStep(mod, trainer)
     warm = [step(*args, batch_size=RESNET_BATCH) for _ in range(S2D_WARMUP)]
-    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_conv": 1}
+    expect = {"bn_bwd_reduce": BN_LAYERS, "bn_bwd_reduce_rows": 0,
+              "stem_conv": 1}
     losses, wall, launches, counts_ok = _train_steps(step, args, S2D_STEPS,
                                                      expect)
     vals, finite, falling = _loss_gates(warm + losses)
@@ -3438,7 +3550,8 @@ def _recordio_variant(name, dev, make_mod, source, canvas_hw):
     booked = _cnn_counts()
     out["launches"] = {k: traced[k] for k in booked}
     out["launches_booked"] = booked
-    expect = {"bn_bwd_reduce": BN_LAYERS, "stem_conv": 0}
+    expect = {"bn_bwd_reduce": BN_LAYERS, "bn_bwd_reduce_rows": 0,
+              "stem_conv": 0}
     counts_ok = all(traced[k] == booked[k] == TRACED_STEPS * n
                     for k, n in expect.items())
     if canvas_hw is not None:
@@ -4479,6 +4592,338 @@ def phase_rnn_lm(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: BASELINE config 1, Gluon LeNet (benchmark/lenet_mnist_bench.py)
+# ---------------------------------------------------------------------------
+# the bench's batch, warm-ups and three windows (best of three), each
+# sized to about LENET_WINDOW_S; then replays on the one fixed batch
+# whose losses must fall
+LENET_BATCH, LENET_WARMUP, LENET_WINDOWS, LENET_WINDOW_S = 256, 5, 3, 1.0
+LENET_FALLING = 50
+
+
+def lenet(nn):
+    """The bench's LeNet, no ``in_units`` anywhere."""
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(20, kernel_size=5, activation="tanh"),
+            nn.MaxPool2D(pool_size=2, strides=2),
+            nn.Conv2D(50, kernel_size=5, activation="tanh"),
+            nn.MaxPool2D(pool_size=2, strides=2),
+            nn.Flatten(),
+            nn.Dense(500, activation="tanh"),
+            nn.Dense(10))
+    return net
+
+
+def _windows(fn, batch, n_windows, window_s):
+    """img/s of ``n_windows`` back-to-back windows of ``fn()`` calls,
+    each sized from a probe of 3 calls to last about ``window_s``."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    est = (time.perf_counter() - t0) / 3
+    iters = int(min(max(window_s / max(est, 1e-5), 10), 5000))
+    rates = []
+    for _ in range(n_windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        rates.append(batch * iters / (time.perf_counter() - t0))
+    return rates, iters
+
+
+def phase_lenet(dev):
+    """BASELINE config 1 as `benchmark/lenet_mnist_bench.py` runs it:
+    LeNet cast to bf16, batch 256, SGD lr 0.1 momentum 0.9 through a
+    captured `FusedTrainStep`, the mean loss; what the number measures is
+    the framework's overhead per step (the model is ~0.4 MFLOP an
+    image).  Gates: one capture, 0 host syncs a replay, eager and fused
+    within one bf16 ulp, finite losses falling over 50 replays."""
+    import torch
+    from mxnet_tpu_torch.gluon import FusedTrainStep, HybridBlock, Trainer
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    b = LENET_BATCH
+    net = lenet(nn)
+    net.initialize(ctx=dev, generator=torch.Generator().manual_seed(0))
+    net.cast("bfloat16")
+
+    class WithLoss(HybridBlock):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+            self.loss = SoftmaxCrossEntropyLoss()
+
+        def forward(self, x, y):
+            return self.loss(self.m(x), y).mean()
+
+    mod = WithLoss(net)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand(b, 1, 28, 28, generator=gen, device=dev).to(
+        torch.bfloat16)
+    y = torch.randint(0, 10, (b,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9})
+    step = FusedTrainStep(mod, trainer)
+
+    def one():
+        return step(x, y, batch_size=b)
+
+    warm = [one() for _ in range(LENET_WARMUP)]
+    rates, iters = _windows(one, b, LENET_WINDOWS, LENET_WINDOW_S)
+    losses = warm + [one() for _ in range(LENET_FALLING)]
+    vals, finite, falling = _loss_gates(losses)
+    eager_step, eager_ms, _ = _eager_steps(mod, trainer, (x, y), b, 3, 20,
+                                           lambda: {})
+    out = {"model": "LeNet (bench)", "dtype": "bfloat16", "batch": b,
+           "dense_in_units": net[5].weight.shape[1],
+           "window_iters": iters, "window_img_per_s": rates,
+           "img_per_s": max(rates), "step_ms": b / max(rates) * 1e3,
+           "eager_step_ms": eager_ms, "loss_first": vals[0],
+           "loss_last5_mean": sum(vals[-5:]) / 5, "captures": step.captures,
+           "card": nvidia_smi()}
+    out["eager_vs_fused"] = _resnet_eager_vs_fused(mod, trainer, (x, y),
+                                                   batch=b, label="lenet")
+    out["profile"] = phase_train_profile(
+        one, f"replayed LeNet training step at batch {b}")
+    out["eager_profile"] = phase_train_profile(
+        eager_step, f"eager LeNet training step at batch {b}")
+    log("lenet: " + json.dumps(out))
+    syncs = out["profile"]["host_syncs_per_step"]
+    if not (finite and falling and step.captures == 1 and syncs == 0 and
+            out["dense_in_units"] == 800):
+        raise SystemExit(f"LeNet training failed: finite={finite} "
+                         f"falling={falling} captures={step.captures} "
+                         f"host syncs a replay={syncs}")
+    del step, trainer, mod, net
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: examples/gluon/mnist_mlp.py's loop
+# ---------------------------------------------------------------------------
+# the example's synthetic stand-in (2048 x (1, 28, 28)), batch 128, 2
+# epochs, with labels that can be learned: the argmax of a fixed seeded
+# linear map of x
+MNIST_N, MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 2048, 128, 2, 0.1
+# accuracy above chance (0.1) the second epoch must reach: half of what
+# the same loop reaches on the CPU (`--mnist-mlp-curve`: 0.1226 after
+# epoch 2, 0.0226 above chance).  The example's hyperparameters give the
+# MLP 32 SGD steps on 784 pixels of noise, so it learns little; the gate
+# also holds the accuracy above the largest class's share (0.1147),
+# which guessing that class would reach
+MNIST_MARGIN = 0.011
+
+
+def mnist_data(seed=0):
+    """(x, y) numpy arrays: x uniform in [0, 1), (MNIST_N, 1, 28, 28) f32;
+    y the argmax of (x - 0.5) @ W for a fixed seeded W (centred, so the
+    ten classes come out about equally often), as f32 labels."""
+    import numpy as onp
+    rng = onp.random.default_rng(seed)
+    x = rng.random((MNIST_N, 1, 28, 28), dtype=onp.float32)
+    w = rng.standard_normal((784, 10)).astype(onp.float32)
+    y = ((x.reshape(MNIST_N, -1) - 0.5) @ w).argmax(-1).astype(onp.float32)
+    return x, y
+
+
+def mnist_mlp_loop(dev, log_epoch=None):
+    """The example's loop on ``dev``: the MLP with no ``in_units``,
+    ``initialize(init=Xavier())``, ``hybridize()``, SGD through
+    ``Trainer``, SoftmaxCrossEntropyLoss, ``metric.Accuracy``, the data
+    through ``ArrayDataset`` and a shuffling ``DataLoader``.  Returns
+    each epoch's (accuracy, ms a batch)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+
+    import numpy as onp
+    onp.random.seed(0)      # the DataLoader's shuffle draws from numpy's
+    x, y = mnist_data()
+    net = nn.HybridSequential()
+    net.add(nn.Dense(128, activation="relu"),
+            nn.Dense(64, activation="relu"),
+            nn.Dense(10))
+    net.initialize(init=mx.init.Xavier(), ctx=dev,
+                   generator=torch.Generator().manual_seed(1))
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": MNIST_LR})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = gluon.metric.Accuracy()
+    data = gluon.data.DataLoader(gluon.data.ArrayDataset(x, y), MNIST_BATCH,
+                                 shuffle=True, device=dev)
+    epochs = []
+    for epoch in range(MNIST_EPOCHS):
+        metric.reset()
+        n = 0
+        t0 = time.perf_counter()
+        for xb, yb in data:
+            xb = xb.reshape(xb.shape[0], -1)
+            with autograd.record():
+                out = net(xb)
+                loss = loss_fn(out, yb)
+            autograd.backward(loss)
+            trainer.step(xb.shape[0])
+            metric.update(yb, out)
+            n += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        name, acc = metric.get()
+        epochs.append({"epoch": epoch, name: acc, "ms_per_batch": ms,
+                       "batches": n})
+        if log_epoch:
+            log_epoch(epochs[-1])
+    return epochs
+
+
+def phase_mnist_mlp(dev):
+    """`examples/gluon/mnist_mlp.py`, eager as the example runs it (each
+    batch's metric update reads the output on the host).  Gate: the last
+    epoch's accuracy above chance by `MNIST_MARGIN` and above the
+    largest class's share."""
+    import numpy as onp
+    epochs = mnist_mlp_loop(dev, lambda e: log("mnist_mlp: " +
+                                               json.dumps(e)))
+    acc = epochs[-1]["accuracy"]
+    majority = float(onp.bincount(mnist_data()[1].astype(int)).max()
+                     / MNIST_N)
+    out = {"epochs": epochs, "margin": MNIST_MARGIN,
+           "largest_class_share": majority, "card": nvidia_smi()}
+    log("mnist_mlp: " + json.dumps(out))
+    if not acc > max(0.1 + MNIST_MARGIN, majority):
+        raise SystemExit(f"mnist_mlp learned nothing: accuracy {acc} after "
+                         f"{MNIST_EPOCHS} epochs")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the model zoo as examples/image-classification/
+# train_imagenet.py trains it, on its synthetic batches
+# ---------------------------------------------------------------------------
+ZOO = (("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1.1", 224),
+       ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+       ("densenet121", 224), ("inceptionv3", 299))
+ZOO_BATCH, ZOO_WARMUP, ZOO_STEPS, ZOO_FREQUENT = 64, 3, 10, 5
+ZOO_EAGER_CHECK = "mobilenetv2_1.0"
+
+
+class _Collect(logging.Handler):
+    """A logging handler that keeps the messages it is handed."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _zoo_net(name, side, dev):
+    """One family's network, trained as `train_imagenet.py` does: step ms
+    and img/s over `ZOO_STEPS` replays (after `ZOO_WARMUP` calls) at
+    batch 64 in bf16, `mx.callback.Speedometer` over the replays (it
+    reads the host's clock without a sync, so its first lines count
+    steps queued, not done), peak memory, B1's launches a step by the
+    trace and by the wrapper, and one replay's profile."""
+    from collections import namedtuple
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    torch.cuda.reset_peak_memory_stats()
+    net = vision.get_model(name)
+    net.initialize(init=mx.init.Xavier(), ctx=[dev],
+                   generator=torch.Generator().manual_seed(0))
+    net.cast("bfloat16")
+    mod = net_with_loss(net)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = (torch.rand(ZOO_BATCH, 3, side, side, generator=gen, device=dev)
+         * 2 - 1).to(torch.bfloat16)
+    y = torch.randint(0, 1000, (ZOO_BATCH,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      kvstore="device")
+    # dropout (AlexNet, VGG, SqueezeNet, Inception) draws its seed words
+    # from this generator, a fresh pair at each replay
+    step = FusedTrainStep(mod, trainer,
+                          generator=torch.Generator().manual_seed(29))
+    warm = [step(x, y, batch_size=ZOO_BATCH) for _ in range(ZOO_WARMUP)]
+    n_bn = sum(k.endswith("running_mean") for k in net.collect_params())
+    expect = {"bn_bwd_reduce": n_bn, "bn_bwd_reduce_rows": 0,
+              "stem_conv": 0}
+    speed = mx.callback.Speedometer(ZOO_BATCH, frequent=ZOO_FREQUENT)
+    param = namedtuple("P", ["epoch", "nbatch", "eval_metric"])
+    collect = _Collect()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(collect)
+    root.setLevel(logging.INFO)
+    try:
+        speed(param(0, 0, None))
+        losses, wall, launches, counts_ok = _train_steps(
+            _Speedo(step, speed, param), (x, y), ZOO_STEPS, expect,
+            batch=ZOO_BATCH, label=name)
+    finally:
+        root.removeHandler(collect)
+        root.setLevel(level)
+    vals, finite, _ = _loss_gates(warm + losses)
+    out = {"model": name, "input": [ZOO_BATCH, 3, side, side],
+           "dtype": "bfloat16", "steps": ZOO_STEPS,
+           "step_ms": wall / ZOO_STEPS * 1e3,
+           "img_per_s": ZOO_BATCH * ZOO_STEPS / wall,
+           "speedometer": collect.messages,
+           "batchnorms": n_bn, "b1_launches_per_step": n_bn,
+           "launches": launches["traced"],
+           "launches_booked": launches["booked"],
+           "launches_per_step_ok": counts_ok, "captures": step.captures,
+           "loss_first": vals[0], "loss_last": vals[-1],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if name == ZOO_EAGER_CHECK:
+        out["eager_vs_fused"] = _resnet_eager_vs_fused(
+            mod, trainer, (x, y), batch=ZOO_BATCH, label=f"zoo {name}")
+    out["profile"] = phase_train_profile(
+        lambda: step(x, y, batch_size=ZOO_BATCH),
+        f"replayed {name} training step at batch {ZOO_BATCH}")
+    log("zoo: " + json.dumps(out))
+    if not (finite and counts_ok and step.captures == 1):
+        raise SystemExit(f"zoo {name} failed: finite={finite} launches per "
+                         f"step ok={counts_ok} captures={step.captures}")
+    del step, trainer, mod, net, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Speedo:
+    """A training step that calls the Speedometer after each replay, as
+    `train_imagenet.py`'s loop does."""
+
+    def __init__(self, step, speed, param):
+        self.step, self.speed, self.param, self.n = step, speed, param, 0
+
+    def __call__(self, *args, **kwargs):
+        loss = self.step(*args, **kwargs)
+        self.n += 1
+        self.speed(self.param(0, self.n, None))
+        return loss
+
+
+def phase_zoo(dev):
+    return [_zoo_net(name, side, dev) for name, side in ZOO]
+
+
 def main():
     try:
         import torch
@@ -4489,6 +4934,12 @@ def main():
         # on the CPU, no result line: how WORD_LM_MARGIN was fixed
         word_lm_curve(int(sys.argv[2]), int(sys.argv[3]) if len(sys.argv) > 3
                       else WORD_LM_BATCHES)
+        return 0
+    if sys.argv[1:2] == ["--mnist-mlp-curve"]:
+        # on the CPU, no result line: how MNIST_MARGIN was fixed
+        torch.set_num_threads(4)
+        mnist_mlp_loop(torch.device("cpu"),
+                       lambda e: print(json.dumps(e), flush=True))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs "
@@ -4522,11 +4973,15 @@ def main():
     bn_rows = phase_bn_reduce(dev)
     stem_rows = phase_stem(dev)
     resnet = phase_resnet(dev)
+    resnet_nhwc = phase_resnet(dev, "NHWC")
     resnet_s2d = phase_resnet_s2d(dev)
     rec = phase_recordio(dev)
     rtc_out = phase_rtc(dev)
     custom = phase_resnet_custom(dev)
     rnn_lm = phase_rnn_lm(dev)
+    phase_lenet(dev)
+    phase_mnist_mlp(dev)
+    zoo = phase_zoo(dev)
     log(f"seconds: {time.perf_counter() - t_start:.1f}")
 
     main_case = next(r for r in rows
@@ -4552,7 +5007,8 @@ def main():
                 "launches_booked": amp_booked[name],
                 **{k: row[k] for k in keys}}
     # B1 at the stem BatchNorm, B2 at the bf16 stem: the largest shapes
-    bn_case = bn_rows[0]
+    bn_case = bn_rows["nchw"][0]
+    bn_rows_case = bn_rows["nhwc"][0]
     stem_case = next(r for r in stem_rows if r["dtype"] == "bfloat16")
     # B6 at the head's shape; softmax_bwd is held bitwise
     rtc_case = rtc_out["softmax"][0]
@@ -4634,10 +5090,27 @@ def main():
         "recordio_launches": {rec[v]["variant"]:
                               rec[v]["launches"]["bn_bwd_reduce"]
                               for v in ("a", "b") if v in rec},
+        "zoo_launches_per_step": {z["model"]: z["launches"]["bn_bwd_reduce"]
+                                  // TRACED_STEPS for z in zoo},
         "max_abs_err": bn_case["max_abs_err"],
         "ms": bn_case["ms"], "plain_ms": bn_case["plain_ms"],
         "bound_ms": bn_case["bound_ms"], "bound_by": bn_case["bound_by"],
         "library_ms": bn_case["library_ms"],
+    }, {
+        "name": "bn_bwd_reduce_rows", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/bn_bwd_reduce.cu",
+        "replaces": "mxnet_tpu/ops/nn.py:340",
+        "form": "channel-minor (M, C): NHWC activations",
+        "launches": resnet_nhwc["launches"]["bn_bwd_reduce_rows"],
+        "launches_booked": resnet_nhwc["launches_booked"][
+            "bn_bwd_reduce_rows"],
+        "shape": bn_rows_case["view"],
+        "max_abs_err": bn_rows_case["max_abs_err"],
+        "ms": bn_rows_case["ms"], "device_ms": bn_rows_case["device_ms"],
+        "plain_ms": bn_rows_case["plain_ms"],
+        "bound_ms": bn_rows_case["bound_ms"],
+        "bound_by": bn_rows_case["bound_by"],
+        "library_ms": bn_rows_case["library_ms"],
     }, {
         "name": "stem_conv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/stem_matmul.cu",

@@ -13,7 +13,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import autograd, gluon, initializer, models, serve  # noqa: E402
-from . import amp, lr_scheduler, operator, optimizer, rtc  # noqa: E402
+from . import amp, callback, lr_scheduler, operator, optimizer, rtc  # noqa: E402
 from . import image, io, recordio  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from . import numpy as np  # noqa: E402
@@ -23,7 +23,7 @@ from .context import cpu, current_context, gpu, num_gpus  # noqa: E402
 
 init = initializer
 
-__all__ = ["amp", "autograd", "gluon", "initializer", "init", "lr_scheduler",
+__all__ = ["amp", "autograd", "callback", "gluon", "initializer", "init", "lr_scheduler",
            "models", "optimizer", "serve", "np", "npx", "nd", "operator", "rtc",
            "image", "io", "recordio",
            "MXNetError", "cpu", "gpu", "num_gpus", "current_context"]

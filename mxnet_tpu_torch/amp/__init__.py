@@ -76,9 +76,9 @@ _CONDITIONAL_F32 = [
 # the npx operators no ported model calls.
 UNPORTED = frozenset(
     [("numpy_extension", n) for n in (
-        "deconvolution", "batch_dot", "masked_softmax", "masked_log_softmax",
-        "group_norm", "instance_norm", "l2_normalization", "smooth_l1",
-        "topk", "gamma", "gammaln", "erfinv", "khatri_rao")] +
+        "batch_dot", "masked_softmax", "masked_log_softmax",
+        "l2_normalization", "smooth_l1", "topk", "gamma", "gammaln",
+        "erfinv", "khatri_rao")] +
     [("ndarray.legacy", n)
      for _m, names in _TARGET_FUNCS + _F32_FUNCS if _m == "ndarray.legacy"
      for n in names] +

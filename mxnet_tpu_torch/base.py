@@ -1,8 +1,8 @@
 """Foundational helpers shared across the port.
 
 Counterpart of `mxnet_tpu/base.py`: the error root and the string
-registry that initializers (and later optimizers and kvstores) register
-into.  Pure Python; the port keeps its own copy so that it imports
+registry that initializers and metrics (and later optimizers and
+kvstores) register into.  Pure Python; the port keeps its own copy so that it imports
 nothing of the JAX package.
 """
 from __future__ import annotations
@@ -31,6 +31,9 @@ class _Registry:
             raise ValueError(f"Cannot find {self.name} '{name}'. "
                              f"Registered: {sorted(self._entries)}")
         return self._entries[key]
+
+    def create(self, name, *args, **kwargs):
+        return self.get(name)(*args, **kwargs)
 
 
 class registry:  # noqa: N801 - namespace, mirrors mx.registry

@@ -35,9 +35,18 @@ def current_context():
 
 
 def resolve_device(ctx=None):
-    """``torch.device`` for ``ctx`` (None -> ``current_context()``).
-    Raises :class:`MXNetError` for a CUDA device when no card is visible,
-    naming the explicit CPU opt-in."""
+    """``torch.device`` for ``ctx`` (None -> ``current_context()``).  A
+    list or tuple of one context, as ``initialize(ctx=[gpu(0)])`` passes
+    it, is that context; several raise, since the port places every
+    parameter on one device.  Raises :class:`MXNetError` for a CUDA
+    device when no card is visible, naming the explicit CPU opt-in."""
+    if isinstance(ctx, (list, tuple)):
+        if len(ctx) != 1:
+            raise MXNetError(
+                f"{len(ctx)} contexts {list(ctx)}: the port places each "
+                "parameter on one device (data parallelism over several "
+                "is ROADMAP queue A item A7, distribution); pass one")
+        ctx = ctx[0]
     dev = current_context() if ctx is None else torch.device(ctx)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -24,6 +24,8 @@ layers' initial states) follows a cast of its parent.
 """
 from __future__ import annotations
 
+import re
+
 import torch
 from torch import nn
 
@@ -31,6 +33,14 @@ from ..ops.invoke import is_tracing, tracing
 from .parameter import Parameter
 
 __all__ = ["Block", "HybridBlock"]
+
+
+class _Children(dict):
+    """A dict of name -> child whose call yields the children, standing
+    in for torch's ``nn.Module.children()`` method."""
+
+    def __call__(self):
+        return iter(list(self.values()))
 
 
 class Block(nn.Module):
@@ -59,12 +69,25 @@ class Block(nn.Module):
                 ret.update(child._collect_params_with_prefix(prefix + name))
         return ret
 
-    def collect_params(self):
-        """Dotted name -> `Parameter`, over this block and its children."""
-        ret = self._collect_params_with_prefix()
-        for name, param in ret.items():
+    def collect_params(self, select=None):
+        """Dotted name -> `Parameter`, over this block and its children;
+        with ``select``, only the names that regex matches (from the
+        start, as ``re.match``)."""
+        ret = {}
+        for name, param in self._collect_params_with_prefix().items():
             param._structure_name = name
+            if select is None or re.match(select, name):
+                ret[name] = param
         return ret
+
+    @property
+    def children(self):
+        """Name -> direct child block, as the reference's property; the
+        mapping is also callable, ``children()`` yielding the child
+        modules as torch's ``nn.Module.children`` does, so torch's
+        ``train``, ``to`` and ``apply`` walk the tree through it."""
+        return _Children((name, child) for name, child in
+                         self._modules.items() if child is not None)
 
     # -- lifecycle ---------------------------------------------------------
     def initialize(self, init=None, ctx=None, verbose=False,

@@ -3,8 +3,9 @@
 in both versions, with the reference's block structure and parameter
 names (``features.0.weight``, ``features.4.0.body.1.gamma``,
 ``output.weight``, ...).  Convolutions and BatchNorms take their input
-widths at the first forward.  The port takes channels-first layouts
-only (NCHW, the default).
+widths at the first forward.  ``layout`` is NCHW (the default) or NHWC,
+as in the reference; in NHWC the BatchNorms normalize axis 3, so their
+backward hands B1 the channel-minor (N*H*W, C) view.
 """
 from __future__ import annotations
 

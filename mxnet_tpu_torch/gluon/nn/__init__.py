@@ -1,11 +1,7 @@
 """Gluon layers of the port."""
-from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
-                           Flatten, GELU, HybridSequential, Identity,
-                           LayerNorm, Sequential)
-from .conv_layers import (AvgPool2D, Conv2D, GlobalAvgPool2D, MaxPool2D,
-                          SpaceToDepthStem)
+from .basic_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _basic_all
+from .conv_layers import *  # noqa: F401,F403
+from .conv_layers import __all__ as _conv_all
 
-__all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
-           "Flatten", "GELU", "HybridSequential", "Identity", "LayerNorm",
-           "Sequential", "Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D",
-           "SpaceToDepthStem"]
+__all__ = list(_basic_all) + list(_conv_all)

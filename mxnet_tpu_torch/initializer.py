@@ -16,8 +16,8 @@ import torch
 
 from .base import registry
 
-__all__ = ["Initializer", "register", "Zero", "One", "Uniform", "Normal",
-           "Xavier", "InitDesc", "resolve"]
+__all__ = ["Initializer", "register", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Xavier", "InitDesc", "resolve"]
 
 
 class InitDesc(str):
@@ -69,6 +69,22 @@ class One(Initializer):
 
 
 registry.get_registry("initializer").register(One, "ones")
+
+
+@register
+class Constant(Initializer):
+    """Every element ``value`` (a number, or a tensor broadcast to the
+    parameter's shape)."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, desc, arr, generator):
+        if isinstance(self.value, torch.Tensor):
+            self._copy_in(arr, self.value.broadcast_to(arr.shape))
+        else:
+            arr.fill_(self.value)
 
 
 @register

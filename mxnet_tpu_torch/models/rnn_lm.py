@@ -3,8 +3,8 @@
 
 The classic word LM: Embedding -> dropout -> stacked recurrent layer
 (`gluon.rnn`) -> dropout -> a Dense decoder over the vocabulary, or with
-``tie_weights`` the embedding matrix transposed.  The port's Dense needs
-its input width, so the decoder is given ``in_units=num_hidden``; the
+``tie_weights`` the embedding matrix transposed; the Dense decoder takes
+its input width at the first forward, as the reference's.  The
 parameter names are the reference's.
 """
 from __future__ import annotations
@@ -46,8 +46,7 @@ class RNNModel(HybridBlock):
                 raise ValueError("tie_weights requires num_hidden==num_embed")
             self.decoder = None
         else:
-            self.decoder = nn.Dense(vocab_size, flatten=False,
-                                    in_units=num_hidden)
+            self.decoder = nn.Dense(vocab_size, flatten=False)
 
     def begin_state(self, batch_size, ctx=None):
         return self.rnn.begin_state(batch_size, ctx=ctx)

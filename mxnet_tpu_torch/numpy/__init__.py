@@ -13,7 +13,9 @@ products promote mixed operand dtypes as numpy does (same-dtype
 operands go through untouched).  Beside them, the array creation and
 shape functions `bench.py`'s prologue calls: `array`, `asarray` and
 `transpose`; and those the recurrent layers and cells call: `zeros`,
-`zeros_like`, `ones_like`, `stack`, `concatenate` and `swapaxes`.  The rest of ``mx.np`` (the
+`zeros_like`, `ones_like`, `stack`, `concatenate` and `swapaxes`; and
+those the model zoo and ``nn.ReflectionPad2D`` call: `clip` and `pad`.
+The rest of ``mx.np`` (the
 other creation and shape functions, the ``NDArray`` type) is not ported
 yet.
 """
@@ -28,7 +30,8 @@ __all__ = ["matmul", "dot", "einsum", "tensordot", "inner", "outer",
            "mean", "std", "var", "cumsum", "trace", "average", "arccos",
            "arcsin", "cosh", "sinh", "tan", "arctanh", "sqrt", "cbrt",
            "argsort", "sort", "array", "asarray", "transpose", "zeros",
-           "zeros_like", "ones_like", "stack", "concatenate", "swapaxes"]
+           "zeros_like", "ones_like", "stack", "concatenate", "swapaxes",
+           "clip", "pad"]
 
 
 def _promote(*arrays):
@@ -304,3 +307,26 @@ def concatenate(seq, axis=0, out=None):
 
 def swapaxes(a, axis1, axis2):
     return torch.swapaxes(a, axis1, axis2)
+
+
+def clip(a, a_min, a_max):
+    """``a`` limited to [a_min, a_max] (either may be None)."""
+    return torch.clamp(a, a_min, a_max)
+
+
+def pad(x, pad_width, mode="constant", constant_values=0):
+    """numpy's ``pad`` with ``((lo, hi), ...)`` per axis; modes
+    ``constant``, and ``reflect`` and ``edge`` over at most the last
+    three axes."""
+    widths = [w for lo_hi in reversed(pad_width) for w in lo_hi]
+    if mode == "constant":
+        return torch.nn.functional.pad(x, widths, value=constant_values)
+    k = x.ndim
+    while k > 0 and tuple(pad_width[x.ndim - k]) == (0, 0):
+        k -= 1
+    widths = widths[:2 * k]
+    lead, trail = x.shape[:x.ndim - k], x.shape[x.ndim - k:]
+    out = torch.nn.functional.pad(
+        x.reshape((1, -1) + tuple(trail)), widths,
+        mode={"reflect": "reflect", "edge": "replicate"}[mode])
+    return out.reshape(tuple(lead) + tuple(out.shape[2:]))

@@ -39,18 +39,22 @@ from ..ops.invoke import (draw_tapes, is_recording, is_tracing, is_training,
 from ..ops.seeds import DrawTape, draw_seed
 
 __all__ = ["activation", "dropout", "embedding", "fully_connected", "gelu",
-           "layer_norm", "leaky_relu", "log_softmax", "pick", "softmax",
-           "flash_attention", "convolution", "pooling", "batch_norm",
+           "layer_norm", "group_norm", "instance_norm", "leaky_relu",
+           "log_softmax", "pick", "softmax", "flash_attention", "convolution",
+           "deconvolution", "pooling", "batch_norm",
            "stem_conv", "remat", "foreach", "while_loop", "cond", "relu",
            "sigmoid", "sequence_mask", "sequence_reverse"]
 
 activation = _nn.activation
 convolution = _nn.convolution
+deconvolution = _nn.deconvolution
 pooling = _nn.pooling
 stem_conv = _stem.stem_conv_auto
 embedding = _nn.embedding
 fully_connected = _nn.fully_connected
 layer_norm = _nn.layer_norm
+group_norm = _nn.group_norm
+instance_norm = _nn.instance_norm
 leaky_relu = _nn.leaky_relu
 log_softmax = _nn.log_softmax
 pick = _nn.pick

@@ -1,15 +1,21 @@
-"""NN operators (counterpart of the subset of `mxnet_tpu/ops/nn.py` that
-the BERT and ResNet paths call).  Plain functions on ``torch.Tensor``;
-the large products and the convolutions go to ``torch.matmul`` /
-``F.linear`` / ``F.conv2d``, as the reference left them to XLA.
+"""NN operators (counterpart of `mxnet_tpu/ops/nn.py`, but for its
+sparse, spatial and attention helpers).  Plain functions on
+``torch.Tensor``; the large products and the convolutions go to
+``torch.matmul`` / ``F.linear`` / ``F.conv*d``, as the reference left
+them to XLA.  Convolution, deconvolution and pooling take every layout
+the reference takes; a channels-last input is handed to torch as a
+permuted (channels-last) view, without a copy.
 
 BatchNorm in train mode is the reference's own formulation, spelled in
 torch ops (`batch_norm_train`), with its backward's per-channel
 reduction as the hand-written CUDA kernel B1 (`bn_bwd_reduce`, source
-`csrc/bn_bwd_reduce.cu`, replacing the TPU kernel `_bn_reduce_kernel`).
+`csrc/bn_bwd_reduce.cu`, replacing the TPU kernel `_bn_reduce_kernel`),
+in two forms: the (N0, C, N1) form for channels-first activations and
+the channel-minor form for N1 < `BN_ROWS_BELOW` (NHWC activations).
 A tensor on the card launches the kernel or the wrapper raises; a
 tensor on the CPU takes its plain version, `bn_bwd_reduce_reference`.
-The wrapper counts its launches in ``BN_BWD_REDUCE.launches``.
+The wrapper counts its launches in ``BN_BWD_REDUCE.launches`` and
+``BN_BWD_REDUCE_ROWS.launches``.
 
 Dropout in train mode is a hand-written CUDA kernel too (`dropout`,
 source `csrc/dropout.cu`; not the port of a TPU kernel: the reference
@@ -31,12 +37,16 @@ from .flash_attention import (_DTYPES, _M32, _keep_threshold, _seed_words,
                               _threefry2x32)
 
 __all__ = ["layer_norm", "fully_connected", "softmax", "log_softmax",
-           "activation", "leaky_relu", "dropout", "embedding", "pick",
-           "convolution", "pooling", "batch_norm_train",
+           "activation", "leaky_relu", "group_norm", "instance_norm",
+           "dropout", "embedding", "pick", "convolution", "deconvolution",
+           "pooling", "batch_norm_train",
            "batch_norm_inference", "bn_bwd_reduce", "bn_bwd_reduce_reference",
-           "BN_BWD_REDUCE", "dropout_reference", "DROPOUT"]
+           "bn_bwd_reduce_plan", "bn_bwd_reduce_rows_plan", "BN_BWD_REDUCE",
+           "BN_BWD_REDUCE_ROWS", "BN_ROWS_BELOW", "dropout_reference",
+           "DROPOUT"]
 
 BN_BWD_REDUCE = Kernel("bn_bwd_reduce")
+BN_BWD_REDUCE_ROWS = Kernel("bn_bwd_reduce_rows")
 DROPOUT = Kernel("dropout")
 
 
@@ -71,20 +81,70 @@ def log_softmax(data, axis=-1):
 
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
-                "tanh": torch.tanh, "softrelu": F.softplus}
+                "log_sigmoid": F.logsigmoid, "tanh": torch.tanh,
+                "softrelu": F.softplus, "softsign": F.softsign,
+                "mish": lambda x: x * torch.tanh(F.softplus(x))}
 
 
 def activation(data, act_type="relu"):
     return _ACTIVATIONS[act_type](data)
 
 
-def leaky_relu(data, act_type="gelu"):
-    """The GELU members of the reference's leaky_relu family."""
+# jax.nn.selu's constants
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """The reference's leaky_relu family, in its own formulas: ``leaky``
+    (``slope`` below 0), ``prelu`` (``gamma`` per channel on axis 1),
+    ``elu`` (``slope * (exp(x) - 1)``), ``selu``, ``gelu`` /
+    ``gelu_tanh``, and ``rrelu`` at inference (the mean slope)."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) \
+            if gamma.ndim == 1 and data.ndim > 2 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * (torch.exp(data) - 1))
+    if act_type == "selu":
+        neg = _SELU_ALPHA * torch.expm1(torch.where(data > 0, 0.0, data))
+        return _SELU_SCALE * torch.where(data > 0, data, neg)
     if act_type == "gelu":
         return F.gelu(data, approximate="none")
     if act_type == "gelu_tanh":
         return F.gelu(data, approximate="tanh")
+    if act_type == "rrelu":
+        return torch.where(data >= 0, data,
+                           (lower_bound + upper_bound) / 2 * data)
     raise ValueError(f"unknown act_type {act_type!r}")
+
+
+def group_norm(data, gamma, beta, num_groups, eps=1e-5):
+    """Normalize each (sample, group of channels) of channels-first data
+    by its mean and biased variance (two passes, as the reference), then
+    gamma and beta per channel."""
+    n, c = data.shape[0], data.shape[1]
+    x = data.reshape((n, num_groups, c // num_groups) + data.shape[2:])
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, unbiased=False, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var.float() + eps).to(data.dtype)
+    shape = (1, c) + (1,) * (data.ndim - 2)
+    return x.reshape(data.shape) * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def instance_norm(data, gamma, beta, eps=1e-5):
+    """Normalize each (sample, channel) of channels-first data over its
+    spatial axes, then gamma and beta per channel."""
+    axes = tuple(range(2, data.ndim))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = data.var(dim=axes, unbiased=False, keepdim=True)
+    x = (data - mean) * torch.rsqrt(var.float() + eps).to(data.dtype)
+    shape = (1, data.shape[1]) + (1,) * (data.ndim - 2)
+    return x * gamma.reshape(shape) + beta.reshape(shape)
 
 
 def dropout_reference(data, seed, p):
@@ -209,7 +269,7 @@ def pick(data, index, axis=-1):
 
 
 # ---------------------------------------------------------------------------
-# convolution and pooling (channels-first layouts: NCW, NCHW, NCDHW)
+# convolution and pooling (NCW/NWC, NCHW/NHWC, NCDHW/NDHWC)
 # ---------------------------------------------------------------------------
 def _tuplize(v, n):
     if v is None:
@@ -220,27 +280,61 @@ def _tuplize(v, n):
     return t * n if len(t) == 1 else t
 
 
-def _check_layout(layout, ndim):
-    if layout not in ("NCW", "NCHW", "NCDHW") or len(layout) != ndim:
-        raise NotImplementedError(
-            f"layout {layout!r} for a {ndim}-d input: the port takes the "
-            "channels-first layouts NCW/NCHW/NCDHW (channels-last is "
-            "ROADMAP queue A)")
+_LAYOUTS = ("NCW", "NWC", "NCHW", "NHWC", "NCDHW", "NDHWC")
+
+
+def _to_channels_first(data, layout):
+    """(data as a channels-first view, the permutation back): the
+    reference's layouts NCW/NCHW/NCDHW pass through; NWC/NHWC/NDHWC are
+    permuted without a copy, so a contiguous NHWC tensor is handed to
+    torch as a channels-last NCHW one, which cuDNN reads in place."""
+    if layout not in _LAYOUTS or len(layout) != data.ndim:
+        raise ValueError(f"layout {layout!r} for a {data.ndim}-d input: "
+                         f"the reference's layouts are {_LAYOUTS}")
+    if layout[1] == "C":
+        return data, None
+    nd = data.ndim
+    return data.permute(0, nd - 1, *range(1, nd - 1)), \
+        (0, *range(2, nd), 1)
+
+
+def _back(out, perm):
+    return out if perm is None else out.permute(*perm)
 
 
 def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
                 pad=None, num_filter=None, num_group=1, layout="NCHW"):
-    """N-d convolution, weight (num_filter, C // group, *kernel), the
-    result in the data's dtype plus the bias."""
-    _check_layout(layout, data.ndim)
+    """N-d convolution in any of the reference's layouts, weight
+    (num_filter, C // group, *kernel) in all of them, the result in the
+    data's layout and dtype plus the bias."""
+    x, perm = _to_channels_first(data, layout)
     nsp = data.ndim - 2
     conv = (F.conv1d, F.conv2d, F.conv3d)[nsp - 1]
-    out = conv(data, weight, None, _tuplize(stride, nsp),
+    out = conv(x, weight, None, _tuplize(stride, nsp),
                _tuplize(pad if pad is not None else 0, nsp),
                _tuplize(dilate, nsp), num_group)
     if bias is not None:
         out = out + bias.reshape((1, -1) + (1,) * nsp)
-    return out
+    return _back(out, perm)
+
+
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=None,
+                  num_group=1, layout="NCHW"):
+    """Transposed convolution, weight (C_in, num_filter // group,
+    *kernel) as the reference stores it: output size (in - 1) * stride
+    - 2 * pad + dilate * (kernel - 1) + 1 + adj along each axis."""
+    x, perm = _to_channels_first(data, layout)
+    nsp = data.ndim - 2
+    conv_t = (F.conv_transpose1d, F.conv_transpose2d,
+              F.conv_transpose3d)[nsp - 1]
+    out = conv_t(x, weight, None, _tuplize(stride, nsp),
+                 _tuplize(pad if pad is not None else 0, nsp),
+                 _tuplize(adj if adj is not None else 0, nsp), num_group,
+                 _tuplize(dilate, nsp))
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
+    return _back(out, perm)
 
 
 _POOLS = {"max": (F.max_pool1d, F.max_pool2d, F.max_pool3d),
@@ -253,8 +347,16 @@ def pooling(data, kernel=None, pool_type="max", stride=None, pad=None,
     """Max, average or sum pooling.  ``pooling_convention='full'`` keeps
     the last partial window (ceil mode) by widening the high-side pad, as
     the reference does; an average's ``count_include_pad`` counts the
-    user's padding but never that widening."""
-    _check_layout(layout, data.ndim)
+    user's padding but never that widening.  Any of the reference's
+    layouts; the result is in the data's."""
+    x, perm = _to_channels_first(data, layout)
+    return _back(_pool_channels_first(x, kernel, pool_type, stride, pad,
+                                      global_pool, count_include_pad,
+                                      pooling_convention), perm)
+
+
+def _pool_channels_first(data, kernel, pool_type, stride, pad, global_pool,
+                         count_include_pad, pooling_convention):
     nsp = data.ndim - 2
     sp = tuple(range(2, data.ndim))
     if global_pool:
@@ -352,17 +454,56 @@ def bn_bwd_reduce_plan(n0, c, n1):
     return -(-m // chunk), chunk
 
 
+# B1 reads the channel-minor form when fewer than this many elements
+# follow the channel axis (N1 = 1: NHWC activations, BatchNorm of 2-d
+# input); at and above it the (N0, C, N1) form.  On the H100 at 100M
+# elements and C = 256 the channel-minor form was the faster at N1 = 16
+# and the slower at N1 = 32 (chip_smoke.py's `kernel_bn_route` sweep,
+# PERF.md)
+BN_ROWS_BELOW = 32
+_BN_ROWS_MAX_TW = 64        # column threads per row in the rows form
+
+
+def bn_bwd_reduce_rows_plan(n0, c, n1, aligned=True):
+    """(vec, tw, splits, chunk) of B1's channel-minor form on N0 rows of
+    W = C * N1 floats: ``vec`` floats per load (4 when W % 4 == 0 and
+    ``aligned``, else 1), ``tw`` column threads per row (a power of two,
+    at most 64, no wider than W needs), so a block covers ``tw * vec``
+    columns and 256 / ``tw`` rows at a time; the rows cut into ``splits``
+    ranges of ``chunk`` (the last shorter), so that the card holds some
+    four blocks per SM and every thread sums at least 32 rows (fewer
+    partials for the final sum, which adds a channel's in one thread:
+    on an H100 at ResNet-50's (25088, 256, 1), 8 rows a thread gave 523
+    of them and 0.0551 ms of device time against the (N0, C, N1) form's
+    0.0255 at (128, 256, 196); PERF.md)."""
+    w = c * n1
+    vec = 4 if aligned and w % 4 == 0 else 1
+    tw = 1
+    while tw < _BN_ROWS_MAX_TW and tw * vec < w:
+        tw *= 2
+    rows_per_pass = _BN_THREADS // tw
+    tiles = -(-w // (tw * vec))
+    splits = max(1, min(-(-_BN_TARGET_BLOCKS // tiles),
+                        -(-n0 // (32 * rows_per_pass))))
+    chunk = -(-n0 // splits)
+    return vec, tw, -(-n0 // chunk), chunk
+
+
 def _declare_bn(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bn_bwd_reduce.argtypes = [p, p, p, p, p, i, i, ll, i, ll, p]
     lib.bn_bwd_reduce.restype = ctypes.c_int
+    lib.bn_bwd_reduce_rows.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, ll,
+                                       p]
+    lib.bn_bwd_reduce_rows.restype = ctypes.c_int
 
 
 def bn_bwd_reduce(dy, xhat):
     """B1: per-channel ``(sum(dy), sum(dy * xhat))`` in f32 of two
-    contiguous (N0, C, N1) f32 tensors.  On the card the CUDA kernel
-    (fixed summation order: two launches on the same inputs agree
-    bitwise); on the CPU the plain version."""
+    contiguous (N0, C, N1) f32 tensors.  On the card the CUDA kernel in
+    its channel-minor form when N1 < `BN_ROWS_BELOW`, else in its
+    (N0, C, N1) form (fixed summation order: two launches on the same
+    inputs agree bitwise); on the CPU the plain version."""
     if dy.shape != xhat.shape or dy.ndim != 3 or dy.device != xhat.device:
         raise ValueError(f"bn_bwd_reduce takes two (N0, C, N1) tensors on one "
                          f"device; got {tuple(dy.shape)} on {dy.device} and "
@@ -376,6 +517,13 @@ def bn_bwd_reduce(dy, xhat):
                         f"{xhat.dtype}")
     if not (dy.is_contiguous() and xhat.is_contiguous()):
         raise ValueError("the B1 kernel takes contiguous (N0, C, N1) tensors")
+    if dy.shape[2] < BN_ROWS_BELOW:
+        return _bn_reduce_rows(dy, xhat)
+    return _bn_reduce_channels(dy, xhat)
+
+
+def _bn_reduce_channels(dy, xhat):
+    """B1's (N0, C, N1) form on checked inputs."""
     from . import _build
 
     n0, c, n1 = dy.shape
@@ -391,6 +539,28 @@ def bn_bwd_reduce(dy, xhat):
     if err != 0:
         raise RuntimeError(f"bn_bwd_reduce launch failed: CUDA error {err}")
     BN_BWD_REDUCE.launches += 1
+    return out[0], out[1]
+
+
+def _bn_reduce_rows(dy, xhat):
+    """B1's channel-minor form on checked inputs."""
+    from . import _build
+
+    n0, c, n1 = dy.shape
+    aligned = dy.data_ptr() % 16 == 0 and xhat.data_ptr() % 16 == 0
+    vec, tw, splits, chunk = bn_bwd_reduce_rows_plan(n0, c, n1, aligned)
+    lib = _build.load("bn_bwd_reduce", _declare_bn)
+    part = torch.empty((2, c * n1, splits), dtype=torch.float32,
+                       device=dy.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=dy.device)
+    err = lib.bn_bwd_reduce_rows(dy.data_ptr(), xhat.data_ptr(),
+                                 part.data_ptr(), out[0].data_ptr(),
+                                 out[1].data_ptr(), n0, c, n1, vec, tw,
+                                 splits, chunk, stream_of(dy))
+    if err != 0:
+        raise RuntimeError(f"bn_bwd_reduce_rows launch failed: CUDA error "
+                           f"{err}")
+    BN_BWD_REDUCE_ROWS.launches += 1
     return out[0], out[1]
 
 

@@ -96,6 +96,8 @@ def _inputs(seed=0):
         "g": rng.uniform(0.5, 1.5, 4).astype(onp.float32),
         "I": rng.standard_normal((1, 2, 5, 5)).astype(onp.float32),
         "K": rng.standard_normal((3, 2, 3, 3)).astype(onp.float32),
+        "D": rng.standard_normal((2, 3, 3, 3)).astype(onp.float32),
+        "G": rng.uniform(0.5, 1.5, 2).astype(onp.float32),
     }
 
 
@@ -129,6 +131,11 @@ CALLS = {
     ("numpy_extension", "log_softmax"): ("X", {"axis": 0}, {}),
     ("numpy_extension", "layer_norm"): ("Xgg", {"axis": -1, "eps": 1e-5},
                                         {}),
+    ("numpy_extension", "deconvolution"): ("ID", {"kernel": (3, 3),
+                                                  "num_filter": 3}, {}),
+    ("numpy_extension", "group_norm"): ("IGG", {"num_groups": 2,
+                                                "eps": 1e-5}, {}),
+    ("numpy_extension", "instance_norm"): ("IGG", {"eps": 1e-5}, {}),
 }
 _UNIT = {"arccos", "arcsin", "arctanh", "cosh", "sinh", "tan"}
 for _name in ("exp", "expm1", "log", "log10", "log2", "log1p", "square",

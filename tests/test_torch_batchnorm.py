@@ -86,6 +86,52 @@ def test_bn_bwd_reduce_plan_covers_every_element():
         assert splits >= 1 and (splits - 1) * chunk < m <= splits * chunk
 
 
+def _rows_visits(n0, c, n1, plan):
+    """How many times B1's channel-minor kernel (`bn_reduce_rows_partial`
+    in `csrc/bn_bwd_reduce.cu`, its loops spelled in numpy) reads each
+    element of the (N0, C * N1) view under ``plan``."""
+    vec, tw, splits, chunk = plan
+    w = c * n1
+    ncol, rp = tw * vec, 256 // tw
+    tiles = -(-w // ncol)
+    count = onp.zeros((n0, w), onp.int64)
+    for s in range(splits):
+        r0, r1 = s * chunk, min(s * chunk + chunk, n0)
+        for tile in range(tiles):
+            for t in range(256):
+                tx, ty = t % tw, t // tw
+                col = tile * ncol + tx * vec
+                if col < w:
+                    count[r0 + ty:r1:rp, col:col + vec] += 1
+    return count
+
+
+@pytest.mark.parametrize("n0,c,n1,aligned", [
+    (1605632, 64, 1, True),     # ResNet-50's NHWC stem BatchNorm
+    (6272, 2048, 1, True),      # its last stage
+    (2331, 3, 1, True),         # C off every tile, odd M
+    (5, 130, 1, True),          # W % 4 != 0: scalar loads, 3 column tiles
+    (37, 1, 1, True),           # one channel
+    (9, 6, 3, True),            # N1 = 3, W = 18 (no float4)
+    (11, 64, 2, False),         # a misaligned pointer: no float4
+    (3, 1000, 1, True),         # M below the 4 rows a pass, 4 column tiles
+    (300, 64, 1, True),         # 16 column threads, 16 rows a pass
+    (700, 256, 1, True),        # 6 row ranges of 117
+])
+def test_bn_bwd_reduce_rows_plan_reads_every_element_once(n0, c, n1,
+                                                          aligned):
+    vec, tw, splits, chunk = plan = port_nn.bn_bwd_reduce_rows_plan(
+        n0, c, n1, aligned)
+    w = c * n1
+    assert vec == (4 if aligned and w % 4 == 0 else 1)
+    assert tw & (tw - 1) == 0 and 1 <= tw <= 64
+    assert tw == 64 or tw * vec >= w
+    assert splits >= 1 and (splits - 1) * chunk < n0 <= splits * chunk
+    if n0 * w <= 200_000:
+        assert (_rows_visits(n0, c, n1, plan) == 1).all()
+
+
+
 # ---------------------------------------------------------------------------
 # BatchNorm train forward and backward
 # ---------------------------------------------------------------------------
@@ -211,9 +257,17 @@ def test_convolution_matches_reference():
                               torch.from_numpy(b), **kw)
     onp.testing.assert_allclose(got.numpy(), onp.asarray(expect), atol=1e-5,
                                 rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="channels-first"):
+    # channels-last: the same weight, the NHWC view of the same data
+    x_nhwc = onp.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    expect = ref_nn.convolution(jnp.asarray(x_nhwc), jnp.asarray(w),
+                                jnp.asarray(b), layout="NHWC", **kw)
+    got = port_nn.convolution(torch.from_numpy(x_nhwc), torch.from_numpy(w),
+                              torch.from_numpy(b), layout="NHWC", **kw)
+    onp.testing.assert_allclose(got.numpy(), onp.asarray(expect), atol=1e-5,
+                                rtol=1e-5)
+    with pytest.raises(ValueError, match="layout"):
         port_nn.convolution(torch.from_numpy(x), torch.from_numpy(w),
-                            layout="NHWC")
+                            layout="HWCN")
 
 
 POOL_CASES = [

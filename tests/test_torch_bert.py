@@ -112,9 +112,13 @@ def test_initialize_is_seeded_and_casts():
 
 
 def test_dense_needs_its_input_width():
+    """Without ``in_units`` the width is taken at the first forward (as
+    the reference's Dense does); with it, at ``initialize``."""
     from mxnet_tpu_torch.gluon import nn
-    with pytest.raises(ValueError, match="in_units"):
-        nn.Dense(5, flatten=False).initialize(ctx=cpu())
+    deferred = nn.Dense(5, flatten=False).initialize(ctx=cpu())
+    assert deferred.weight.shape == (5, 0) and deferred.weight._data is None
+    assert deferred(torch.ones(2, 3, 7)).shape == (2, 3, 5)
+    assert deferred.weight.shape == (5, 7)
     layer = nn.Dense(5, in_units=7).initialize(ctx=cpu())
     assert isinstance(layer.weight, Parameter)
     assert layer.weight.shape == (5, 7)
