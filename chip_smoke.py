@@ -13,15 +13,18 @@ the package is missing.  Phases, each fatal on failure:
    for ``sm_90a`` and prints the build time, the compiler's register
    and spill report, and the card's name and power limit; for each
    tensor-core kernel (B3, B4, B5 in bf16 and f16 at each head dim they
-   are built for, B2 in bf16) its registers, spill bytes and tensor-core
-   instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass``, or "not
-   measured" without that tool).  Fails if B3, B4 or B5 spills at D = 64
-   or runs no HMMA there, or B2 does.
+   are built for, B4 and B5 past head dim 128, B2 in bf16) its
+   registers, spill bytes and tensor-core instructions (``HMMA``/``HGMMA``
+   in ``cuobjdump -sass``, or "not measured" without that tool).  Fails
+   if B3, B4 or B5 spills at D = 64 or runs no HMMA there, or B4 or B5
+   past 128 or B2 does.
 1b. **Tensor-core sums vs sequential FMAs.**  A kernel compiled by NVRTC
    chains ``mma.sync`` over k as B4 and B5 do and measures, on random
-   normal bf16 rows at each head dim, how far its dot products fall from
-   sequential f32 FMAs, in units of 2^-24 |a| |b|; fails above the bound
-   under which B4 and B5 take a bf16 rounding as settled.
+   normal bf16 rows at each head dim (16 to 128, and 136, 256 and 512 as
+   the chunked kernels chain their chunks), how far its dot products
+   fall from sequential f32 FMAs, in units of 2^-24 |a| |b|; fails above
+   the bound under which B4 and B5 take a bf16 rounding as settled
+   (scaled by sqrt(D / 128) past 128).
 2. **Forward kernel vs plain.**  Calls B3's wrapper on the card at the
    serving path's largest shape, (B, H, T, D) = (8, 12, 512, 64), in
    bf16 and f32, for a ragged key-padding mask with one fully masked
@@ -30,7 +33,8 @@ the package is missing.  Phases, each fatal on failure:
    off the kernel's tile grid; at the training path's shape (32, 12,
    128, 64) with the training batch's mask and dropout 0.1; at head dims
    16, 32, 48, 96 and 128 at (2, 3, 200, D) with every option at once;
-   at head dims 136, 256 and 512 (the chunked kernels) there and at
+   at head dims 130 (rows not 16-byte aligned), 136, 256 and 512 (the
+   chunked kernels) there and at
    (4, 8, 512, D) with a mask, timed in every type; and at (70000, 1,
    16, 16), batch*heads past one grid dimension; in f16 the serving and
    training main cases, the head dims and the fold.
@@ -359,6 +363,10 @@ _HEAD_DIM_CASES = [("all", 2, 3, 200, d) for d in (16, 32, 48, 96, 128)]
 WIDE_DIMS = (136, 256, 512)
 _WIDE_CASES = [("all", 2, 3, 200, d) for d in WIDE_DIMS]
 WIDE_TIMED = tuple(("ragged_mask", 4, 8, 512, d) for d in WIDE_DIMS)
+# rows of 130 elements are not 16-byte aligned: the chunked kernels load,
+# derive again and store them element by element (run after every other
+# case in every type, so that those draw the inputs they drew before)
+_ODD_WIDE_CASE = ("all", 2, 3, 200, 130)
 _FOLD_CASE = ("ragged_mask", 70000, 1, 16, 16)
 CASES = _SERVE_CASES + [_TRAIN_CASE] + _HEAD_DIM_CASES + [_FOLD_CASE] \
     + _WIDE_CASES + list(WIDE_TIMED)
@@ -755,6 +763,8 @@ _TC_KERNELS = (
     (r"flash_fwd_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B3"),
     (r"flash_bwd_dq_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B4"),
     (r"flash_bwd_dkv_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B5"),
+    (r"flash_bwd_dq_wide_tc_kernelI\w*?(Bf16|F16)E()", "B4 D>128"),
+    (r"flash_bwd_dkv_wide_tc_kernelI\w*?(Bf16|F16)E()", "B5 D>128"),
     (r"stem_conv_tc_kernelI\w*?(Bf16|F16)E()", "B2"),
 )
 
@@ -762,7 +772,7 @@ _TC_KERNELS = (
 def _tc_kernels(path, ptxas):
     """Registers, spill bytes and tensor-core instruction counts of the
     16-bit tensor-core kernels of one library: B3 at each head dim it is
-    built for, B4 and B5 at each head dim, B2."""
+    built for, B4 and B5 at each head dim and past 128, B2."""
     regs = _ptxas_by_kernel(ptxas)
     mma = _mma_counts(path)
     rows = []
@@ -784,8 +794,8 @@ def _tc_kernels(path, ptxas):
 def phase_build():
     """Build every kernel source, one nvcc for each, all started
     together; report the tensor-core kernels' registers, spills and
-    tensor-core instructions, and fail if B3, B4 or B5 (at D = 64) or B2
-    spills or runs no HMMA."""
+    tensor-core instructions, and fail if B3, B4 or B5 (at D = 64), B4 or
+    B5 past D = 128, or B2 spills or runs no HMMA."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mxnet_tpu_torch.ops import _build
@@ -818,12 +828,12 @@ def phase_build():
     log(f"build: {len(SOURCES)} sources in {seconds:.1f} s")
     gated = [r for r in tc if r["head_dim"] in (D, None)]
     if sorted((r["kernel"], r["type"]) for r in gated) != sorted(
-            [(k, t) for k in ("B3", "B4", "B5") for t in ("bf16", "f16")]
-            + [("B2", "bf16")]) or any(
+            [(k, t) for k in ("B3", "B4", "B5", "B4 D>128", "B5 D>128")
+             for t in ("bf16", "f16")] + [("B2", "bf16")]) or any(
             r["spill_store_bytes"] or r["hmma"] == 0 for r in gated):
-        raise SystemExit(f"tensor-core kernels (B3, B4, B5 at D={D}, B2): "
-                         f"expected no spills and HMMA instructions, got "
-                         f"{gated}")
+        raise SystemExit(f"tensor-core kernels (B3, B4, B5 at D={D}, B4 "
+                         f"and B5 past 128, B2): expected no spills and "
+                         f"HMMA instructions, got {gated}")
     return tc
 
 
@@ -834,7 +844,8 @@ def phase_build():
 # every element whose bf16 rounding a bounded difference between their
 # tensor-core sums and sequential FMAs could flip.  The bound takes that
 # difference to be at most MMA_ERR_BOUND * 2^-24 |a| |b| for rows a, b
-# (`SUM_ERR` in flash_attention_bwd.cu).  This kernel measures it: a . b
+# (`SUM_ERR` in flash_attention_bwd.cu; past D = 128 that bound times
+# sqrt(D / 128), `wide_sum_err`).  This kernel measures it: a . b
 # for each pair of 16-row and 8-row blocks, chained over k in steps of 16 as
 # B4 and B5 chain their mma.sync, against the sequential sum;
 # err = |difference| / (2^-24 |a| |b|).  Compiled by NVRTC (rtc).
@@ -898,22 +909,26 @@ def phase_mma_error(dev):
         "float *err, int rows, int d")
     gen = torch.Generator().manual_seed(99)
     rows, out = 128, {}
-    for d, slabs in ((16, 96), (32, 96), (64, B_TRAIN * H), (128, 96)):
-        a, b = (torch.randn(slabs, rows, d, generator=gen).to(dev,
-                                                               torch.bfloat16)
-                for _ in range(2))
+    for d, slabs in ((16, 96), (32, 96), (64, B_TRAIN * H), (128, 96),
+                     *((d, 96) for d in WIDE_DIMS)):
+        # rows zero-padded to a multiple of 16, as the chunked kernels'
+        # tiles are: the zeros add nothing to either sum
+        a, b = (torch.nn.functional.pad(
+            torch.randn(slabs, rows, d, generator=gen), (0, -d % 16)).to(
+                dev, torch.bfloat16) for _ in range(2))
         err = torch.empty(slabs, rows, rows, device=dev)
-        kernel.launch((a, b, err, rows, d), dev, (rows // 16, rows // 8, slabs),
-                      (32,))
+        kernel.launch((a, b, err, rows, a.shape[-1]), dev,
+                      (rows // 16, rows // 8, slabs), (32,))
         torch.cuda.synchronize()
         flat = err.flatten()
+        bound = MMA_ERR_BOUND * max(1.0, d / 128) ** 0.5
         out[d] = {"max": flat.max().item(),
                   "p9999": flat.kthvalue(int(flat.numel() * 0.9999)
                                          ).values.item(),
-                  "bound": MMA_ERR_BOUND, "pairs": flat.numel()}
+                  "bound": bound, "pairs": flat.numel()}
         log(f"mma_error: D={d}: tensor cores vs sequential FMAs, max "
             f"{out[d]['max']:.3f}, 99.99% {out[d]['p9999']:.3f} x 2^-24 "
-            f"|a| |b| over {out[d]['pairs']} pairs (bound {MMA_ERR_BOUND})")
+            f"|a| |b| over {out[d]['pairs']} pairs (bound {bound:.3f})")
     if any(r["max"] > r["bound"] for r in out.values()):
         raise SystemExit(f"tensor-core sums exceed the bound B4/B5 assume: "
                          f"{out}")
@@ -1067,6 +1082,13 @@ def _case_name(r):
     return f"{r['dtype']}/{r['case']}/{r['shape']}"
 
 
+def _odd_wide_cases():
+    """(type, [the unaligned wide case]) for each type, run last."""
+    import torch
+    return tuple((dt, [_ODD_WIDE_CASE]) for dt in (
+        torch.bfloat16, torch.float32, torch.float16))
+
+
 def phase_kernel_vs_plain(dev):
     import torch
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -1074,7 +1096,7 @@ def phase_kernel_vs_plain(dev):
     gen = torch.Generator().manual_seed(1234)
     rows = []
     for dtype, cases in ((torch.bfloat16, CASES), (torch.float32, CASES),
-                         (torch.float16, F16_CASES)):
+                         (torch.float16, F16_CASES), *_odd_wide_cases()):
         dname = str(dtype).split(".")[1]
         for case, *shape in cases:
             q, k, v, kw = _attention_inputs(dtype, case, shape, gen, dev)
@@ -1144,18 +1166,23 @@ def train_mask(b, t):
 
 
 def _bwd_bounds(dtype, kw, shape, nbytes_elem):
-    """Least time (ms) of B4 and of B5 for these inputs.  Bytes: q, dO
-    (and the k, v rows the mask leaves), lse and delta read once; dq, or
-    dk and dv, written once.  Flops: 2 * D per live (query, key) pair for
-    each product, 3 products in B4 (s, dp, dq) and 4 in B5 (s, dp, dv,
-    dk)."""
+    """Least time (ms) of B4 and of B5 for these inputs, each as (bound,
+    what bounds it, (bytes ms, operations ms)).  Bytes: q, dO (and the
+    k, v rows the mask leaves), lse and delta read once; dq, or dk and
+    dv, written once.  Flops: 2 * D per live (query, key) pair for each
+    product, 3 products in B4 (s, dp, dq) and 4 in B5 (s, dp, dv, dk)."""
     b, h, t, d = shape
     act = b * h * t * d * nbytes_elem          # one (B, H, T, D) tensor
     rows = b * h * t * 4                       # one (B, H, T) f32 tensor
     reads = 2 * act + 2 * rows + _key_bytes(kw, shape, nbytes_elem)
     pairs = _live_pairs(kw, shape)
-    return (_bound_ms(dtype, reads + act, 3 * 2 * d * pairs),
-            _bound_ms(dtype, reads + 2 * act, 4 * 2 * d * pairs))
+    out = []
+    for io, flops in ((reads + act, 3 * 2 * d * pairs),
+                      (reads + 2 * act, 4 * 2 * d * pairs)):
+        out.append((*_bound_ms(dtype, io, flops),
+                    (io / HBM_BYTES_PER_S * 1e3,
+                     flops / PEAK_FLOPS[dtype] * 1e3)))
+    return out
 
 
 def _sdpa_backward_ms(q, k, v, dout, kw):
@@ -1247,7 +1274,7 @@ def phase_bwd_vs_plain(dev):
     rows = []
     for dtype, cases in ((torch.bfloat16, BWD_CASES),
                          (torch.float32, BWD_CASES),
-                         (torch.float16, F16_CASES)):
+                         (torch.float16, F16_CASES), *_odd_wide_cases()):
         dname = str(dtype).split(".")[1]
         atol, rtol = BWD_TOL[dname]
         for case, *shape in cases:
@@ -1313,8 +1340,8 @@ def phase_bwd_vs_plain(dev):
                                    words, args)
             dq_ms, dkv_ms, dq_dev, dkv_dev, bwd_dev, bwd_events, plain_ms, \
                 lib_a, lib_b, lib_events = times.values()
-            (dq_bound, dq_by), (dkv_bound, dkv_by) = _bwd_bounds(
-                dname, kw, shape, q.element_size())
+            (dq_bound, dq_by, dq_parts), (dkv_bound, dkv_by, dkv_parts) = \
+                _bwd_bounds(dname, kw, shape, q.element_size())
             row = {"dtype": dname, "case": case, "shape": shape,
                    "max_abs_err": errs, "err_over_tol": ratio,
                    "fwd_err_over_tol": fwd_ratio, "lse_max_abs_err": lse_err,
@@ -1330,7 +1357,9 @@ def phase_bwd_vs_plain(dev):
                    "library_ms_windows": [lib_a, lib_b],
                    "library_ms_events": lib_events,
                    "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
+                   "dq_bound_parts_ms": dq_parts,
                    "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by,
+                   "dkv_bound_parts_ms": dkv_parts,
                    "ok": ok}
             rows.append(row)
             timing = "not timed " if dq_ms is None else (
@@ -5021,9 +5050,12 @@ def main():
     wide_fwd = [{k: r[k] for k in ("dtype", "shape", "ms", "bound_ms",
                                    "library_ms", "max_abs_err")}
                 for r in rows if tuple([r["case"]] + r["shape"]) in WIDE_TIMED]
-    wide_bwd = [{k: r[k] for k in ("dtype", "shape", "dq_ms", "dkv_ms",
-                                   "dq_bound_ms", "dkv_bound_ms",
-                                   "library_ms", "max_abs_err")}
+    wide_bwd = [{k: r[k] for k in (
+        "dtype", "shape", "dq_ms", "dkv_ms", "dq_device_ms", "dkv_device_ms",
+        "backward_device_ms", "plain_ms", "dq_bound_ms", "dq_bound_by",
+        "dq_bound_parts_ms", "dkv_bound_ms", "dkv_bound_by",
+        "dkv_bound_parts_ms", "library_ms", "library_ms_windows",
+        "rederived_share", "max_abs_err")}
                 for r in bwd_rows
                 if tuple([r["case"]] + r["shape"]) in WIDE_TIMED]
     log(json.dumps({"kernels": [{

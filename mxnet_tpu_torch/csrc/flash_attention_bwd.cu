@@ -98,14 +98,26 @@
 // - No atomics: dq is q-major, dk and dv k-major, so results repeat bitwise.
 // - batch*heads is folded over the grid's y and z dimensions, so it may
 //   exceed the 65535 one dimension takes.
-// - Head dims past 128 take the chunked kernels (flash_bwd_dq_wide_kernel,
-//   flash_bwd_dkv_wide_kernel), every type: scalar f32 FMAs, s and dp
-//   summed over D in chunks of 32 staged through shared memory, each block
-//   owning 64 columns of dq (or of dk and dv) and recomputing s, dp, p and
-//   ds; B4's column block 0 alone writes delta (summed in the order of
-//   torch's vectorized row sum, `torch_row_sum`) and the words.  Nothing
-//   grows with D.  They are built to be right first; PERF.md keeps their
-//   times beside their bound.
+// - Head dims past 128 take chunked kernels, which take the rows as they
+//   are (no padding).  bf16 and f16 (flash_bwd_dq_wide_tc_kernel,
+//   flash_bwd_dkv_wide_tc_kernel): the tensor-core kernels above with s
+//   and dp summed on mma.sync over D in chunks of 64, 16-key (B4) and
+//   16-query (B5) tiles, and each block owning 128 columns of dq (or of dk
+//   and dv) in register accumulators, so that it recomputes s, dp, p and
+//   ds on the tensor cores, ceil(D / 128) times in all.  Up to D = 256
+//   the tiles' rows lie whole in shared memory (the block's own 64 rows
+//   once, the other side's tiles double-buffered), past that one chunk of
+//   each at a time; the rounding points as above, with the row norms
+//   summed over the chunks, the bound scaled for the chain over D, and the
+//   marked pairs derived again from the whole rows (in shared memory, else
+//   in device memory).  Neither bytes nor products set the pace (at (4, 8,
+//   512, 256) B4's bound is ~10 us): the per-element work and the
+//   sequential chains of the pairs derived again do (PERF.md).  f32
+//   (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel): scalar f32
+//   FMAs, s and dp summed in chunks of 32 through shared memory, 64 result
+//   columns a block.  In both, B4's column block 0 alone writes delta
+//   (summed in the order of torch's vectorized row sum, `torch_row_sum`)
+//   and the words.
 // - The dropout seed words are read from device memory (`seed`), so that a
 //   captured CUDA graph draws the words its replay was given.
 
@@ -120,7 +132,6 @@ using flash::NEG_INF;
 using flash::fold_grid;
 using flash::folded_bh;
 using flash::threefry2x32;
-using flash::round_to;
 using flash::to_f32;
 
 constexpr int BQ = 64;          // query rows per B4 tile
@@ -1428,17 +1439,17 @@ flash_bwd_dkv_f32_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// head_dim > 128, any of the three types: scalar f32 FMAs, D in chunks
+// head_dim > 128, f32: scalar f32 FMAs, D in chunks
 // ---------------------------------------------------------------------------
 // The kernels above keep rows of the dq or dk/dv accumulators in registers
 // and whole (64, D) tiles in shared memory, which does not scale past D =
-// 128.  Here s = q k^T and dp = dO v^T are summed over D in chunks of WCH
-// columns staged through shared memory, as sequential FMAs in d order (the
-// plain version's f32 products sum in that order, so ds and p * keep meet
-// their rounding points with the plain version's values and no pair is
-// derived again), and each block owns WCOL columns of dq (B4) or of dk and
-// dv (B5): the grid's x dimension walks (tile, column chunk), and every
-// column block of a tile recomputes the same s, dp, p and ds.  The dropout
+// 128.  Here (true f32, no TF32, so no tensor cores) s = q k^T and dp =
+// dO v^T are summed over D in chunks of WCH columns staged through shared
+// memory, as sequential FMAs in d order (the plain version's f32 products
+// sum in that order, so no pair is derived again), and each block owns
+// WCOL columns of dq (B4) or of dk and dv (B5): the grid's x dimension
+// walks (tile, column chunk), and every column block of a tile recomputes
+// the same s, dp, p and ds.  The dropout
 // bits come from the same threefry2x32 of (seed, batch*head, q, k) in every
 // column block; only column block 0 of B4 writes delta, the keep words and
 // the (empty) plane of pairs to derive again, which B5 reads.
@@ -1498,10 +1509,50 @@ __device__ float torch_row_sum(const S* a, const S* b, int n, int shift,
   return r;
 }
 
+// torch_row_sum of four rows at once, where torch's sum takes one warp a
+// row (bw = 32, by = 1) and the rows start on 4-vectors (n a multiple of
+// 4, so shift = 0 and no tail): the same sums in the same order, the four
+// rows' loads in flight together and the tree over the lanes by shuffles
+// (lane x adds lane x + off's sum, as scratch[x] += scratch[x + off]).
+// Rows a[r], b[r]; the sums land in lane 0.
+template <typename S>
+__device__ __forceinline__ void torch_row_sum4(const S* const (&a)[4],
+                                               const S* const (&b)[4], int n,
+                                               float (&out)[4]) {
+  static_assert(sizeof(S) == 2, "16-bit rows, 8 bytes a 4-vector");
+  const int lane = threadIdx.x & 31;
+  float acc[4][4] = {};
+  for (int idx = lane; idx < n / 4; idx += 32) {
+    uint2 x[4], y[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x[r] = *reinterpret_cast<const uint2*>(a[r] + 4 * idx);
+      y[r] = *reinterpret_cast<const uint2*>(b[r] + 4 * idx);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const S* xa = reinterpret_cast<const S*>(&x[r]);
+      const S* yb = reinterpret_cast<const S*>(&y[r]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[r][i] = __fadd_rn(acc[r][i],
+                              __fmul_rn(to_f32(xa[i]), to_f32(yb[i])));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float v = __fadd_rn(__fadd_rn(__fadd_rn(acc[r][0], acc[r][1]), acc[r][2]),
+                        acc[r][3]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+    out[r] = v;
+  }
+}
+
 // Columns [dc, dc + WCH) of rows [r0, r0 + 64) of a (T, D) slab, widened to
 // f32, into shared memory at dst (row stride WCH + 1); zeros past T and D.
-template <typename S>
-__device__ __forceinline__ void load_chunk(float* dst, const S* src, int r0,
+__device__ __forceinline__ void load_chunk(float* dst, const float* src, int r0,
                                            int T, int D, int dc) {
   for (int idx = threadIdx.x; idx < 64 * WCH; idx += NTHREADS) {
     const int r = idx / WCH;
@@ -1509,14 +1560,13 @@ __device__ __forceinline__ void load_chunk(float* dst, const S* src, int r0,
     const int row = r0 + r;
     const int d = dc + c;
     dst[r * (WCH + 1) + c] =
-        row < T && d < D ? to_f32(src[static_cast<size_t>(row) * D + d]) : 0.f;
+        row < T && d < D ? src[static_cast<size_t>(row) * D + d] : 0.f;
   }
 }
 
 // Columns [c0, c0 + WCOL) of rows [r0, r0 + 64), widened to f32, at dst
 // (row stride WCOL); zeros past T and D.
-template <typename S>
-__device__ __forceinline__ void load_cols(float* dst, const S* src, int r0,
+__device__ __forceinline__ void load_cols(float* dst, const float* src, int r0,
                                           int T, int D, int c0) {
   for (int idx = threadIdx.x; idx < 64 * WCOL; idx += NTHREADS) {
     const int r = idx / WCOL;
@@ -1524,7 +1574,7 @@ __device__ __forceinline__ void load_cols(float* dst, const S* src, int r0,
     const int row = r0 + r;
     const int col = c0 + c;
     dst[r * WCOL + c] = row < T && col < D
-        ? to_f32(src[static_cast<size_t>(row) * D + col]) : 0.f;
+        ? src[static_cast<size_t>(row) * D + col] : 0.f;
   }
 }
 
@@ -1544,7 +1594,6 @@ constexpr size_t dkv_wide_smem_bytes() {
 // The thread layout of the f32 kernel: lane = 8 * rg + cg of warp w owns
 // query rows 16w + 4rg + i (i < 4), key columns cg + 8j (j < 8) and dq
 // columns c0 + cg + 8j (j < WCOL / 8) of the block's chunk.
-template <typename S>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_wide_kernel(const Params p) {
   constexpr int CS = WCH + 1;
@@ -1577,11 +1626,11 @@ flash_bwd_dq_wide_kernel(const Params p) {
   const int row0 = warp * 16 + (lane >> 3) * R;
 
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const S* Q = static_cast<const S*>(p.q) + base;
-  const S* K = static_cast<const S*>(p.k) + base;
-  const S* V = static_cast<const S*>(p.v) + base;
-  const S* DO = static_cast<const S*>(p.dout) + base;
-  const S* OUT = static_cast<const S*>(p.out) + base;
+  const float* Q = static_cast<const float*>(p.q) + base;
+  const float* K = static_cast<const float*>(p.k) + base;
+  const float* V = static_cast<const float*>(p.v) + base;
+  const float* DO = static_cast<const float*>(p.dout) + base;
+  const float* OUT = static_cast<const float*>(p.out) + base;
   const bool masked = p.mask != nullptr;
   const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
   const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
@@ -1594,7 +1643,7 @@ flash_bwd_dq_wide_kernel(const Params p) {
     float dl = 0.f;
     if (qpos < T) {
       const size_t row = static_cast<size_t>(bh) * T + qpos;
-      dl = torch_row_sum<S>(DO + static_cast<size_t>(qpos) * D,
+      dl = torch_row_sum<float>(DO + static_cast<size_t>(qpos) * D,
                             OUT + static_cast<size_t>(qpos) * D, D,
                             static_cast<int>((row * D) & 3u), p.sum_bw,
                             p.sum_by, sSum + warp * SUM_LANES);
@@ -1634,10 +1683,10 @@ flash_bwd_dq_wide_kernel(const Params p) {
       for (int j = 0; j < C; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int dc = 0; dc < D; dc += WCH) {
       __syncthreads();   // every warp is done with the previous chunks
-      load_chunk<S>(sQ, Q, q0, T, D, dc);
-      load_chunk<S>(sK, K, k0, T, D, dc);
-      load_chunk<S>(sDO, DO, q0, T, D, dc);
-      load_chunk<S>(sV, V, k0, T, D, dc);
+      load_chunk(sQ, Q, q0, T, D, dc);
+      load_chunk(sK, K, k0, T, D, dc);
+      load_chunk(sDO, DO, q0, T, D, dc);
+      load_chunk(sV, V, k0, T, D, dc);
       __syncthreads();
       const int dn = min(WCH, D - dc);
 #pragma unroll 2
@@ -1692,9 +1741,7 @@ flash_bwd_dq_wide_kernel(const Params p) {
           words[i][j >> 2] |= static_cast<uint32_t>(kept)
                               << (cg + 8 * (j & 3));
         }
-        // ds meets k in k's type
-        sDS[(row0 + i) * PS + cg + 8 * j] =
-            round_to<S>(pj * (dpj - delta[i]) * p.scale);
+        sDS[(row0 + i) * PS + cg + 8 * j] = pj * (dpj - delta[i]) * p.scale;
       }
     }
     if (writer) {
@@ -1721,7 +1768,7 @@ flash_bwd_dq_wide_kernel(const Params p) {
         }
     }
     __syncthreads();   // ds is complete; the chunk buffers are free
-    load_cols<S>(sKc, K, k0, T, D, c0);
+    load_cols(sKc, K, k0, T, D, c0);
     __syncthreads();
 
 #pragma unroll 4
@@ -1738,7 +1785,7 @@ flash_bwd_dq_wide_kernel(const Params p) {
     }
   }
 
-  S* DQ = static_cast<S*>(p.dq) + base;
+  float* DQ = static_cast<float*>(p.dq) + base;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int qpos = q0 + row0 + i;
@@ -1747,7 +1794,7 @@ flash_bwd_dq_wide_kernel(const Params p) {
     for (int j = 0; j < DC; ++j) {
       const int col = c0 + cg + 8 * j;
       if (col < D)
-        DQ[static_cast<size_t>(qpos) * D + col] = flash::from_f32<S>(acc[i][j]);
+        DQ[static_cast<size_t>(qpos) * D + col] = acc[i][j];
     }
   }
 }
@@ -1756,7 +1803,6 @@ flash_bwd_dq_wide_kernel(const Params p) {
 // The f32 kernel's layout in transposed (k-major) score space: lane = 8 *
 // rg + cg of warp w owns key rows 16w + 4rg + i (i < 4), query columns
 // cg + 8j (j < 8) and dk/dv columns c0 + cg + 8j (j < WCOL / 8).
-template <typename S>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_wide_kernel(const Params p) {
   constexpr int CS = WCH + 1;
@@ -1789,10 +1835,10 @@ flash_bwd_dkv_wide_kernel(const Params p) {
   const int row0 = (threadIdx.x >> 5) * 16 + (lane >> 3) * R;
 
   const size_t base = static_cast<size_t>(bh) * T * D;
-  const S* Q = static_cast<const S*>(p.q) + base;
-  const S* K = static_cast<const S*>(p.k) + base;
-  const S* V = static_cast<const S*>(p.v) + base;
-  const S* DO = static_cast<const S*>(p.dout) + base;
+  const float* Q = static_cast<const float*>(p.q) + base;
+  const float* K = static_cast<const float*>(p.k) + base;
+  const float* V = static_cast<const float*>(p.v) + base;
+  const float* DO = static_cast<const float*>(p.dout) + base;
   const float* LSE = p.lse + static_cast<size_t>(bh) * T;
   const float* DEL = p.delta + static_cast<size_t>(bh) * T;
   const bool masked = p.mask != nullptr;
@@ -1846,10 +1892,10 @@ flash_bwd_dkv_wide_kernel(const Params p) {
       for (int j = 0; j < C; ++j) st[i][j] = dpt[i][j] = 0.f;
     for (int dc = 0; dc < D; dc += WCH) {
       __syncthreads();   // every warp is done with the previous chunks
-      load_chunk<S>(sK, K, k0, T, D, dc);
-      load_chunk<S>(sV, V, k0, T, D, dc);
-      load_chunk<S>(sQ, Q, q0, T, D, dc);
-      load_chunk<S>(sDO, DO, q0, T, D, dc);
+      load_chunk(sK, K, k0, T, D, dc);
+      load_chunk(sV, V, k0, T, D, dc);
+      load_chunk(sQ, Q, q0, T, D, dc);
+      load_chunk(sDO, DO, q0, T, D, dc);
       __syncthreads();
       const int dn = min(WCH, D - dc);
 #pragma unroll 2
@@ -1899,14 +1945,13 @@ flash_bwd_dkv_wide_kernel(const Params p) {
                                                              : 0.f;
           dpj *= ks;
         }
-        // p * keep meets dO, ds meets q, each in the input type
-        sP[kr * PS + qc] = round_to<S>(pj * ks);
-        sDS[kr * PS + qc] = round_to<S>(pj * (dpj - sDEL[qc]) * p.scale);
+        sP[kr * PS + qc] = pj * ks;
+        sDS[kr * PS + qc] = pj * (dpj - sDEL[qc]) * p.scale;
       }
     }
     __syncthreads();   // p * keep and ds are complete; the chunks are free
-    load_cols<S>(sQc, Q, q0, T, D, c0);
-    load_cols<S>(sDOc, DO, q0, T, D, c0);
+    load_cols(sQc, Q, q0, T, D, c0);
+    load_cols(sDOc, DO, q0, T, D, c0);
     __syncthreads();
 
 #pragma unroll 2
@@ -1932,8 +1977,8 @@ flash_bwd_dkv_wide_kernel(const Params p) {
     }
   }
 
-  S* DK = static_cast<S*>(p.dk) + base;
-  S* DV = static_cast<S*>(p.dv) + base;
+  float* DK = static_cast<float*>(p.dk) + base;
+  float* DV = static_cast<float*>(p.dv) + base;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int kpos = k0 + row0 + i;
@@ -1943,8 +1988,952 @@ flash_bwd_dkv_wide_kernel(const Params p) {
       const int col = c0 + cg + 8 * j;
       if (col >= D) continue;
       const size_t at = static_cast<size_t>(kpos) * D + col;
-      DK[at] = flash::from_f32<S>(dk[i][j]);
-      DV[at] = flash::from_f32<S>(dv[i][j]);
+      DK[at] = dk[i][j];
+      DV[at] = dv[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// head_dim > 128, bf16 / f16: tensor cores, D in chunks
+// ---------------------------------------------------------------------------
+// The D <= 128 tensor-core kernels above with the head dim cut into chunks.
+// A block has its own 64-row tile (B4: q and dO; B5: k and v) and walks the
+// other's tiles (B4: k and v, WKB keys; B5: q and dO, WBN queries).  s =
+// q k^T and dp = dO v^T (B5: st, dpt) run on mma.sync over D in chunks of
+// WDC columns, the accumulators running on across the chunks.  16-bit tiles
+// arrive by 16-byte cp.async, zeros past T and past D (so a D that is no
+// multiple of 16 adds exact zeros), in one of two layouts:
+// - whole (`wide_whole`: up to D = 256, where both fit two blocks an SM):
+//   the own tile's rows whole, loaded once, and the other's whole rows in
+//   two buffers, the next tile arriving while this one is worked;
+// - streamed (past that): two buffers of one chunk of each, the next chunk
+//   (or the next tile's first) arriving while this one is multiplied.
+// Each block owns WNC result columns of dq (or of dk and dv) in register
+// accumulators, as the D = 128 kernels do; the other tile's column block of
+// k (B5: of q and dO) is read from its whole rows, or rides with its first
+// chunk.  The grid's x dimension walks (tile, column block), and every
+// column block recomputes s, dp, p and ds on the tensor cores, ceil(D /
+// WNC) times in all.  The rounding points follow the D <= 128 kernels: B4
+// tests every ds and p * keep against the type's rounding tie with the row
+// norms summed over the chunks and the bound scaled for a chain over the
+// true D (`wide_sum_err`), derives the marked pairs again with sequential
+// f32 FMAs over the whole rows (from shared memory where they are whole,
+// else from device memory), and its column block 0 writes the keep words
+// and the marked pairs (the second plane) with delta, which B5 reads.
+constexpr int WDC = 64;             // D columns a score chunk sums
+constexpr int WNC = 128;            // result columns a block owns
+constexpr int WRS = WDC + PAD;      // row stride of a chunk tile (elements)
+constexpr int WCS = WNC + PAD;      // row stride of a column block
+constexpr int WKB = 16;             // keys per B4 tile (half a keep word)
+constexpr int WBN = 16;             // queries per B5 tile (its dk and dv
+                                    // accumulators take 128 registers)
+// a block's shared memory where two blocks share an SM (the registers
+// allow no more)
+constexpr size_t WIDE_SMEM = 232448 / 2;
+// entries of a warp's queue (B4's also holds the lanes of a delta row sum)
+constexpr int DQ_QUEUE = 16 * WKB > SUM_LANES ? 16 * WKB : SUM_LANES;
+
+// Row stride (elements) of whole rows: D up to whole chunks, zero-filled,
+// plus PAD (so that, as WRS, ldmatrix rows hit distinct banks).
+__host__ __device__ constexpr int own_stride(int d) {
+  return (d + WDC - 1) / WDC * WDC + PAD;
+}
+
+// Shared memory of a wide block: its own tile (two tensors of 64 rows,
+// whole or two chunk buffers); two buffers of the other tile (two tensors
+// of OTHER rows, whole or one chunk); streamed, NCB column blocks of OTHER
+// rows; `extra` bytes of f32 rows, words and queue.
+__host__ __device__ constexpr size_t wide_smem(int d, bool whole, int other,
+                                               int ncb, size_t extra) {
+  return (2 * (whole ? 64 * own_stride(d) : 2 * 64 * WRS) +
+          2 * 2 * other * (whole ? own_stride(d) : WRS) +
+          (whole ? 0 : ncb * other * WCS)) * 2 + extra;
+}
+
+// B4's lse, delta, q and dO norms, k and v norms, and the queues; B5's two
+// sets of lse, delta, keep words and words of pairs to derive again, and
+// the queues.
+constexpr size_t DQ_WIDE_EXTRA = (4 * 64 + 2 * WKB) * 4 + 4 * DQ_QUEUE * 4;
+constexpr size_t DKV_WIDE_EXTRA = 2 * 6 * WBN * 4 + 4 * 16 * WBN * 4;
+
+// Whether both kernels take the whole layout at head dim d.
+__host__ __device__ constexpr bool wide_whole(int d) {
+  return wide_smem(d, true, WKB, 1, DQ_WIDE_EXTRA) <= WIDE_SMEM &&
+         wide_smem(d, true, WBN, 2, DKV_WIDE_EXTRA) <= WIDE_SMEM;
+}
+
+__host__ __device__ constexpr size_t dq_wide_tc_smem(int d) {
+  return wide_smem(d, wide_whole(d), WKB, 1, DQ_WIDE_EXTRA);
+}
+
+__host__ __device__ constexpr size_t dkv_wide_tc_smem(int d) {
+  return wide_smem(d, wide_whole(d), WBN, 2, DKV_WIDE_EXTRA);
+}
+
+// SUM_ERR for a chain of mma.sync over head dim d: each step of 16 adds
+// an error of a few f32 ulps of the running sum, which grows as the root of
+// the terms summed, so the error in units of |a| |b| grows as sqrt(d / 128)
+// past the D = 128 the bound was measured at (chip_smoke.py phase 1b
+// measures it at the wide head dims against this)
+__device__ __forceinline__ float wide_sum_err(int d) {
+  return SUM_ERR * sqrtf(fmaxf(1.f, d / 128.f));
+}
+
+// Rows [r0, r0 + ROWS), columns [c0, c0 + NCOLS) of a (T, D) 16-bit slab
+// into shared memory at dst (row stride ds elements); zeros past T and D.
+// By 16-byte cp.async where the rows are 16-byte aligned (D a multiple of
+// 8), else element by element.
+template <int ROWS, int NCOLS, typename S>
+__device__ __forceinline__ void copy_block(S* dst, int ds, const S* src,
+                                           int r0, int T, int c0, int D) {
+  constexpr int CPR = NCOLS / 8;   // 16-byte chunks a row
+  static_assert(ROWS * CPR % NTHREADS == 0, "block does not split evenly");
+  const uint32_t sdst = smem_u32(dst);
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / NTHREADS; ++i) {
+    const int c = threadIdx.x + i * NTHREADS;
+    const int r = c / CPR;
+    const int col = (c % CPR) * 8;
+    const int row = r0 + r;
+    const int d = c0 + col;
+    const size_t at = static_cast<size_t>(row) * D + d;
+    if ((D & 7) == 0) {
+      const bool ok = row < T && d < D;
+      cp_async16(sdst + (r * ds + col) * 2, src + (ok ? at : 0), ok);
+    } else {
+      S* to = dst + r * ds + col;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        to[e] = row < T && d + e < D ? src[at + e] : flash::from_f32<S>(0.f);
+    }
+  }
+}
+
+// Sum of squares of this thread's half of row r of a chunk (row stride rs;
+// two threads a row), for the row norms of the error bound.
+template <typename TR>
+__device__ __forceinline__ float chunk_sq(const typename TR::T* tile, int rs,
+                                          int r) {
+  const int half = threadIdx.x & 1;
+  float s = 0.f;
+#pragma unroll
+  for (int d = half * WDC / 2; d < (half + 1) * WDC / 2; d += 2) {
+    const float2 x = TR::unpack(
+        *reinterpret_cast<const uint32_t*>(tile + r * rs + d));
+    s += x.x * x.x + x.y * x.y;
+  }
+  return s;
+}
+
+// s = seq_dot(a0, b0) and dp = seq_dot(a1, b1) over n elements of rows in
+// shared or device memory, the two chains side by side: the same
+// sequential f32 FMAs in d order from 0, by 16-byte loads where every row
+// is 16-byte aligned (n a multiple of 8).
+template <typename TR>
+__device__ __forceinline__ float2 seq_dot2_rows(const typename TR::T* a0,
+                                                const typename TR::T* b0,
+                                                const typename TR::T* a1,
+                                                const typename TR::T* b1,
+                                                int n) {
+  float s0 = 0.f, s1 = 0.f;
+  if ((n & 7) == 0) {
+#pragma unroll 1
+    for (int d = 0; d < n; d += 8) {
+      const uint4 x0 = *reinterpret_cast<const uint4*>(a0 + d);
+      const uint4 y0 = *reinterpret_cast<const uint4*>(b0 + d);
+      const uint4 x1 = *reinterpret_cast<const uint4*>(a1 + d);
+      const uint4 y1 = *reinterpret_cast<const uint4*>(b1 + d);
+      const uint32_t xs0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const uint32_t ys0[4] = {y0.x, y0.y, y0.z, y0.w};
+      const uint32_t xs1[4] = {x1.x, x1.y, x1.z, x1.w};
+      const uint32_t ys1[4] = {y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 u0 = TR::unpack(xs0[w]), v0 = TR::unpack(ys0[w]);
+        const float2 u1 = TR::unpack(xs1[w]), v1 = TR::unpack(ys1[w]);
+        s0 = __fmaf_rn(u0.x, v0.x, s0);
+        s1 = __fmaf_rn(u1.x, v1.x, s1);
+        s0 = __fmaf_rn(u0.y, v0.y, s0);
+        s1 = __fmaf_rn(u1.y, v1.y, s1);
+      }
+    }
+  } else {
+    for (int d = 0; d < n; ++d) {
+      s0 = __fmaf_rn(to_f32(a0[d]), to_f32(b0[d]), s0);
+      s1 = __fmaf_rn(to_f32(a1[d]), to_f32(b1[d]), s1);
+    }
+  }
+  return make_float2(s0, s1);
+}
+
+// Columns col and col + 1 of a result row of D values, rounded to the
+// type; one 4-byte store where the pair is aligned and inside the row.
+template <typename TR>
+__device__ __forceinline__ void store_pair(typename TR::T* row, int col,
+                                           int D, float a, float b) {
+  if (col + 1 < D && (D & 1) == 0) {
+    *reinterpret_cast<uint32_t*>(row + col) = TR::pack(a, b);
+  } else {
+    if (col < D) row[col] = flash::from_f32<typename TR::T>(a);
+    if (col + 1 < D) row[col + 1] = flash::from_f32<typename TR::T>(b);
+  }
+}
+
+// B4, head_dim > 128, bf16 / f16.  Grid: (ceil(T / BQ) * ceil(D / WNC),
+// folded B * H).  The fragment layout of flash_bwd_dq_tc_kernel: warp w owns
+// query rows [16w, 16w + 16) of the tile, which walks K tiles of WKB keys,
+// each in chunks of WDC columns of D; dq columns c0 + 8n + 2t (n < WNC / 8).
+template <typename TR>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_wide_tc_kernel(const Params p) {
+  constexpr int KB = WKB;
+  constexpr int NSLOT = KB / 2;     // score elements a lane holds
+  using S = typename TR::T;
+  const int D = p.Dt;
+  const bool whole = wide_whole(D);
+  const int rs = whole ? own_stride(D) : WRS;   // row stride of the tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* tQ = reinterpret_cast<S*>(smem);       // whole, or two chunk buffers
+  S* tDO = tQ + (whole ? 64 * rs : 2 * 64 * WRS);
+  S* tK = tDO + (whole ? 64 * rs : 2 * 64 * WRS);   // two buffers each
+  S* tV = tK + 2 * KB * rs;
+  S* tKc = tV + 2 * KB * rs;                // streamed: k's column block
+  float* sLse = reinterpret_cast<float*>(tKc + (whole ? 0 : KB * WCS));
+  float* sDel = sLse + 64;
+  float* sQn = sDel + 64;
+  float* sOn = sQn + 64;
+  float* sKn = sOn + 64;
+  float* sVn = sKn + KB;
+  uint32_t* sQueue = reinterpret_cast<uint32_t*>(sVn + KB);
+
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
+  const int T = p.T;
+  const int n_col = (D + WNC - 1) / WNC;
+  const int q0 = static_cast<int>(blockIdx.x) / n_col * BQ;
+  const int c0 = static_cast<int>(blockIdx.x) % n_col * WNC;
+  const bool writer = c0 == 0;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  uint32_t* queue = sQueue + warp * DQ_QUEUE;
+
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const S* Q = static_cast<const S*>(p.q) + base;
+  const S* K = static_cast<const S*>(p.k) + base;
+  const S* V = static_cast<const S*>(p.v) + base;
+  const S* DO = static_cast<const S*>(p.dout) + base;
+  const S* OUT = static_cast<const S*>(p.out) + base;
+  const bool masked = p.mask != nullptr;
+  const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+  const flash::SeedKey sk = flash::seed_key(p.seed, p.dropout, bh);
+  const float sum_err = wide_sum_err(D);
+
+  int kmax = T;
+  if (p.causal) kmax = min(kmax, q0 + BQ);
+  if (p.kend != nullptr) kmax = min(kmax, p.kend[b]);
+  const int n_tiles = (kmax + KB - 1) / KB;
+  const int n_ch = (D + WDC - 1) / WDC;
+
+  // whole: K tile kt's rows into buffer kt & 1
+  auto stage_tile = [&](int kt) {
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const int at = (kt & 1) * KB * rs + ch * WDC;
+      copy_block<KB, WDC>(tK + at, rs, K, kt * KB, T, ch * WDC, D);
+      copy_block<KB, WDC>(tV + at, rs, V, kt * KB, T, ch * WDC, D);
+    }
+  };
+  // streamed: the chunks of step (K tile, chunk) = (step / n_ch, step %
+  // n_ch) of q, dO, k and v into buffer step & 1
+  auto stage_step = [&](int step) {
+    const int k0 = step / n_ch * KB;
+    const int dc = step % n_ch * WDC;
+    const int buf = step & 1;
+    copy_block<64, WDC>(tQ + buf * 64 * WRS, WRS, Q, q0, T, dc, D);
+    copy_block<64, WDC>(tDO + buf * 64 * WRS, WRS, DO, q0, T, dc, D);
+    copy_block<KB, WDC>(tK + buf * KB * WRS, WRS, K, k0, T, dc, D);
+    copy_block<KB, WDC>(tV + buf * KB * WRS, WRS, V, k0, T, dc, D);
+  };
+  if (n_tiles > 0) {
+    if (whole) {
+      for (int ch = 0; ch < n_ch; ++ch) {
+        copy_block<64, WDC>(tQ + ch * WDC, rs, Q, q0, T, ch * WDC, D);
+        copy_block<64, WDC>(tDO + ch * WDC, rs, DO, q0, T, ch * WDC, D);
+      }
+      stage_tile(0);
+    } else {
+      stage_step(0);
+    }
+    cp_async_commit();
+  }
+  if (threadIdx.x < 64) {
+    const int qpos = q0 + threadIdx.x;
+    float l = qpos < T ? p.lse[static_cast<size_t>(bh) * T + qpos] : 0.f;
+    if (masked && !(l > MASKED_ROW)) l = 0.f;
+    sLse[threadIdx.x] = l;
+  }
+  // delta of the tile's rows, one warp a row, in torch's order over D,
+  // while the first tiles arrive (the queue holds the row sum's lanes)
+  auto put_delta = [&](int r, float dl) {
+    const int qpos = q0 + r;
+    if (qpos < T) {
+      const size_t row = static_cast<size_t>(bh) * T + qpos;
+      if (p.dlse != nullptr) dl = __fsub_rn(dl, p.dlse[row]);
+      if (writer && lane == 0) p.delta[row] = dl;
+    } else {
+      dl = 0.f;
+    }
+    if (lane == 0) sDel[r] = dl;
+  };
+  if (p.sum_bw == 32 && p.sum_by == 1 && (D & 3) == 0) {
+    for (int r0 = warp * 16; r0 < warp * 16 + 16; r0 += 4) {
+      const S* ra[4];
+      const S* rb[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const size_t at = static_cast<size_t>(q0 + r0 + r < T ? q0 + r0 + r
+                                                                : 0) * D;
+        ra[r] = DO + at;
+        rb[r] = OUT + at;
+      }
+      float dl[4];
+      torch_row_sum4<S>(ra, rb, D, dl);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) put_delta(r0 + r, dl[r]);
+    }
+  } else {
+    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+      const int qpos = q0 + r;
+      const size_t row = static_cast<size_t>(bh) * T + (qpos < T ? qpos : 0);
+      put_delta(r, qpos < T ? torch_row_sum<S>(
+                                  DO + static_cast<size_t>(qpos) * D,
+                                  OUT + static_cast<size_t>(qpos) * D, D,
+                                  static_cast<int>((row * D) & 3u), p.sum_bw,
+                                  p.sum_by, reinterpret_cast<float*>(queue))
+                            : 0.f);
+    }
+  }
+
+  int rows[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rows[i] = 16 * warp + g + 8 * i;
+
+  // ldmatrix lane addresses: A from (rows x k) storage; B from (n x k)
+  // storage; B from (k x n) storage through .trans
+  const int a_row = 16 * warp + (lane & 15);
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int t_col = (lane >> 4) * 8;
+
+  float acc[WNC / 8][4];
+#pragma unroll
+  for (int n = 0; n < WNC / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  // squared row norms over the chunks so far (two threads a row): q and dO
+  // in the first K tile, k and v in each
+  float nq = 0.f, no = 0.f, nk = 0.f, nv = 0.f;
+  const int nr = threadIdx.x >> 1;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * KB;
+    // lane j < KB: whether key k0 + j exists and is valid (read here, used
+    // after the products)
+    const bool key_ok = lane < KB && k0 + lane < T &&
+                        (!masked || mrow[k0 + lane] != 0);
+    // this K tile's rows: whole, or the streamed column block of k
+    const S* cKt = tK + (kt & 1) * KB * rs;
+    const S* cVt = tV + (kt & 1) * KB * rs;
+    if (whole) {
+      if (kt + 1 < n_tiles) {        // prefetch the next K tile
+        stage_tile(kt + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+    }
+    float s[KB / 8][4], dp[KB / 8][4];
+#pragma unroll
+    for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const int step = kt * n_ch + ch;
+      const int buf = step & 1;
+      if (!whole) {
+        // k's column block rides with the tile's first chunks; the last
+        // tile's dq product is done with it (the barrier closing that tile)
+        if (ch == 0) copy_block<KB, WNC>(tKc, WCS, K, k0, T, c0, D);
+        if (step + 1 < n_tiles * n_ch) {   // prefetch the next chunks
+          stage_step(step + 1);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_commit();
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+      }
+      const S* cQ = whole ? tQ + ch * WDC : tQ + buf * 64 * WRS;
+      const S* cDO = whole ? tDO + ch * WDC : tDO + buf * 64 * WRS;
+      const S* cK = whole ? cKt + ch * WDC : tK + buf * KB * WRS;
+      const S* cV = whole ? cVt + ch * WDC : tV + buf * KB * WRS;
+      if (kt == 0) {
+        nq += chunk_sq<TR>(cQ, rs, nr);
+        no += chunk_sq<TR>(cDO, rs, nr);
+      }
+      if (nr < KB) {
+        nk += chunk_sq<TR>(cK, rs, nr);
+        nv += chunk_sq<TR>(cV, rs, nr);
+      }
+      const uint32_t sQ = smem_u32(cQ);
+      const uint32_t sDO = smem_u32(cDO);
+      const uint32_t sK = smem_u32(cK);
+      const uint32_t sV = smem_u32(cV);
+#pragma unroll
+      for (int ks = 0; ks < WDC / 16; ++ks) {
+        uint32_t qa[4], oa[4];
+        ldsm_x4(qa, sQ + (a_row * rs + ks * 16 + a_col) * 2);
+        ldsm_x4(oa, sDO + (a_row * rs + ks * 16 + a_col) * 2);
+#pragma unroll
+        for (int np = 0; np < KB / 16; ++np) {
+          const uint32_t off = ((np * 16 + b_row) * rs + ks * 16 + b_col) * 2;
+          uint32_t kb[4], vb[4];
+          ldsm_x4(kb, sK + off);
+          ldsm_x4(vb, sV + off);
+          TR::mma(s[2 * np], qa, kb[0], kb[1]);
+          TR::mma(s[2 * np + 1], qa, kb[2], kb[3]);
+          TR::mma(dp[2 * np], oa, vb[0], vb[1]);
+          TR::mma(dp[2 * np + 1], oa, vb[2], vb[3]);
+        }
+      }
+      if (!whole) __syncthreads();   // every warp is done with this buffer
+    }
+
+    // the row norms over the whole of D
+    {
+      const float k2 = nk + __shfl_xor_sync(0xffffffffu, nk, 1);
+      const float v2 = nv + __shfl_xor_sync(0xffffffffu, nv, 1);
+      if (nr < KB && (threadIdx.x & 1) == 0) {
+        sKn[nr] = sqrtf(k2);
+        sVn[nr] = sqrtf(v2);
+      }
+      nk = nv = 0.f;
+      if (kt == 0) {
+        const float q2 = nq + __shfl_xor_sync(0xffffffffu, nq, 1);
+        const float o2 = no + __shfl_xor_sync(0xffffffffu, no, 1);
+        if ((threadIdx.x & 1) == 0) {
+          sQn[nr] = sqrtf(q2);
+          sOn[nr] = sqrtf(o2);
+        }
+      }
+      __syncthreads();
+    }
+
+    // ds into s; the keep bits and the pairs to derive again of this tile,
+    // as in flash_bwd_dq_tc_kernel
+    const uint32_t kvalid = __ballot_sync(0xffffffffu, key_ok);
+    uint32_t words[2] = {0u, 0u}, redo[2] = {0u, 0u};
+    uint32_t risk = 0u, kept_bits = 0u;
+#pragma unroll
+    for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        const int qpos = q0 + rows[i];
+        const int kcol = n * 8 + 2 * t4 + (c & 1);
+        const int kpos = k0 + kcol;
+        float x = __fmul_rn(s[n][c], p.scale);
+        bool live = false;
+        if (kpos >= T) {
+          x = NEG_INF;   // ragged last tile: the key does not exist
+        } else {
+          if (brow != nullptr && qpos < T)
+            x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
+          if ((p.causal && qpos < kpos) || !((kvalid >> kcol) & 1u))
+            x = NEG_INF;
+          else
+            live = qpos < T;
+        }
+        const float pj = expf(x - sLse[rows[i]]);
+        float dpj = dp[n][c];
+        float ksf = 1.f;
+        if (p.dropout) {
+          const bool kept = live && draw_keep(p, sk, qpos, kpos);
+          ksf = kept ? p.inv_keep : 0.f;
+          dpj = __fmul_rn(dpj, ksf);
+          words[i] |= static_cast<uint32_t>(kept) << kcol;
+          kept_bits |= static_cast<uint32_t>(kept) << (4 * n + c);
+        }
+        const float ds = pj * (dpj - sDel[rows[i]]) * p.scale;
+        const float pk = p.dropout ? __fmul_rn(pj, ksf) : pj;
+        if (live) {
+          const float ex = 2 * sum_err * sQn[rows[i]] * sKn[kcol] * p.scale +
+                           fabsf(x) * 2.4e-7f;
+          const float edp = 2 * sum_err * sOn[rows[i]] * sVn[kcol] * ksf +
+                            fabsf(dpj) * 2.4e-7f;
+          if (TR::near_tie(ds, 1.01f * ex * fabsf(ds) + pj * p.scale * edp) ||
+              TR::near_tie(pk, 1.01f * ex * fabsf(pk))) {
+            risk |= 1u << (4 * n + c);
+            redo[i] |= 1u << kcol;
+          }
+        }
+        s[n][c] = ds;   // rounded below
+      }
+
+    // ds again, in the plain version's order, where its rounding is in doubt
+    const int total = enqueue<NSLOT>(risk, queue, [&](int e) {
+      const int n = e >> 2, c = e & 3;
+      return entry(g + 8 * (c >> 1), n * 8 + 2 * t4 + (c & 1),
+                   (kept_bits >> e) & 1u);
+    });
+    if (total > 0) {
+      if (writer && p.stats != nullptr && lane == 0)
+        atomicAdd(p.stats, static_cast<unsigned long long>(total));
+      __syncwarp();
+      for (int j = lane; j < total; j += 32) {
+        const uint32_t en = queue[j];
+        const int row = 16 * warp + ((en >> 7) & 15);
+        const int kcol = en & 127;
+        const int qpos = q0 + row;
+        const int kpos = k0 + kcol;
+        const size_t qr = whole ? static_cast<size_t>(row) * rs
+                                : static_cast<size_t>(qpos) * D;
+        const size_t kr = whole ? static_cast<size_t>(kcol) * rs
+                                : static_cast<size_t>(kpos) * D;
+        const float2 sd = seq_dot2_rows<TR>(
+            (whole ? tQ : Q) + qr, (whole ? cKt : K) + kr,
+            (whole ? tDO : DO) + qr, (whole ? cVt : V) + kr, D);
+        float x = __fmul_rn(sd.x, p.scale);
+        if (brow != nullptr)
+          x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
+        const float pj = expf(__fsub_rn(x, sLse[row]));
+        float dpv = sd.y;
+        if (p.dropout)
+          dpv = __fmul_rn(dpv, (en >> 11) & 1u ? p.inv_keep : 0.f);
+        queue[j] = TR::bits(__fmul_rn(
+            __fmul_rn(pj, __fsub_rn(dpv, sDel[row])), p.scale));
+      }
+      __syncwarp();
+      dequeue<NSLOT>(risk, queue, [&](int e, uint32_t r) {
+        s[e >> 2][e & 3] = TR::value(r);
+      });
+    }
+
+    if (writer) {
+      // gather each half word (the tile's 16 keys) from the four lanes of
+      // its row; lane t < 2 of the lane group writes row t's
+      uint32_t word = 0u, rword = 0u;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (p.dropout) {
+          words[i] |= __shfl_xor_sync(0xffffffffu, words[i], 1);
+          words[i] |= __shfl_xor_sync(0xffffffffu, words[i], 2);
+        }
+        redo[i] |= __shfl_xor_sync(0xffffffffu, redo[i], 1);
+        redo[i] |= __shfl_xor_sync(0xffffffffu, redo[i], 2);
+        if (t4 == i) {
+          word = words[i];
+          rword = redo[i];
+        }
+      }
+      const int qpos = q0 + rows[t4 < 2 ? t4 : 1];
+      const int widx = k0 >> 5;
+      const int half = (k0 >> 4) & 1;   // bits 16 half .. 16 half + 15
+      if (t4 < 2 && qpos < T && widx < p.W) {
+        if (p.dropout)
+          reinterpret_cast<uint16_t*>(p.keep + keep_at(p, bh, qpos, widx))
+              [half] = static_cast<uint16_t>(word);
+        reinterpret_cast<uint16_t*>(p.keep + redo_at(p, bh, qpos, widx))
+            [half] = static_cast<uint16_t>(rword);
+      }
+    }
+
+    // dq += ds k over the block's columns: ds meets k in k's type
+    const uint32_t sKc = whole ? smem_u32(cKt + c0) : smem_u32(tKc);
+    const int kcs = whole ? rs : WCS;
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      uint32_t da[4];
+      to_a_frag<TR>(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < WNC / 16; ++n2) {
+        if (c0 + 16 * n2 >= D) break;
+        uint32_t kb[4];
+        ldsm_x4_t(kb, sKc + ((kk * 16 + t_row) * kcs + n2 * 16 + t_col) * 2);
+        TR::mma(acc[2 * n2], da, kb[0], kb[1]);
+        TR::mma(acc[2 * n2 + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this tile's buffers
+  }
+  cp_async_wait<0>();
+
+  S* DQ = static_cast<S*>(p.dq) + base;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = q0 + rows[i];
+    if (qpos >= T) continue;
+#pragma unroll
+    for (int n = 0; n < WNC / 8; ++n)
+      store_pair<TR>(DQ + static_cast<size_t>(qpos) * D, c0 + n * 8 + 2 * t4,
+                     D, acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// B5, head_dim > 128, bf16 / f16.  Grid: (ceil(T / BK) * ceil(D / WNC),
+// folded B * H).  The fragment layout of flash_bwd_dkv_tc_kernel: warp w
+// owns key rows [16w, 16w + 16) of the tile, which walks Q tiles of WBN
+// queries, each in chunks of WDC columns of D; dk and dv columns c0 + 8n +
+// 2t (n < WNC / 8).
+template <typename TR>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_wide_tc_kernel(const Params p) {
+  constexpr int BN = WBN;
+  constexpr int NSLOT = BN / 2;     // score elements a lane holds
+  using S = typename TR::T;
+  const int D = p.Dt;
+  const bool whole = wide_whole(D);
+  const int rs = whole ? own_stride(D) : WRS;   // row stride of the tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* tK = reinterpret_cast<S*>(smem);       // whole, or two chunk buffers
+  S* tV = tK + (whole ? 64 * rs : 2 * 64 * WRS);
+  S* tQ = tV + (whole ? 64 * rs : 2 * 64 * WRS);   // two buffers each
+  S* tDO = tQ + 2 * BN * rs;
+  S* tQc = tDO + 2 * BN * rs;               // streamed: column blocks
+  S* tDOc = tQc + BN * WCS;
+  // two sets (Q tile qt in set qt & 1) of lse, delta, keep words [BN][2]
+  // and words of pairs to derive again [BN][2]
+  float* sLse = reinterpret_cast<float*>(tQc + (whole ? 0 : 2 * BN * WCS));
+  float* sDel = sLse + 2 * BN;
+  uint32_t* sKeep = reinterpret_cast<uint32_t*>(sDel + 2 * BN);
+  uint32_t* sRedo = sKeep + 4 * BN;
+  uint32_t* sQueue = sRedo + 4 * BN;
+
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
+  const int T = p.T;
+  const int n_col = (D + WNC - 1) / WNC;
+  const int k0 = static_cast<int>(blockIdx.x) / n_col * BK;
+  const int c0 = static_cast<int>(blockIdx.x) % n_col * WNC;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  uint32_t* queue = sQueue + warp * 16 * BN;
+
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const S* Q = static_cast<const S*>(p.q) + base;
+  const S* K = static_cast<const S*>(p.k) + base;
+  const S* V = static_cast<const S*>(p.v) + base;
+  const S* DO = static_cast<const S*>(p.dout) + base;
+  const bool masked = p.mask != nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+
+  // a key that does not exist (ragged last tile) or is padding
+  int rows[2];
+  bool dead[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = 16 * warp + g + 8 * i;
+    const int kpos = k0 + rows[i];
+    dead[i] = kpos >= T ||
+              (masked && p.mask[static_cast<size_t>(b) * T + kpos] == 0);
+  }
+
+  float dk[WNC / 8][4], dv[WNC / 8][4];
+#pragma unroll
+  for (int n = 0; n < WNC / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+
+  // A K tile at or past kend sees no query: it keeps its zero accumulators.
+  const bool alive = p.kend == nullptr || k0 < p.kend[b];
+  // Causal: Q tiles wholly before the diagonal see nothing of this K tile.
+  const int first_qt = p.causal ? k0 / BN : 0;
+  const int n_qt = alive ? (T + BN - 1) / BN : 0;
+  const int n_ch = (D + WDC - 1) / WDC;
+  const int n_steps = first_qt < n_qt ? (n_qt - first_qt) * n_ch : 0;
+
+  // Q tile qt's lse and delta and this K tile's two keep words and two
+  // words of pairs to derive again a query, into set qt & 1
+  auto stage_rows = [&](int qt) {
+    const int q0 = qt * BN;
+    const int set = qt & 1;
+    for (int i = threadIdx.x; i < BN; i += NTHREADS) {
+      const int qpos = q0 + i;
+      const bool ok = qpos < T;
+      const size_t at = static_cast<size_t>(bh) * T + (ok ? qpos : 0);
+      cp_async4(smem_u32(sLse + set * BN + i), p.lse + at, ok);
+      cp_async4(smem_u32(sDel + set * BN + i), p.delta + at, ok);
+    }
+    for (int i = threadIdx.x; i < 2 * BN; i += NTHREADS) {
+      const int qpos = q0 + (i >> 1);
+      const int widx = (k0 >> 5) + (i & 1);
+      const bool ok = qpos < T && widx < p.W;
+      if (p.dropout)
+        cp_async4(smem_u32(sKeep + set * 2 * BN + i),
+                  p.keep + (ok ? keep_at(p, bh, qpos, widx) : 0), ok);
+      cp_async4(smem_u32(sRedo + set * 2 * BN + i),
+                p.keep + (ok ? redo_at(p, bh, qpos, widx) : 0), ok);
+    }
+  };
+  // whole: Q tile qt's rows of q and dO into buffer qt & 1, and its rows
+  auto stage_tile = [&](int qt) {
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const int at = (qt & 1) * BN * rs + ch * WDC;
+      copy_block<BN, WDC>(tQ + at, rs, Q, qt * BN, T, ch * WDC, D);
+      copy_block<BN, WDC>(tDO + at, rs, DO, qt * BN, T, ch * WDC, D);
+    }
+    stage_rows(qt);
+  };
+  // streamed: the chunks of step (Q tile, chunk) = (first_qt + step / n_ch,
+  // step % n_ch) of k, v, q and dO into buffer step & 1
+  auto stage_step = [&](int step) {
+    const int q0 = (first_qt + step / n_ch) * BN;
+    const int dc = step % n_ch * WDC;
+    const int buf = step & 1;
+    copy_block<64, WDC>(tK + buf * 64 * WRS, WRS, K, k0, T, dc, D);
+    copy_block<64, WDC>(tV + buf * 64 * WRS, WRS, V, k0, T, dc, D);
+    copy_block<BN, WDC>(tQ + buf * BN * WRS, WRS, Q, q0, T, dc, D);
+    copy_block<BN, WDC>(tDO + buf * BN * WRS, WRS, DO, q0, T, dc, D);
+  };
+  if (n_steps > 0) {
+    if (whole) {
+      for (int ch = 0; ch < n_ch; ++ch) {
+        copy_block<64, WDC>(tK + ch * WDC, rs, K, k0, T, ch * WDC, D);
+        copy_block<64, WDC>(tV + ch * WDC, rs, V, k0, T, ch * WDC, D);
+      }
+      stage_tile(first_qt);
+    } else {
+      stage_step(0);
+    }
+    cp_async_commit();
+  }
+
+  const int a_row = 16 * warp + (lane & 15);
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int t_col = (lane >> 4) * 8;
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    const int q0 = qt * BN;
+    const int set = qt & 1;
+    // this Q tile's rows: whole, or the streamed column blocks
+    const S* cQt = tQ + set * BN * rs;
+    const S* cDOt = tDO + set * BN * rs;
+    if (whole) {
+      if (qt + 1 < n_qt) {           // prefetch the next Q tile
+        stage_tile(qt + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+    }
+    float st[BN / 8][4], dpt[BN / 8][4];
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
+
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const int step = (qt - first_qt) * n_ch + ch;
+      const int buf = step & 1;
+      if (!whole) {
+        // the tile's column blocks and rows ride with its first chunks; the
+        // last tile is done with them (the barrier closing that tile)
+        if (ch == 0) {
+          copy_block<BN, WNC>(tQc, WCS, Q, q0, T, c0, D);
+          copy_block<BN, WNC>(tDOc, WCS, DO, q0, T, c0, D);
+          stage_rows(qt);
+        }
+        if (step + 1 < n_steps) {          // prefetch the next chunks
+          stage_step(step + 1);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_commit();
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+      }
+      const uint32_t sK = smem_u32(whole ? tK + ch * WDC : tK + buf * 64 * WRS);
+      const uint32_t sV = smem_u32(whole ? tV + ch * WDC : tV + buf * 64 * WRS);
+      const uint32_t sQ = smem_u32(whole ? cQt + ch * WDC
+                                         : tQ + buf * BN * WRS);
+      const uint32_t sDO = smem_u32(whole ? cDOt + ch * WDC
+                                          : tDO + buf * BN * WRS);
+#pragma unroll
+      for (int ks = 0; ks < WDC / 16; ++ks) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, sK + (a_row * rs + ks * 16 + a_col) * 2);
+        ldsm_x4(va, sV + (a_row * rs + ks * 16 + a_col) * 2);
+#pragma unroll
+        for (int np = 0; np < BN / 16; ++np) {
+          const uint32_t off = ((np * 16 + b_row) * rs + ks * 16 + b_col) * 2;
+          uint32_t qb[4], ob[4];
+          ldsm_x4(qb, sQ + off);
+          ldsm_x4(ob, sDO + off);
+          TR::mma(st[2 * np], ka, qb[0], qb[1]);
+          TR::mma(st[2 * np + 1], ka, qb[2], qb[3]);
+          TR::mma(dpt[2 * np], va, ob[0], ob[1]);
+          TR::mma(dpt[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+      if (!whole) __syncthreads();   // every warp is done with this buffer
+    }
+
+    // p * keep into st, ds into dpt (both rounded below), as in
+    // flash_bwd_dkv_tc_kernel
+    const float* lse = sLse + set * BN;
+    const float* del = sDel + set * BN;
+    const uint32_t* keep = sKeep + set * 2 * BN;
+    const uint32_t* redo = sRedo + set * 2 * BN;
+    uint32_t risk = 0u, kept_bits = 0u;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        const int kpos = k0 + rows[i];
+        const int qc = n * 8 + 2 * t4 + (c & 1);
+        const int qpos = q0 + qc;
+        float x = __fmul_rn(st[n][c], p.scale);
+        bool live = false;
+        if (qpos >= T || kpos >= T) {
+          x = NEG_INF;   // ragged last tiles: the query or key does not exist
+        } else {
+          if (brow != nullptr)
+            x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
+          if ((p.causal && qpos < kpos) || dead[i])
+            x = NEG_INF;
+          else
+            live = true;
+        }
+        float l = lse[qc];
+        if (masked && !(l > MASKED_ROW)) l = 0.f;
+        const float pj = expf(x - l);
+        float ksf = 1.f;
+        float dpj = dpt[n][c];
+        if (p.dropout) {
+          const bool kept =
+              (keep[2 * qc + (rows[i] >> 5)] >> (rows[i] & 31)) & 1u;
+          ksf = kept ? p.inv_keep : 0.f;
+          dpj = __fmul_rn(dpj, ksf);
+          kept_bits |= static_cast<uint32_t>(kept) << (4 * n + c);
+        }
+        if (live && ((redo[2 * qc + (rows[i] >> 5)] >> (rows[i] & 31)) & 1u))
+          risk |= 1u << (4 * n + c);
+        st[n][c] = p.dropout ? __fmul_rn(pj, ksf) : pj;
+        dpt[n][c] = pj * (dpj - del[qc]) * p.scale;
+      }
+
+    // p * keep and ds again, in the plain version's order, where a
+    // rounding is in doubt; the queue returns both rounded, (ds << 16) | pk
+    const int total = enqueue<NSLOT>(risk, queue, [&](int e) {
+      const int n = e >> 2, c = e & 3;
+      return entry(g + 8 * (c >> 1), n * 8 + 2 * t4 + (c & 1),
+                   (kept_bits >> e) & 1u);
+    });
+    if (total > 0) {
+      if (c0 == 0 && p.stats != nullptr && lane == 0)
+        atomicAdd(p.stats, static_cast<unsigned long long>(total));
+      __syncwarp();
+      for (int j = lane; j < total; j += 32) {
+        const uint32_t en = queue[j];
+        const int qc = en & 127;
+        const int qpos = q0 + qc;
+        const int kr = 16 * warp + ((en >> 7) & 15);
+        const int kpos = k0 + kr;
+        const size_t qrow = whole ? static_cast<size_t>(qc) * rs
+                                  : static_cast<size_t>(qpos) * D;
+        const size_t krow = whole ? static_cast<size_t>(kr) * rs
+                                  : static_cast<size_t>(kpos) * D;
+        const float2 sd = seq_dot2_rows<TR>(
+            (whole ? cQt : Q) + qrow, (whole ? tK : K) + krow,
+            (whole ? cDOt : DO) + qrow, (whole ? tV : V) + krow, D);
+        float x = __fmul_rn(sd.x, p.scale);
+        if (brow != nullptr)
+          x = __fadd_rn(x, brow[static_cast<size_t>(qpos) * T + kpos]);
+        float l = lse[qc];
+        if (masked && !(l > MASKED_ROW)) l = 0.f;
+        const float pj = expf(__fsub_rn(x, l));
+        float pk = pj;
+        float dpv = sd.y;
+        if (p.dropout) {
+          const float ksf = (en >> 11) & 1u ? p.inv_keep : 0.f;
+          pk = __fmul_rn(pj, ksf);
+          dpv = __fmul_rn(dpv, ksf);
+        }
+        const float ds =
+            __fmul_rn(__fmul_rn(pj, __fsub_rn(dpv, del[qc])), p.scale);
+        queue[j] = TR::bits(pk) | (TR::bits(ds) << 16);
+      }
+      __syncwarp();
+      dequeue<NSLOT>(risk, queue, [&](int e, uint32_t r) {
+        st[e >> 2][e & 3] = TR::value(r & 0xFFFFu);
+        dpt[e >> 2][e & 3] = TR::value(r >> 16);
+      });
+    }
+
+    // dv += (p keep)^T dO in dO's type, dk += ds^T q in q's type, over the
+    // block's columns
+    const uint32_t sQc = whole ? smem_u32(cQt + c0) : smem_u32(tQc);
+    const uint32_t sDOc = whole ? smem_u32(cDOt + c0) : smem_u32(tDOc);
+    const int ccs = whole ? rs : WCS;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      to_a_frag<TR>(pa, st[2 * kk], st[2 * kk + 1]);
+      to_a_frag<TR>(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < WNC / 16; ++n2) {
+        if (c0 + 16 * n2 >= D) break;
+        const uint32_t off = ((kk * 16 + t_row) * ccs + n2 * 16 + t_col) * 2;
+        uint32_t ob[4], qb[4];
+        ldsm_x4_t(ob, sDOc + off);
+        TR::mma(dv[2 * n2], pa, ob[0], ob[1]);
+        TR::mma(dv[2 * n2 + 1], pa, ob[2], ob[3]);
+        ldsm_x4_t(qb, sQc + off);
+        TR::mma(dk[2 * n2], da, qb[0], qb[1]);
+        TR::mma(dk[2 * n2 + 1], da, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this tile's buffers
+  }
+  cp_async_wait<0>();
+
+  S* DK = static_cast<S*>(p.dk) + base;
+  S* DV = static_cast<S*>(p.dv) + base;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = k0 + rows[i];
+    if (kpos >= T) continue;
+#pragma unroll
+    for (int n = 0; n < WNC / 8; ++n) {
+      const int col = c0 + n * 8 + 2 * t4;
+      store_pair<TR>(DK + static_cast<size_t>(kpos) * D, col, D, dk[n][2 * i],
+                     dk[n][2 * i + 1]);
+      store_pair<TR>(DV + static_cast<size_t>(kpos) * D, col, D, dv[n][2 * i],
+                     dv[n][2 * i + 1]);
     }
   }
 }
@@ -1983,18 +2972,23 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-template <bool DQ, typename S>
-cudaError_t launch_wide_as(const Params& p, cudaStream_t stream) {
-  void (*kernel)(Params) =
-      DQ ? flash_bwd_dq_wide_kernel<S> : flash_bwd_dkv_wide_kernel<S>;
-  const size_t smem = DQ ? dq_wide_smem_bytes() : dkv_wide_smem_bytes();
+cudaError_t launch_wide(void (*kernel)(Params), size_t smem, int cols,
+                        const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int gx = (p.T + 63) / 64 * ((p.Dt + WCOL - 1) / WCOL);
+  const int gx = (p.T + 63) / 64 * ((p.Dt + cols - 1) / cols);
   kernel<<<fold_grid(gx, p.B * p.H), NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool DQ, typename TR>
+cudaError_t launch_wide_tc(const Params& p, cudaStream_t stream) {
+  return DQ ? launch_wide(flash_bwd_dq_wide_tc_kernel<TR>,
+                          dq_wide_tc_smem(p.Dt), WNC, p, stream)
+            : launch_wide(flash_bwd_dkv_wide_tc_kernel<TR>,
+                          dkv_wide_tc_smem(p.Dt), WNC, p, stream);
 }
 
 template <bool DQ>
@@ -2002,9 +2996,13 @@ cudaError_t launch_any(const Params& p, int dtype, int d,
                        cudaStream_t stream) {
   if (d > 128) {
     if (p.Dt != d) return cudaErrorInvalidValue;   // taken unpadded
-    if (dtype == 0) return launch_wide_as<DQ, float>(p, stream);
-    if (dtype == 1) return launch_wide_as<DQ, __nv_bfloat16>(p, stream);
-    if (dtype == 2) return launch_wide_as<DQ, __half>(p, stream);
+    if (dtype == 0)
+      return DQ ? launch_wide(flash_bwd_dq_wide_kernel,
+                              dq_wide_smem_bytes(), WCOL, p, stream)
+                : launch_wide(flash_bwd_dkv_wide_kernel,
+                              dkv_wide_smem_bytes(), WCOL, p, stream);
+    if (dtype == 1) return launch_wide_tc<DQ, hopper::Bf16>(p, stream);
+    if (dtype == 2) return launch_wide_tc<DQ, hopper::F16>(p, stream);
     return cudaErrorInvalidValue;
   }
   switch (d) {

@@ -16,7 +16,11 @@ package.
   its arguments: past 128 they hand the rows over unpadded, and every
   entry gets a pointer to the two dropout seed words, which equal
   `_seed_words(key)` (host words copied to the inputs' device, or a
-  seed-table slot passed as it is).
+  seed-table slot passed as it is).  In bf16 and f16 at head dims 136
+  and 200 (no multiple of 16: the chunked tensor-core kernels zero-fill
+  their tiles past D), both backward entries get the inputs' own rows,
+  the true head dim as row length and as delta's, the type and the seed
+  words by pointer.
 
 Tolerances, as in `tests/test_torch_flash_policy.py`: f32 on both sides
 differs only in summation order (atol = rtol = 1e-4); f16 rounds p *
@@ -217,3 +221,25 @@ def test_no_dropout_passes_no_seed(fake):
     fa._launch_fwd(x, x, x, args)
     (_, a, words), = fake.calls
     assert a[-4] is None and words is None and a[-6] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [136, 200])
+def test_backward_takes_16_bit_rows_past_128_as_they_are(fake, dtype, d):
+    gen = torch.Generator().manual_seed(d)
+    q, k, v, dout = (torch.randn(2, 3, 40, d, generator=gen).to(dtype)
+                     for _ in range(4))
+    out = torch.zeros_like(q)
+    lse = torch.zeros(2, 3, 40)
+    args = fa._LaunchArgs(q, True, d ** -0.5, None, None, 0.1, [9, 2 ** 31])
+    dq, dk, dv = fa._launch_backward(q, k, v, out, lse, dout, None, args)
+    assert [c[0] for c in fake.calls] == ["flash_attention_bwd_dq",
+                                          "flash_attention_bwd_dkv"]
+    for _, a, words in fake.calls:
+        assert a[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         dout.data_ptr())              # no padded copies
+        assert (a[-10], a[-9]) == (d, d)               # rows unpadded
+        assert a[-8] == fa._DTYPES[dtype]
+        assert a[-4] == args.seed.data_ptr() and words == (9, 2 ** 31)
+    for g in (dq, dk, dv):
+        assert g.shape == q.shape and g.dtype == dtype
