@@ -13,11 +13,11 @@ the package is missing.  Phases, each fatal on failure:
    for ``sm_90a`` and prints the build time, the compiler's register
    and spill report, and the card's name and power limit; for each
    tensor-core kernel (B3, B4, B5 in bf16 and f16 at each head dim they
-   are built for, B4 and B5 past head dim 128, B2 in bf16) its
+   are built for and past head dim 128, B2 in bf16) its
    registers, spill bytes and tensor-core instructions (``HMMA``/``HGMMA``
    in ``cuobjdump -sass``, or "not measured" without that tool).  Fails
-   if B3, B4 or B5 spills at D = 64 or runs no HMMA there, or B4 or B5
-   past 128 or B2 does.
+   if B3, B4 or B5 spills at D = 64 or runs no HMMA there, or B3, B4 or
+   B5 past 128 or B2 does.
 1b. **Tensor-core sums vs sequential FMAs.**  A kernel compiled by NVRTC
    chains ``mma.sync`` over k as B4 and B5 do and measures, on random
    normal bf16 rows at each head dim (16 to 128, and 136, 256 and 512 as
@@ -39,8 +39,10 @@ the package is missing.  Phases, each fatal on failure:
    16, 16), batch*heads past one grid dimension; in f16 the serving and
    training main cases, the head dims and the fold.
    Holds out and lse against the plain PyTorch version on the same
-   inputs; times the main cases (the kernel by CUDA events and by device
-   time, the plain version, and one library call of the same function,
+   inputs, and past head dim 128 a second launch bitwise against the
+   first; times the main cases and the (4, 8, 512, D) ones (the kernel
+   by CUDA events and by device time, past 128 also B3's own kernel
+   alone, the plain version, and one library call of the same function,
    ``scaled_dot_product_attention``, timed here only, also by device
    time) beside the least time the card could take.
 2b. **Backward kernels vs plain.**  B4 (dq) and B5 (dk, dv) on the same
@@ -761,6 +763,7 @@ def _mma_counts(lib_path):
 # tensor-core kernels by mangled name: (kernel id, type, head dim)
 _TC_KERNELS = (
     (r"flash_fwd_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B3"),
+    (r"flash_fwd_wide_tc_kernelI\w*?(Bf16|F16)E()", "B3 D>128"),
     (r"flash_bwd_dq_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B4"),
     (r"flash_bwd_dkv_tc_kernelI\w*?(Bf16|F16)ELi(\d+)E", "B5"),
     (r"flash_bwd_dq_wide_tc_kernelI\w*?(Bf16|F16)E()", "B4 D>128"),
@@ -771,8 +774,8 @@ _TC_KERNELS = (
 
 def _tc_kernels(path, ptxas):
     """Registers, spill bytes and tensor-core instruction counts of the
-    16-bit tensor-core kernels of one library: B3 at each head dim it is
-    built for, B4 and B5 at each head dim and past 128, B2."""
+    16-bit tensor-core kernels of one library: B3, B4 and B5 at each head
+    dim they are built for and past 128, B2."""
     regs = _ptxas_by_kernel(ptxas)
     mma = _mma_counts(path)
     rows = []
@@ -794,8 +797,8 @@ def _tc_kernels(path, ptxas):
 def phase_build():
     """Build every kernel source, one nvcc for each, all started
     together; report the tensor-core kernels' registers, spills and
-    tensor-core instructions, and fail if B3, B4 or B5 (at D = 64), B4 or
-    B5 past D = 128, or B2 spills or runs no HMMA."""
+    tensor-core instructions, and fail if B3, B4 or B5 (at D = 64 and past
+    D = 128) or B2 spills or runs no HMMA."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mxnet_tpu_torch.ops import _build
@@ -828,12 +831,13 @@ def phase_build():
     log(f"build: {len(SOURCES)} sources in {seconds:.1f} s")
     gated = [r for r in tc if r["head_dim"] in (D, None)]
     if sorted((r["kernel"], r["type"]) for r in gated) != sorted(
-            [(k, t) for k in ("B3", "B4", "B5", "B4 D>128", "B5 D>128")
+            [(k, t) for k in ("B3", "B4", "B5", "B3 D>128", "B4 D>128",
+                              "B5 D>128")
              for t in ("bf16", "f16")] + [("B2", "bf16")]) or any(
             r["spill_store_bytes"] or r["hmma"] == 0 for r in gated):
-        raise SystemExit(f"tensor-core kernels (B3, B4, B5 at D={D}, B4 "
-                         f"and B5 past 128, B2): expected no spills and "
-                         f"HMMA instructions, got {gated}")
+        raise SystemExit(f"tensor-core kernels (B3, B4, B5 at D={D} and "
+                         f"past 128, B2): expected no spills and HMMA "
+                         f"instructions, got {gated}")
     return tc
 
 
@@ -1090,6 +1094,8 @@ def _odd_wide_cases():
 
 
 def phase_kernel_vs_plain(dev):
+    """B3 against `flash_attention_reference` on every forward case in
+    each type (phase 2 of the module's docstring)."""
     import torch
     from mxnet_tpu_torch.ops import flash_attention as fa
 
@@ -1113,6 +1119,16 @@ def phase_kernel_vs_plain(dev):
                     bool((lse[0] < fa._MASKED_ROW).all())
             call = functools.partial(fa.flash_attention_with_lse, q, k, v,
                                      **kw)
+            repeat_ok = kernel_dev_ms = None
+            if shape[3] > 128:
+                # the chunked kernels use no atomics: a second launch is
+                # bitwise equal to the first
+                out2, lse2 = call()
+                torch.cuda.synchronize()
+                repeat_ok = bool(torch.equal(out, out2) and
+                                 torch.equal(lse, lse2))
+                ok = ok and repeat_ok
+                del out2, lse2
             ms = dev_ms = plain_ms = library_ms = library_dev_ms = None
             if (case, *shape) in DEVICE_TIMED + WIDE_TIMED or (
                     dname == "bfloat16" and tuple(shape) in BWD_TIMED_BF16):
@@ -1124,25 +1140,37 @@ def phase_kernel_vs_plain(dev):
             if (case, *shape) in DEVICE_TIMED:
                 dev_ms = device_ms(call)
                 library_dev_ms = device_ms(_sdpa_call(q, k, v, kw))
+            if (case, *shape) in WIDE_TIMED:
+                dev_ms = device_ms(call)
+                # B3 alone, without the wrapper's mask and kend kernels
+                kernel_dev_ms = device_ms(
+                    call, match=KERNEL_NAMES["flash_attention_fwd"])
+                library_dev_ms = _where_taken(lambda: device_ms(
+                    _sdpa_call(q, k, v, kw)))
             bound_ms, bound_by = _bound(dname, kw, shape, q.element_size())
             row = {"dtype": dname, "case": case, "shape": shape,
                    "max_abs_err": err_out, "err_over_tol": err_ratio,
                    "lse_max_abs_err": err_lse,
                    "tol": TOL[dname], "ms": ms, "device_ms": dev_ms,
-                   "plain_ms": plain_ms,
+                   "kernel_device_ms": kernel_dev_ms,
+                   "repeat_bitwise": repeat_ok, "plain_ms": plain_ms,
                    "library_ms": library_ms,
                    "library_device_ms": library_dev_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "ok": ok}
             rows.append(row)
             timing = "not timed " if ms is None else (
                 f"kernel_ms={ms:.4f}" +
-                ("" if dev_ms is None else f" (device {dev_ms:.4f})") +
+                ("" if dev_ms is None else f" (device {dev_ms:.4f}" + (
+                    "" if kernel_dev_ms is None
+                    else f", B3 alone {kernel_dev_ms:.4f}") + ")") +
                 f" plain_ms={plain_ms:.4f} library_ms={_fmt(library_ms)}" +
                 ("" if library_dev_ms is None
                  else f" (device {library_dev_ms:.4f})") + " ")
             log(f"kernel {dname:8s} {case:18s} {tuple(shape)} "
                 f"out_err={err_out:.3e} ({err_ratio:.2f} of tol) "
-                f"lse_err={err_lse:.3e} " + timing +
+                f"lse_err={err_lse:.3e} " +
+                ("" if repeat_ok is None else
+                 f"repeat {'bitwise' if repeat_ok else 'DIFFERS'} ") + timing +
                 f"bound_ms={bound_ms:.4f} ({bound_by}) "
                 f"{'ok' if ok else 'FAILED'}")
             del q, k, v, kw, out, lse, ref_out, ref_lse
@@ -1151,6 +1179,40 @@ def phase_kernel_vs_plain(dev):
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
     return rows
+
+
+def wide_forward_times(dev, dims=WIDE_DIMS, windows=3):
+    """B3 past head dim 128 alone, for comparing two trees in one call
+    (``python3 chip_smoke.py --wide-forward [D ...]`` from the root of
+    each, in turns): at (4, 8, 512, D) with a key-padding mask in bf16
+    and f16, ``windows`` turns of the wrapper's call by CUDA events and by
+    device time, B3's kernel alone by device time, and SDPA's device
+    time; one ``wide_forward:`` line a case, beside the bound.  Each
+    case draws its inputs from its own seed, so that a case sees the same
+    inputs whatever the other head dims asked for."""
+    import torch
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    for dtype in (torch.bfloat16, torch.float16):
+        dname = str(dtype).split(".")[1]
+        for d in dims:
+            shape = [4, 8, 512, d]
+            gen = torch.Generator().manual_seed(1234 + d)
+            q, k, v, kw = _attention_inputs(dtype, "ragged_mask", shape, gen,
+                                            dev)
+            call = functools.partial(fa.flash_attention_with_lse, q, k, v,
+                                     **kw)
+            sdpa = _sdpa_call(q, k, v, kw)
+            r = {"dtype": dname, "shape": shape, "ms": [], "device_ms": [],
+                 "kernel_device_ms": [], "library_device_ms": []}
+            for _ in range(windows):
+                r["ms"].append(cuda_ms(call))
+                r["device_ms"].append(device_ms(call))
+                r["kernel_device_ms"].append(device_ms(
+                    call, match=KERNEL_NAMES["flash_attention_fwd"]))
+                r["library_device_ms"].append(device_ms(sdpa))
+            r["bound_ms"], r["bound_by"] = _bound(dname, kw, shape,
+                                                  q.element_size())
+            log("wide_forward: " + json.dumps(r))
 
 
 # ---------------------------------------------------------------------------
@@ -1833,11 +1895,12 @@ def traced_launches(fn):
     return result, counts
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, match=None):
     """Time per call of ``fn()`` that the card spends running its
-    kernels, summed by ``torch.profiler`` over ``iters`` calls after one
-    warm-up: the host's launch gaps are left out, for calls whose host
-    work outlasts their device work."""
+    kernels (with ``match``, a regex, only those whose name it matches),
+    summed by ``torch.profiler`` over ``iters`` calls after one warm-up:
+    the host's launch gaps are left out, for calls whose host work
+    outlasts their device work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1846,7 +1909,8 @@ def device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(_device_times(prof)[0].values()) / iters
+    return sum(ms for name, ms in _device_times(prof)[0].items()
+               if match is None or re.search(match, name)) / iters
 
 
 def profile_call(fn, label, back_to_back_ms, named=None):
@@ -4983,6 +5047,11 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = nvidia_smi()
+    if sys.argv[1:2] == ["--wide-forward"]:
+        # on the card, no result line: B3 past head dim 128 alone
+        log(f"card: {card}; torch {torch.__version__}")
+        wide_forward_times(dev, [int(d) for d in sys.argv[2:]] or WIDE_DIMS)
+        return 0
     t_start = time.perf_counter()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
@@ -5047,8 +5116,10 @@ def main():
     launches = trained["launches"]
     booked = trained["launches_booked_traced"]
     drop_case = drop_rows[0]
-    wide_fwd = [{k: r[k] for k in ("dtype", "shape", "ms", "bound_ms",
-                                   "library_ms", "max_abs_err")}
+    wide_fwd = [{k: r[k] for k in (
+        "dtype", "shape", "ms", "device_ms", "kernel_device_ms", "bound_ms",
+        "bound_by", "library_ms", "library_device_ms", "max_abs_err",
+        "lse_max_abs_err", "repeat_bitwise")}
                 for r in rows if tuple([r["case"]] + r["shape"]) in WIDE_TIMED]
     wide_bwd = [{k: r[k] for k in (
         "dtype", "shape", "dq_ms", "dkv_ms", "dq_device_ms", "dkv_device_ms",

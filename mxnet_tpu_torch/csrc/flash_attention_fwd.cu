@@ -42,12 +42,19 @@
 // past the true D in shared memory.  The output is staged through shared
 // memory and written 16 bytes a lane.
 //
-// Head dims past 128, in any of the three types, take a chunked kernel
-// (flash_fwd_wide_kernel): scalar f32 FMAs, the scores summed over D in
-// chunks of 32 staged through shared memory, each block owning 64 columns
-// of the output and recomputing the scores, so that no register or shared
-// array grows with D.  It is built to be right first; PERF.md keeps its
-// times beside its bound.
+// Head dims past 128 take chunked kernels, in which no register array
+// grows with D.  bf16 and f16 (flash_fwd_wide_tc_kernel): the tensor-core
+// kernel above with the head dim cut into chunks of 64.  s = q k^T runs on
+// mma.sync over the chunks into the same f32 accumulators, the tiles
+// zero-filled past D, so that a D that is no multiple of 16 adds exact
+// zeros; a block owns 128
+// output columns in register accumulators and recomputes the scores, the
+// softmax and the dropout bits ceil(D / 128) times.  q's rows and the K
+// tiles' rows lie whole in shared memory up to D = 320 (two blocks an SM),
+// and stream a chunk at a time past that.  f32 (flash_fwd_wide_kernel):
+// scalar f32 FMAs, the scores summed over D in chunks of 32 staged through
+// shared memory, each block owning 64 columns of the output.  PERF.md keeps
+// their times beside their bounds.
 //
 // The dropout seed words are read from device memory (`seed`), so that a
 // captured CUDA graph draws the words its replay was given.
@@ -581,7 +588,7 @@ flash_fwd_f32_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// head_dim > 128, any of the three types: scalar f32 FMAs, D in chunks
+// head_dim > 128, f32: scalar f32 FMAs, D in chunks
 // ---------------------------------------------------------------------------
 // The kernels above keep a row of q (B3 bf16/f16: as MMA fragments) or of
 // the output accumulator in registers, which does not scale past D = 128.
@@ -603,6 +610,7 @@ constexpr size_t wide_smem_bytes() {
 // threads.  Warp w owns query rows [16w, 16w + 16) of the tile; lane =
 // 8 * rg + cg owns rows 16w + 4rg + i (i < 4), score columns cg + 8j (j < 8)
 // and output columns c0 + cg + 8j (j < WCOL / 8) of the block's chunk.
+// Instantiated for f32 only (bf16 and f16 take flash_fwd_wide_tc_kernel).
 template <typename S>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_wide_kernel(const Params p) {
@@ -779,6 +787,386 @@ flash_fwd_wide_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// head_dim > 128, bf16 / f16: tensor cores, D in chunks
+// ---------------------------------------------------------------------------
+// flash_fwd_tc_kernel with the head dim cut into chunks of WDC columns.  q
+// no longer fits the registers as MMA fragments: its rows lie in shared
+// memory and each chunk's A fragments come by ldmatrix.  s = q k^T runs on
+// mma.sync chunk by chunk into the same f32 accumulators.  16-bit tiles
+// arrive by 16-byte cp.async, zeros past T and past D (element by element
+// where D is no multiple of 8, so rows are not 16-byte aligned), in one of
+// two layouts:
+// - whole (`wide_whole`: up to D = 320, where two blocks share an SM): q's
+//   64 rows whole, loaded once, and each K tile's rows whole in two
+//   buffers, the next tile arriving while this one is worked;
+// - streamed (past that): two buffers of one chunk of q and of K, the next
+//   chunk (or the next tile's first) arriving while this one is multiplied.
+// In both, each K tile's block of WNC columns of v (the block's own output
+// columns) and its mask arrive with its rows (streamed: with its first
+// chunk), in two buffers.  The grid's x dimension walks (query tile,
+// column block); each column block computes the same scores, softmax
+// statistics and dropout bits, ceil(D / WNC) times in all, and only column
+// block 0 writes the lse.  The softmax, masks and dropout are those of
+// flash_fwd_tc_kernel, applied to the score fragments in registers.
+constexpr int WDC = 64;                 // D columns a score chunk sums
+constexpr int WNC = 128;                // output columns a block owns
+constexpr int WBK = 32;                 // keys per K/V tile
+constexpr int WRS = WDC + PAD;          // row stride of a chunk tile
+constexpr int WCS = WNC + PAD;          // row stride of a column block
+constexpr size_t WIDE_SMEM = 232448 / 2;   // two blocks an SM
+
+// Row stride (elements) of whole rows: D up to whole chunks, zero-filled,
+// plus PAD (so that, as WRS, ldmatrix rows hit distinct banks).
+__host__ __device__ constexpr int own_stride(int d) {
+  return (d + WDC - 1) / WDC * WDC + PAD;
+}
+
+// q (whole: 64 rows; streamed: two buffers of a chunk), two buffers of a
+// K tile (whole rows or a chunk), two of its v column block, two of its
+// mask.
+__host__ __device__ constexpr size_t wide_tc_smem(int d, bool whole) {
+  return ((whole ? (BQ + 2 * WBK) * own_stride(d) : 2 * (BQ + WBK) * WRS) +
+          2 * WBK * WCS) * 2 + 2 * WBK * 4;
+}
+
+__host__ __device__ constexpr bool wide_whole(int d) {
+  return wide_tc_smem(d, true) <= WIDE_SMEM;
+}
+
+// Rows [r0, r0 + ROWS), columns [c0, c0 + NCOLS) of a (T, D) 16-bit slab
+// into shared memory at dst (row stride ds elements); zeros past T and D.
+// By 16-byte cp.async where the rows are 16-byte aligned (D a multiple of
+// 8), else element by element.
+template <int ROWS, int NCOLS, typename S>
+__device__ __forceinline__ void copy_block(S* dst, int ds, const S* src,
+                                           int r0, int T, int c0, int D) {
+  constexpr int CPR = NCOLS / 8;   // 16-byte chunks a row
+  static_assert(ROWS * CPR % NTHREADS == 0, "block does not split evenly");
+  const uint32_t sdst = hopper::smem_u32(dst);
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / NTHREADS; ++i) {
+    const int c = threadIdx.x + i * NTHREADS;
+    const int r = c / CPR;
+    const int col = (c % CPR) * 8;
+    const int row = r0 + r;
+    const int d = c0 + col;
+    const size_t at = static_cast<size_t>(row) * D + d;
+    if ((D & 7) == 0) {
+      const bool ok = row < T && d < D;
+      hopper::cp_async16(sdst + (r * ds + col) * 2, src + (ok ? at : 0), ok);
+    } else {
+      S* to = dst + r * ds + col;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        to[e] = row < T && d + e < D ? src[at + e] : flash::from_f32<S>(0.f);
+    }
+  }
+}
+
+// Grid: (ceil(T / BQ) * ceil(D / WNC), folded B * H).  The fragment layout
+// of flash_fwd_tc_kernel: warp w owns query rows [16w, 16w + 16) of the
+// tile, which walks K tiles of WBK keys, each in chunks of WDC columns of
+// D; output columns c0 + 8n + 2t (n < WNC / 8).
+template <typename TR>
+__global__ void __launch_bounds__(NTHREADS, 2)
+flash_fwd_wide_tc_kernel(const Params p) {
+  constexpr int KB = WBK;
+  using S = typename TR::T;
+  const int D = p.D;
+  const bool whole = wide_whole(D);
+  const int rs = whole ? own_stride(D) : WRS;   // row stride of q and K
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* tQ = reinterpret_cast<S*>(smem);       // whole, or two chunk buffers
+  S* tK = tQ + (whole ? BQ * rs : 2 * BQ * WRS);   // two buffers
+  S* tV = tK + 2 * KB * rs;                 // two buffers of the column block
+  int32_t* tMask = reinterpret_cast<int32_t*>(tV + 2 * KB * WCS);
+
+  const int bh = folded_bh();
+  if (bh >= p.B * p.H) return;
+  const int T = p.T;
+  const int n_col = (D + WNC - 1) / WNC;
+  const int q0 = static_cast<int>(blockIdx.x) / n_col * BQ;
+  const int c0 = static_cast<int>(blockIdx.x) % n_col * WNC;
+  const int ncol = min(WNC, D - c0);        // output columns of this block
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  const S* Q = static_cast<const S*>(p.q) + base;
+  const S* K = static_cast<const S*>(p.k) + base;
+  const S* V = static_cast<const S*>(p.v) + base;
+  const bool masked = p.mask != nullptr;
+  const int32_t* mrow = masked ? p.mask + static_cast<size_t>(b) * T : nullptr;
+  const float* brow = p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh
+                             : nullptr;
+  const flash::SeedKey sk = flash::seed_key(p.seed, p.dropout, bh);
+  const float scale2 = p.scale * LOG2E;
+
+  int kmax = T;
+  if (p.causal) kmax = min(kmax, q0 + BQ);
+  if (p.kend != nullptr) kmax = min(kmax, p.kend[b]);
+  const int n_tiles = (kmax + KB - 1) / KB;
+  const int n_ch = (D + WDC - 1) / WDC;
+
+  // K tile kt's v column block and mask into buffer kt & 1
+  auto stage_v = [&](int kt) {
+    copy_block<KB, WNC>(tV + (kt & 1) * KB * WCS, WCS, V, kt * KB, T, c0, D);
+    if (masked && threadIdx.x < KB) {
+      const int kpos = kt * KB + threadIdx.x;
+      hopper::cp_async4(hopper::smem_u32(tMask + (kt & 1) * KB + threadIdx.x),
+                        mrow + (kpos < T ? kpos : 0), kpos < T);
+    }
+  };
+  // whole: K tile kt's rows into buffer kt & 1
+  auto stage_tile = [&](int kt) {
+    for (int ch = 0; ch < n_ch; ++ch)
+      copy_block<KB, WDC>(tK + (kt & 1) * KB * rs + ch * WDC, rs, K, kt * KB,
+                          T, ch * WDC, D);
+    stage_v(kt);
+  };
+  // streamed: the chunks of step (K tile, chunk) = (step / n_ch, step %
+  // n_ch) of q and k into buffer step & 1
+  auto stage_step = [&](int step) {
+    const int kt = step / n_ch;
+    const int dc = step % n_ch * WDC;
+    copy_block<BQ, WDC>(tQ + (step & 1) * BQ * WRS, WRS, Q, q0, T, dc, D);
+    copy_block<KB, WDC>(tK + (step & 1) * KB * WRS, WRS, K, kt * KB, T, dc,
+                        D);
+    if (dc == 0) stage_v(kt);
+  };
+  if (n_tiles > 0) {
+    if (whole) {
+      for (int ch = 0; ch < n_ch; ++ch)
+        copy_block<BQ, WDC>(tQ + ch * WDC, rs, Q, q0, T, ch * WDC, D);
+      stage_tile(0);
+    } else {
+      stage_step(0);
+    }
+    hopper::cp_async_commit();
+  }
+
+  int rows[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rows[i] = 16 * warp + g + 8 * i;
+
+  // ldmatrix lane addresses: A from (rows x k) storage; B from (n x k)
+  // storage; B from (k x n) storage through .trans
+  const int a_row = 16 * warp + (lane & 15);
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int t_col = (lane >> 4) * 8;
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[WNC / 8][4];
+#pragma unroll
+  for (int n = 0; n < WNC / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * KB;
+    const int tb = kt & 1;
+    if (whole) {
+      if (kt + 1 < n_tiles) {       // prefetch the next K tile
+        stage_tile(kt + 1);
+        hopper::cp_async_commit();
+        hopper::cp_async_wait<1>();
+      } else {
+        hopper::cp_async_wait<0>();
+      }
+      __syncthreads();
+    }
+
+    float s[KB / 8][4];
+#pragma unroll
+    for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const int step = kt * n_ch + ch;
+      if (!whole) {
+        if (step + 1 < n_tiles * n_ch) {   // prefetch the next chunks
+          stage_step(step + 1);
+          hopper::cp_async_commit();
+          hopper::cp_async_wait<1>();
+        } else {
+          hopper::cp_async_wait<0>();
+        }
+        __syncthreads();
+      }
+      const uint32_t sQ = hopper::smem_u32(
+          whole ? tQ + ch * WDC : tQ + (step & 1) * BQ * WRS);
+      const uint32_t sK = hopper::smem_u32(
+          whole ? tK + tb * KB * rs + ch * WDC : tK + (step & 1) * KB * WRS);
+#pragma unroll
+      for (int ks = 0; ks < WDC / 16; ++ks) {
+        uint32_t qa[4];
+        hopper::ldsm_x4(qa, sQ + (a_row * rs + ks * 16 + a_col) * 2);
+#pragma unroll
+        for (int np = 0; np < KB / 16; ++np) {
+          uint32_t kb[4];
+          hopper::ldsm_x4(kb, sK + ((np * 16 + b_row) * rs + ks * 16 + b_col)
+                                       * 2);
+          TR::mma(s[2 * np], qa, kb[0], kb[1]);
+          TR::mma(s[2 * np + 1], qa, kb[2], kb[3]);
+        }
+      }
+      if (!whole) __syncthreads();   // every warp is done with this buffer
+    }
+
+    // the keys of this lane's columns that exist and are valid: bit
+    // 2n + j for column 8n + 2t + j
+    uint32_t keys = 0u;
+#pragma unroll
+    for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = n * 8 + 2 * t4 + j;
+        const bool ok = k0 + col < T && (!masked || tMask[tb * KB + col] != 0);
+        keys |= static_cast<uint32_t>(ok) << (2 * n + j);
+      }
+    // as in flash_fwd_tc_kernel: a tile whose keys all exist, are valid and
+    // lie at or before every row of the warp (and no bias) takes its max on
+    // the raw scores, the scale folded into the exponent's FMA
+    const bool raw = brow == nullptr && p.scale > 0.f &&
+                     __all_sync(0xffffffffu, keys == (1u << (KB / 4)) - 1u) &&
+                     !(p.causal && k0 + KB - 1 > q0 + 16 * warp);
+    const float sc_now = raw ? scale2 : 1.f;
+    float mc[2] = {NEG_INF, NEG_INF};
+    if (raw) {
+#pragma unroll
+      for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mc[c >> 1] = fmaxf(mc[c >> 1], s[n][c]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = c >> 1;
+          const int qpos = q0 + rows[i];
+          const int kpos = k0 + n * 8 + 2 * t4 + (c & 1);
+          float x;
+          if (brow != nullptr) {
+            const float bv =
+                qpos < T && kpos < T
+                    ? brow[static_cast<size_t>(qpos) * T + kpos] : 0.f;
+            x = __fmul_rn(__fadd_rn(__fmul_rn(s[n][c], p.scale), bv), LOG2E);
+          } else {
+            x = __fmul_rn(s[n][c], scale2);
+          }
+          const bool ok = ((keys >> (2 * n + (c & 1))) & 1u) &&
+                          !(p.causal && qpos < kpos);
+          x = ok ? x : NEG_INF;
+          s[n][c] = x;
+          mc[i] = fmaxf(mc[i], x);
+        }
+    }
+    float alpha[2], m_exp[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
+      const float m_new = fmaxf(m[i], mc[i] * sc_now);
+      m_exp[i] = (masked && !(m_new > MASKED_ROW)) ? 0.f : m_new;
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+    // p into s: l sums the undropped p, the PV product sees p * keep
+#pragma unroll
+    for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1;
+        const float pj = exp2f(fmaf(s[n][c], sc_now, -m_exp[i]));
+        rsum[i] += pj;
+        float pa = pj;
+        if (p.dropout) {
+          const uint32_t bits = threefry2x32(
+              sk.key0, sk.key1, static_cast<uint32_t>(q0 + rows[i]),
+              static_cast<uint32_t>(k0 + n * 8 + 2 * t4 + (c & 1)));
+          pa = bits < p.thr ? pj * p.inv_keep : 0.f;
+        }
+        s[n][c] = pa;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
+      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
+      l[i] = l[i] * alpha[i] + rsum[i];
+    }
+#pragma unroll
+    for (int n = 0; n < WNC / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += p v over the block's columns: p meets v in v's type
+    const uint32_t sV = hopper::smem_u32(tV + tb * KB * WCS);
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
+      uint32_t pa[4];
+      hopper::to_a_frag<TR>(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < WNC / 16; ++n2) {
+        if (16 * n2 >= ncol) break;
+        uint32_t vb[4];
+        hopper::ldsm_x4_t(vb, sV + ((kk * 16 + t_row) * WCS + n2 * 16 + t_col)
+                                       * 2);
+        TR::mma(acc[2 * n2], pa, vb[0], vb[1]);
+        TR::mma(acc[2 * n2 + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this tile's buffers
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();     // every copy has landed; reuse shared memory for out
+
+  // out = acc / l in the input type, staged in the warp's own rows (row
+  // stride WCS), then written 16 bytes a lane where rows are aligned
+  S* tO = reinterpret_cast<S*>(smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lc = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < WNC / 8; ++n)
+      *reinterpret_cast<uint32_t*>(tO + rows[i] * WCS + n * 8 + 2 * t4) =
+          TR::pack(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
+    const int qpos = q0 + rows[i];
+    if (c0 == 0 && t4 == 0 && qpos < T)
+      p.lse[static_cast<size_t>(bh) * T + qpos] = m[i] * LN2 + logf(lc);
+  }
+  __syncwarp();
+  S* O = static_cast<S*>(p.out) + base + c0;
+  if ((D & 7) == 0) {
+    const int cpr = ncol / 8;
+    for (int c = lane; c < 16 * cpr; c += 32) {
+      const int r = 16 * warp + c / cpr;
+      const int col = (c % cpr) * 8;
+      const int qpos = q0 + r;
+      if (qpos < T)
+        *reinterpret_cast<uint4*>(O + static_cast<size_t>(qpos) * D + col) =
+            *reinterpret_cast<const uint4*>(tO + r * WCS + col);
+    }
+  } else {
+    for (int c = lane; c < 16 * ncol; c += 32) {
+      const int r = 16 * warp + c / ncol;
+      const int col = c % ncol;
+      const int qpos = q0 + r;
+      if (qpos < T) O[static_cast<size_t>(qpos) * D + col] = tO[r * WCS + col];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 cudaError_t launch_kernel(void (*kernel)(Params), size_t smem, const Params& p,
@@ -830,17 +1218,22 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-template <typename S>
-cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes();
+// a chunked kernel, each block owning `cols` output columns of a query tile
+cudaError_t launch_wide(void (*kernel)(Params), size_t smem, int cols,
+                        const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int gx = (p.T + BQ - 1) / BQ * ((p.D + WCOL - 1) / WCOL);
-  flash_fwd_wide_kernel<S><<<fold_grid(gx, p.B * p.H), NTHREADS, smem,
-                             stream>>>(p);
+  const int gx = (p.T + BQ - 1) / BQ * ((p.D + cols - 1) / cols);
+  kernel<<<fold_grid(gx, p.B * p.H), NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename TR>
+cudaError_t launch_wide_tc(const Params& p, cudaStream_t stream) {
+  return launch_wide(flash_fwd_wide_tc_kernel<TR>,
+                     wide_tc_smem(p.D, wide_whole(p.D)), WNC, p, stream);
 }
 
 }  // namespace
@@ -848,9 +1241,10 @@ cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim is the row length
 // of q, k, v and out in device memory: 16, 32, 64 or 128 for float32, a
 // multiple of 8 up to 128 for the 16-bit types, or any length from 129 to
-// MAX_HEAD_DIM (the chunked kernel, every type).  true_dim is the backward's
-// (unused here: the scale comes in `scale`).  Every pointer is a device
-// pointer, 16-byte aligned up to D = 128; mask, kend and bias may be null,
+// MAX_HEAD_DIM (the chunked kernels: bf16 and f16 on the tensor cores, f32
+// scalar).  true_dim is the backward's (unused here: the scale comes in
+// `scale`).  Every pointer is a device pointer, q, k, v and out 16-byte
+// aligned in the 16-bit types; mask, kend and bias may be null,
 // and seed (the two threefry words) too without dropout.  Launches on
 // `stream` and does not synchronise.
 extern "C" int flash_attention_fwd(
@@ -888,9 +1282,10 @@ extern "C" int flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (head_dim > 128)
-    err = dtype == 0   ? launch_wide<float>(p, st)
-          : dtype == 1 ? launch_wide<__nv_bfloat16>(p, st)
-          : dtype == 2 ? launch_wide<__half>(p, st)
+    err = dtype == 0   ? launch_wide(flash_fwd_wide_kernel<float>,
+                                     wide_smem_bytes(), WCOL, p, st)
+          : dtype == 1 ? launch_wide_tc<hopper::Bf16>(p, st)
+          : dtype == 2 ? launch_wide_tc<hopper::F16>(p, st)
                        : cudaErrorInvalidValue;
   else if (dtype == 0)
     err = launch_f32(p, st);

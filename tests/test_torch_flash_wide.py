@@ -18,9 +18,9 @@ package.
   `_seed_words(key)` (host words copied to the inputs' device, or a
   seed-table slot passed as it is).  In bf16 and f16 at head dims 136
   and 200 (no multiple of 16: the chunked tensor-core kernels zero-fill
-  their tiles past D), both backward entries get the inputs' own rows,
-  the true head dim as row length and as delta's, the type and the seed
-  words by pointer.
+  their tiles past D), the forward entry and both backward entries get
+  the inputs' own rows, the true head dim as row length (and as
+  delta's), the type and the seed words by pointer.
 
 Tolerances, as in `tests/test_torch_flash_policy.py`: f32 on both sides
 differs only in summation order (atol = rtol = 1e-4); f16 rounds p *
@@ -243,3 +243,23 @@ def test_backward_takes_16_bit_rows_past_128_as_they_are(fake, dtype, d):
         assert a[-4] == args.seed.data_ptr() and words == (9, 2 ** 31)
     for g in (dq, dk, dv):
         assert g.shape == q.shape and g.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [136, 200])
+def test_forward_takes_16_bit_rows_past_128_as_they_are(fake, dtype, d):
+    gen = torch.Generator().manual_seed(d + 1)
+    q, k, v = (torch.randn(2, 3, 40, d, generator=gen).to(dtype)
+               for _ in range(3))
+    args = fa._LaunchArgs(q, True, d ** -0.5, None, None, 0.1,
+                          [4, 2 ** 32 - 5])
+    out, lse = fa._launch_fwd(q, k, v, args)
+    (name, a, words), = fake.calls
+    assert name == "flash_attention_fwd"
+    assert a[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())  # no copies
+    assert a[3] == out.data_ptr() and a[4] == lse.data_ptr()
+    assert (a[-10], a[-9]) == (d, d)               # rows unpadded
+    assert a[-8] == fa._DTYPES[dtype]
+    assert a[-4] == args.seed.data_ptr() and words == (4, 2 ** 32 - 5)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lse.shape == (2, 3, 40) and lse.dtype == torch.float32
