@@ -66,10 +66,23 @@ the package is missing.  Phases, each fatal on failure:
    seed words in a device buffer, replayed with two sets of words: each
    replay's keep words equal the plain mask of its own words, and the
    two differ.
-2d. **The dropout kernel vs plain** (`csrc/dropout.cu`, not the port of
-   a TPU kernel): bitwise at BERT-base's (32, 128, 768) in bf16 and f32
-   and an odd shape, keep rate 0.9, timed beside its bound, its plain
-   version and torch's own dropout (other bits: a yardstick only).
+2d. **The dropout kernels vs plain** (`csrc/dropout.cu`, not the port of
+   a TPU kernel): the forward (its output and its packed keep bits) and
+   the backward bitwise against their plain versions at BERT-base's
+   (32, 128, 768) in bf16, f32 and f16, the word LM's (30, 32, 650) f32,
+   an odd n, and contiguous views whose data start off a 16-byte boundary
+   (the kernels' scalar head); the bits unpack to the plain mask, the
+   keep rate within 0.01 of 1 - p where n >= 20000.  Each kernel timed
+   by device time with its inputs out of L2 (a read of twice the L2
+   between launches; warm beside it), against its bytes bound and its
+   integer-work bound (the INT32-pipe instructions the function needs:
+   a rotate and an xor a round, 20 rounds a hash, a hash a pair in the
+   forward, a keep decision an element; over 64 a clock an SM at the
+   card's SM count and maximum SM clock), beside the integer
+   instructions of the kernel's own main loop counted in its SASS by
+   ``cuobjdump -sass`` (a diagnostic), its plain version and torch's own
+   dropout (forward) or ``native_dropout_backward`` from a bool mask
+   (backward), other bits and other inputs: yardsticks only.
 3. **Serving.**  BERT-base at full width (vocab 30522, units 768, FFN
    3072, 12 layers, 12 heads, max_length 512), random weights from a
    seed, cast to bf16 on ``cuda:0``, behind ``serve.Endpoint``
@@ -215,8 +228,10 @@ the package is missing.  Phases, each fatal on failure:
    ``softmax_fwd`` within `_softmax_tol` of its plain version and
    ``softmax_bwd`` bitwise, at the head's (128, 1000), BERT-base's MLM
    logits (640, 30522) and an odd (37, 1001), timed beside the bound,
-   the plain version and ``torch.softmax``; the host's time per
-   ``CudaKernel.launch`` against torch's own launch of the same work.
+   the plain version and ``torch.softmax``; ``scale_bf16`` (a bf16
+   scalar argument) bitwise; the host's time per ``CudaKernel.launch``
+   of ``axpy`` and of ``scale_bf16`` against torch's own launch of the
+   same work (``add_``, ``mul``).
 10. **ResNet-50 with the custom head**, as in 7 but trained in the
    eager loop (``record``, the net, its logits in f32 through
    ``mx.nd.Custom(logits, label, op_type="softmax_rtc")``,
@@ -282,9 +297,10 @@ D > 128 cases under ``wide_cases``, and under ``amp_f16_case`` the f16
 training case with its launches over the 2 traced amp + remat steps; B4
 and B5 at the BERT training path's main case, with their launches over
 the traced steps, their D > 128 cases, and their ``amp_f16_case``; the
-dropout kernel at (32, 128, 768) bf16 with its launches over the traced
-BERT steps (``amp_launches``: over the traced amp steps;
-``rnn_lm_launches``: over the traced word-LM batches); B1 at the
+dropout forward and backward kernels at (32, 128, 768) bf16, each with
+its launches over the traced BERT steps (``amp_launches``: over the
+traced amp steps; ``rnn_lm_launches``: over the traced word-LM
+batches); B1 at the
 stem BatchNorm's shape,
 with its launches over the 2 traced ResNet steps (``recordio_launches``:
 over the 2 traced steps of each recordio variant); B2 at the bf16 stem,
@@ -426,7 +442,9 @@ KERNEL_NAMES = {
     "flash_attention_fwd": r"\bflash_fwd_\w+_kernel\b",
     "flash_attention_bwd_dq": r"\bflash_bwd_dq_\w+_kernel\b",
     "flash_attention_bwd_dkv": r"\bflash_bwd_dkv_\w+_kernel\b",
-    "dropout": r"\bdropout_kernel\b",
+    # both dropout kernels; the backward alone as dropout_bwd
+    "dropout": r"\bdropout_(?:fwd|bwd)_kernel\b",
+    "dropout_bwd": r"\bdropout_bwd_kernel\b",
     "bn_bwd_reduce": r"\bbn_reduce_partial\b",
     "bn_bwd_reduce_rows": r"\bbn_reduce_rows_partial\b",
     "stem_conv": r"\bstem_conv_\w+_kernel\b",
@@ -569,6 +587,16 @@ extern "C" __global__ void softmax_bwd(const int *label, const float *y,
   else if (req == 2) dx[i] += g;
 }
 
+// y = x * a in bf16 with a bf16 scalar argument, the product in f32
+// rounded once
+extern "C" __global__ void scale_bf16(const __nv_bfloat16 *x,
+                                      __nv_bfloat16 *y, __nv_bfloat16 a,
+                                      int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    y[i] = __float2bfloat16_rn(__bfloat162float(x[i]) * __bfloat162float(a));
+}
+
 // a C++ template, found through its exported name "scale<float>"
 template <typename T>
 __global__ void scale(const T *x, T *y, T a, int n) {
@@ -595,8 +623,13 @@ USER_KERNELS = {
     "softmax_bwd": "const int *label, const float *y, float *dx, "
                    "int n_cols, int req",
     "scale<float>": "const float *x, float *y, float a, int n",
+    "scale_bf16": "const __nv_bfloat16 *x, __nv_bfloat16 *y, "
+                  "__nv_bfloat16 a, int n",
     "row_reverse": "const float *x, float *y, int n_cols",
 }
+# the bf16 scalar of scale_bf16's check and host time (not a bf16 value:
+# the launch rounds it)
+SCALE_BF16 = 0.3
 REQ_CODES = {"null": 0, "write": 1, "add": 2}
 
 
@@ -734,19 +767,27 @@ def _ptxas_by_kernel(ptxas):
     return out
 
 
-def _mma_counts(lib_path):
-    """{mangled kernel name: (HMMA, HGMMA) instruction counts} in the
-    library's SASS, from ``cuobjdump -sass`` beside nvcc; None where that
-    tool is missing."""
+@functools.cache
+def _sass(lib_path):
+    """The library's SASS from ``cuobjdump -sass`` beside nvcc; None
+    where that tool is missing."""
     from pathlib import Path
 
     from mxnet_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+    return subprocess.run([str(tool), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
+
+
+def _mma_counts(lib_path):
+    """{mangled kernel name: (HMMA, HGMMA) instruction counts} in the
+    library's SASS; None where ``cuobjdump`` is missing."""
+    sass = _sass(lib_path)
+    if sass is None:
+        return None
     out, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -758,6 +799,92 @@ def _mma_counts(lib_path):
         elif name and "HMMA" in line:
             out[name][0] += 1
     return out
+
+
+# SASS opcodes of integer work: those the INT32 (ALU) pipe runs, and the
+# integer multiply-adds, which run on the FMA pipe
+INT_ALU_OPS = frozenset((
+    "IADD3", "IADD", "IADD32I", "ISETP", "IMNMX", "IABS", "SHF", "SHL", "SHR",
+    "LOP3", "LOP", "LOP32I", "LEA", "SEL", "PRMT", "BMSK", "BREV", "FLO",
+    "POPC", "VIADD", "VIMNMX", "ISCADD", "BFE", "BFI", "ICMP"))
+INT_FMA_OPS = frozenset(("IMAD", "IMUL", "IMAD32I", "IMUL32I"))
+# Hopper: 64 INT32 instructions a clock an SM (16 lanes in each of its four
+# partitions)
+INT32_PER_CLOCK_SM = 64
+
+
+def sass_main_loop(lib_path, kernel):
+    """The integer work of the main loop of the first function of the
+    library whose mangled name matches the regex ``kernel``: the loop is
+    the longest span from a backward branch's target to the branch, of
+    those with a 16-byte global store where any has one.
+    Returns the function, the span's instructions, its INT32-pipe
+    integer instructions (`INT_ALU_OPS`), its integer multiply-adds, its
+    16-byte global stores (one a loop iteration before unrolling, so the
+    caller can count per element whatever the compiler unrolled) and its
+    ten most frequent opcodes; None where ``cuobjdump`` is missing or no
+    function matches."""
+    sass = _sass(lib_path)
+    if sass is None:
+        return None
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if name and m:
+            instr = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+            funcs[name].append((int(m.group(1), 16), instr))
+    name = next((f for f in funcs if re.search(kernel, f)), None)
+    if name is None:
+        return None
+    code = funcs[name]
+    loops = []
+    for addr, instr in code:
+        if instr.split()[0].startswith("BRA"):
+            target = re.search(r"0x([0-9a-f]+)", instr)
+            if target and int(target.group(1), 16) <= addr:
+                loops.append((int(target.group(1), 16), addr))
+    if not loops:
+        return None
+
+    def opcodes(span):
+        return [instr.split()[0] for addr, instr in code
+                if span[0] <= addr <= span[1]]
+
+    def vector_store(span):
+        return any(op.startswith("STG") and ".128" in op
+                   for op in opcodes(span))
+    full = opcodes(max(loops, key=lambda span: (vector_store(span),
+                                                span[1] - span[0])))
+    ops = [op.split(".")[0] for op in full]
+    counts = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    return {"function": name, "instructions": len(ops),
+            "int_alu": sum(counts.get(o, 0) for o in INT_ALU_OPS),
+            "int_fma": sum(counts.get(o, 0) for o in INT_FMA_OPS),
+            "vector_stores": sum(op.startswith("STG") and ".128" in op
+                                 for op in full),
+            "global_stores": sum(op.startswith("STG") for op in full),
+            "top": dict(sorted(counts.items(), key=lambda kv: -kv[1])[:10])}
+
+
+@functools.cache
+def int32_rate():
+    """The card's INT32 instruction rate: `INT32_PER_CLOCK_SM` times its
+    SM count times its maximum SM clock (``nvidia-smi``)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    return {"sms": sms, "max_sm_mhz": mhz,
+            "ops_per_s": INT32_PER_CLOCK_SM * sms * mhz * 1e6}
 
 
 # tensor-core kernels by mangled name: (kernel id, type, head dim)
@@ -819,7 +946,7 @@ def phase_build():
         for kname, (n_regs, n_spill) in sorted(
                 _ptxas_by_kernel(ptxas).items()):
             m = re.search(r"\d(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel|"
-                          r"dropout_kernel)I\d*(\w+?)E", kname)
+                          r"dropout_(?:fwd|bwd)_kernel)I\d*(\w+?)E", kname)
             if m:
                 log(f"build: {m.group(1)} <{m.group(2)}>: {n_regs} "
                     f"registers, {n_spill} bytes spill stores")
@@ -1024,11 +1151,22 @@ def _bound(dtype, kw, shape, nbytes_elem):
     return _bound_ms(dtype, io, flops)
 
 
-def _bound_ms(dtype, io, flops):
-    t_bytes = io / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+def _bound_ms(dtype, io, flops, int_ops=0):
+    """Least time (ms) for ``io`` bytes, ``flops`` operations of
+    ``dtype`` and ``int_ops`` INT32 instructions, each at the card's
+    rate, and which of "bytes", "operations" and "integer ops" binds."""
+    times = {"bytes": io / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / PEAK_FLOPS[dtype] * 1e3}
+    if int_ops:
+        times["integer ops"] = int_ops / int32_rate()["ops_per_s"] * 1e3
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def _contract_bound(by):
+    """``bound_by`` in the result line's terms: integer instructions are
+    operations there (``bound_kind`` says which)."""
+    return "operations" if by == "integer ops" else by
 
 
 def _sdpa_call(q, k, v, kw):
@@ -1502,55 +1640,194 @@ def phase_replay_seeds(dev):
 # ---------------------------------------------------------------------------
 # phase 2d: the dropout kernel vs plain
 # ---------------------------------------------------------------------------
-# (dtype, shape, p): BERT-base training's dropout input (32 x 128 tokens
-# x 768) in bf16 and f32, an odd case, and the word LM's (phase 11)
-# nn.Dropout input at its longest bucket: (30, 32, 650) f32, p 0.5
-DROPOUT_CASES = [("bfloat16", (B_TRAIN, T_TRAIN, 768), 0.1),
-                 ("float32", (B_TRAIN, T_TRAIN, 768), 0.1),
-                 ("bfloat16", (3, 1001, 7), 0.1),
-                 ("float32", (30, 32, 650), 0.5)]
+# (dtype, shape, p, lead): BERT-base training's dropout input (32 x 128
+# tokens x 768) in bf16, f32 and f16 (the amp path's), the word LM's
+# (phase 11) nn.Dropout input at its longest bucket, (30, 32, 650) f32 at
+# p 0.5, an odd n, and contiguous views that start `lead` elements into
+# a buffer of their own, off a 16-byte boundary (the kernels' scalar
+# head; an odd n too; the last shorter than its head)
+DROPOUT_CASES = [("bfloat16", (B_TRAIN, T_TRAIN, 768), 0.1, 0),
+                 ("float32", (B_TRAIN, T_TRAIN, 768), 0.1, 0),
+                 ("float16", (B_TRAIN, T_TRAIN, 768), 0.1, 0),
+                 ("float32", (30, 32, 650), 0.5, 0),
+                 ("bfloat16", (3, 1001, 7), 0.1, 0),
+                 ("bfloat16", (100003,), 0.1, 1),
+                 ("float32", (65537,), 0.3, 3),
+                 ("float16", (77,), 0.5, 5),
+                 ("bfloat16", (3,), 0.5, 1)]
+DROPOUT_RATE_MIN_N = 20000
+_SASS_TYPE = {"float32": "f", "bfloat16": "13__nv_bfloat16",
+              "float16": "6__half"}
+# the dropout kernels by mangled name in the library's SASS, and by name
+# in a trace
+DROPOUT_SASS = {"fwd": r"dropout_fwd_kernelI{}Lb0E",
+                "bwd": r"dropout_bwd_kernelI{}E"}
+DROPOUT_TRACE = {"fwd": r"\bdropout_fwd_kernel\b",
+                 "bwd": KERNEL_NAMES["dropout_bwd"]}
 
 
-def phase_dropout(dev):
-    """The dropout kernel against `dropout_reference` on the same input
-    and seed words (bitwise), its keep rate, and its time beside its
-    bound (one read and one write of the tensor), the plain version's
-    and torch's own dropout (other bits, so a yardstick only: no library
-    call computes this function)."""
+def dropout_int_ops(part, n):
+    """INT32-pipe instructions the dropout function needs over ``n``
+    elements, whatever the kernel compiles to: a threefry2x32 hash is 20
+    rounds of a rotate (SHF) and an xor (LOP3), its adds and key
+    injections can run on the FMA pipe (IMAD); the forward hashes once a
+    pair of elements; each element takes one keep decision (a compare in
+    the forward, a bit test in the backward, which hashes nothing)."""
+    return (40 * -(-n // 2) if part == "fwd" else 0) + n
+
+
+def dropout_sass(dname):
+    """Each dropout kernel's main loop in its SASS (`sass_main_loop`)
+    and its INT32-pipe instructions an element (the span's 16-byte
+    stores give its elements): what the kernel as compiled spends, a
+    diagnostic beside `dropout_int_ops`."""
+    from mxnet_tpu_torch.ops import _build
+    path = _build.build("dropout")
+    out = {}
+    for part, pattern in DROPOUT_SASS.items():
+        loop = sass_main_loop(path, pattern.format(_SASS_TYPE[dname]))
+        if loop is None or not loop["vector_stores"]:
+            out[part] = None
+            continue
+        elements = loop["vector_stores"] * (16 //
+                                            torch_dtype(dname).itemsize)
+        out[part] = dict(loop, elements=elements,
+                         int_per_element=loop["int_alu"] / elements)
+    return out
+
+
+def torch_dtype(dname):
+    import torch
+    return getattr(torch, dname)
+
+
+def _dropout_input(dname, shape, lead, gen, dev):
+    import torch
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randn(n + lead, generator=gen).to(dev, torch_dtype(dname))
+    return buf[lead:].view(shape)
+
+
+def l2_flush(dev):
+    """A float32 buffer twice the card's L2 cache: reading it (`sum`)
+    between two timed launches leaves none of their inputs in L2, and
+    dirties no line that a launch would then write back."""
+    import torch
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    return torch.empty(l2 // 2, dtype=torch.float32, device=dev)
+
+
+def _dropout_case(dname, shape, p, lead, gen, seed, sass, flush):
+    """One case: the kernels against their plain versions, bitwise, the
+    bits against the plain mask, the keep rate, and each kernel timed
+    beside its bounds and its yardsticks."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import nn as tnn
+    dev = seed.device
+    x = _dropout_input(dname, shape, lead, gen, dev)
+    grad = _dropout_input(dname, shape, (lead + 1) % 4, gen, dev)
+    n, es = x.numel(), x.element_size()
+    out, bits = tnn._dropout_forward(x, seed, p)
+    ref, ref_bits = tnn.dropout_forward_reference(x, seed, p)
+    out2, bits2 = tnn._dropout_forward(x, seed, p)
+    dx = tnn._dropout_backward(grad, bits, p)
+    dx_ref = tnn.dropout_backward_reference(grad, ref_bits, p)
+    keep = tnn.unpack_keep_bits(bits, n)
+    torch.cuda.synchronize()
+    kept = float(keep.float().mean())
+    row = {"dtype": dname, "shape": list(shape), "p": p, "lead": lead,
+           "x_off_16": x.data_ptr() % 16, "out_off_16": out.data_ptr() % 16,
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "bitwise": bool(torch.equal(out, ref)),
+           "repeat_bitwise": bool(torch.equal(out, out2) and
+                                  torch.equal(bits, bits2)),
+           "bwd_max_abs_err": (dx.float() - dx_ref.float()).abs().max()
+           .item(),
+           "bwd_bitwise": bool(torch.equal(dx, dx_ref)),
+           "bits_bitwise": bool(torch.equal(bits, ref_bits)),
+           "bits_unpack_to_mask": bool(torch.equal(
+               keep, tnn.dropout_keep(n, seed, p, dev))),
+           "keep_rate": kept, "keep_rate_gated": n >= DROPOUT_RATE_MIN_N}
+    mask = tnn.dropout_forward_reference(torch.ones_like(grad), seed,
+                                         p)[0] != 0
+    scale = 1.0 / (1.0 - p)
+    io_fwd = 2 * n * es + 4 * -(-n // 32) + 8
+    io_bwd = 2 * n * es + 4 * -(-n // 32)
+    rate = int32_rate()["ops_per_s"]
+    for part, io, run, plain, yard in (
+            ("fwd", io_fwd, lambda: tnn._dropout_forward(x, seed, p),
+             lambda: tnn.dropout_forward_reference(x, seed, p),
+             lambda: F.dropout(x, p, training=True)),
+            ("bwd", io_bwd, lambda: tnn._dropout_backward(grad, bits, p),
+             lambda: tnn.dropout_backward_reference(grad, ref_bits, p),
+             lambda: torch.ops.aten.native_dropout_backward(grad, mask,
+                                                            scale))):
+        bound, by = _bound_ms(dname, io, 0, dropout_int_ops(part, n))
+        per = (sass or {}).get(part)
 
+        def cold(fn=run):
+            flush.sum()
+            return fn()
+        row.update({
+            # the kernel alone by device time, its inputs out of L2 as a
+            # step's cold tensors are; warm: the same inputs launch after
+            # launch, left in L2 by the last; the wrapper's call by
+            # events (host-bound at these sizes)
+            f"{part}_ms": device_ms(cold, match=DROPOUT_TRACE[part]),
+            f"{part}_warm_ms": device_ms(run, match=DROPOUT_TRACE[part]),
+            f"{part}_events_ms": cuda_ms(run),
+            f"{part}_plain_ms": cuda_ms(plain, iters=5),
+            f"{part}_yardstick_ms": device_ms(yard),
+            f"{part}_yardstick_events_ms": cuda_ms(yard),
+            f"{part}_bound_ms": bound, f"{part}_bound_by": by,
+            f"{part}_bytes_bound_ms": io / HBM_BYTES_PER_S * 1e3,
+            f"{part}_int_bound_ms": dropout_int_ops(part, n) / rate * 1e3,
+            f"{part}_sass_int_ms": (n * per["int_per_element"] / rate * 1e3
+                                    if per else "not measured")})
+    # the forward's (the main-path) keys under the names the result
+    # line reads
+    row.update({"ms": row["fwd_ms"], "plain_ms": row["fwd_plain_ms"],
+                "torch_dropout_ms": row["fwd_yardstick_ms"],
+                "library_ms": None, "bound_ms": row["fwd_bound_ms"],
+                "bound_by": row["fwd_bound_by"]})
+    checks = [row["bitwise"], row["repeat_bitwise"], row["bwd_bitwise"],
+              row["bits_bitwise"], row["bits_unpack_to_mask"]]
+    if row["keep_rate_gated"]:
+        checks.append(abs(kept - (1 - p)) < 0.01)
+    row["ok"] = all(checks)
+    return row
+
+
+def phase_dropout(dev):
+    """The dropout kernels against their plain versions at
+    `DROPOUT_CASES` (bitwise: outputs, the packed keep bits, the
+    gradient), the bits against the plain mask, the keep rate, and each
+    kernel's time beside its bytes and integer-work bounds, its plain
+    version and torch's (other bits and inputs, so yardsticks only: no
+    library call computes this function).  Prints each kernel's SASS
+    main loop as counted."""
+    import torch
     gen = torch.Generator().manual_seed(55)
     seed = torch.tensor([0x2468ACE, -0x1357], dtype=torch.int32, device=dev)
+    sass = {d: dropout_sass(d) for d in _SASS_TYPE}
+    log("kernel_dropout_sass: " + json.dumps(
+        {"int32_rate": int32_rate(), "loops": sass}))
+    flush = l2_flush(dev)
     rows = []
-    for dname, shape, p in DROPOUT_CASES:
-        dtype = getattr(torch, dname)
-        x = torch.randn(*shape, generator=gen).to(dev, dtype)
-        y = tnn._dropout_apply(x, seed, p)
-        ref = tnn.dropout_reference(x, seed, p)
-        torch.cuda.synchronize()
-        err = (y.float() - ref.float()).abs().max().item()
-        equal = bool(torch.equal(y, ref))
-        kept = float((ref != 0).float().mean())
-        ms = cuda_ms(lambda: tnn._dropout_apply(x, seed, p))
-        plain_ms = cuda_ms(lambda: tnn.dropout_reference(x, seed, p),
-                           iters=5)
-        torch_ms = cuda_ms(lambda: F.dropout(x, p, training=True))
-        bound_ms, bound_by = _bound_ms(dname, 2 * x.numel() *
-                                       x.element_size() + 8, 0)
-        row = {"dtype": dname, "shape": list(shape), "p": p,
-               "max_abs_err": err,
-               "bitwise": equal, "keep_rate": kept, "ms": ms,
-               "plain_ms": plain_ms, "torch_dropout_ms": torch_ms,
-               "library_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+    for dname, shape, p, lead in DROPOUT_CASES:
+        row = _dropout_case(dname, shape, p, lead, gen, seed, sass[dname],
+                            flush)
         rows.append(row)
         log("kernel_dropout: " + json.dumps(row))
-    if not all(r["bitwise"] and abs(r["keep_rate"] - (1 - r["p"])) < 0.01
-               for r in rows):
-        raise SystemExit("the dropout kernel disagrees with its plain "
-                         "version")
+    del flush
+    failed = [(r["dtype"], r["shape"], r["lead"]) for r in rows
+              if not r["ok"]]
+    if failed:
+        raise SystemExit(f"the dropout kernels disagree with their plain "
+                         f"versions: {failed}")
     return rows
 
 
@@ -1617,12 +1894,17 @@ def serve(net, dev, reqs, seq_buckets):
             f"{time.perf_counter() - t0:.2f} s")
         wall = _traffic(ep, reqs, results, latencies)
         stats = ep.stats()
-        FLASH_FWD.launches = 0
+        before = {}
+
+        def reset():
+            FLASH_FWD.launches = 0
+            before["batches"] = ep.stats()["batches"]
+        reset()
         _, traced = traced_launches(lambda: _traffic(
-            ep, reqs, [None] * len(reqs), [None] * len(reqs)))
+            ep, reqs, [None] * len(reqs), [None] * len(reqs)), reset)
         launches = {"traced": traced["flash_attention_fwd"],
                     "booked": FLASH_FWD.launches,
-                    "batches": ep.stats()["batches"] - stats["batches"]}
+                    "batches": ep.stats()["batches"] - before["batches"]}
     return results, latencies, wall, stats, launches, ep
 
 
@@ -1873,26 +2155,36 @@ TRACE_PAD, TRACE_PAD_CYCLES = 256, 10000
 TRACE_PAD_NAME = r"\bspin_kernel\b"
 
 
-def traced_launches(fn):
+def traced_launches(fn, reset):
     """Run ``fn()`` traced by ``torch.profiler`` (device activity only)
     after `TRACE_PAD` spin kernels; returns its result and the launches
     of each of `KERNEL_NAMES` the trace recorded, a CUDA graph's replayed
-    kernels included.  Fails if the trace lost every spin kernel, since
-    what it lost may then reach into ``fn``'s launches."""
+    kernels included.  A count is read only from a trace that kept a
+    spin kernel, since what a trace lost may reach into ``fn``'s
+    launches: where every one is lost (seen on an H100 right after
+    another trace), ``reset()`` puts the caller's bookkeeping back to
+    where it stood and ``fn`` runs again under a fresh trace, once; a
+    second loss fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_PAD):
-            torch.cuda._sleep(TRACE_PAD_CYCLES)
+    for attempt in range(2):
+        if attempt:
+            log(f"the profiler lost all {TRACE_PAD} spin kernels at the "
+                f"start of a counted trace; tracing again")
+            reset()
         torch.cuda.synchronize()
-        result = fn()
-        torch.cuda.synchronize()
-    counts = _named_launches(prof, dict(KERNEL_NAMES, pad=TRACE_PAD_NAME))
-    if counts.pop("pad") == 0:
-        raise SystemExit(f"the profiler lost all {TRACE_PAD} spin kernels "
-                         f"at the start of a counted trace")
-    return result, counts
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(TRACE_PAD_CYCLES)
+            torch.cuda.synchronize()
+            result = fn()
+            torch.cuda.synchronize()
+        counts = _named_launches(prof, dict(KERNEL_NAMES,
+                                            pad=TRACE_PAD_NAME))
+        if counts.pop("pad"):
+            return result, counts
+    raise SystemExit(f"the profiler lost all {TRACE_PAD} spin kernels at "
+                     f"the start of a counted trace, twice")
 
 
 def device_ms(fn, iters=20, match=None):
@@ -2032,6 +2324,13 @@ def _reset_counts():
     from mxnet_tpu_torch.ops import flash_attention as fa
     for k in (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV):
         k.launches = 0
+
+
+def _reset_bert_counts():
+    """The flash kernels' and both dropout kernels' counts to 0."""
+    from mxnet_tpu_torch.ops.nn import DROPOUT, DROPOUT_BWD
+    _reset_counts()
+    DROPOUT.launches = DROPOUT_BWD.launches = 0
 
 
 def _snapshot(mod, trainer):
@@ -2237,7 +2536,7 @@ def phase_train(dev):
     import torch
     from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
     from mxnet_tpu_torch.models import BertForPretraining
-    from mxnet_tpu_torch.ops.nn import DROPOUT
+    from mxnet_tpu_torch.ops.nn import DROPOUT, DROPOUT_BWD
 
     net = BertForPretraining(**TRAIN_CFG).initialize(
         ctx=dev, generator=torch.Generator().manual_seed(0))
@@ -2276,14 +2575,17 @@ def phase_train(dev):
     step_ms = wall / TRAIN_STEPS * 1e3
     # the main path's launches, measured: TRACED_STEPS more replays
     # traced, from wrapper counts of 0 (the bookkeeping, a cross-check)
-    _reset_counts()
-    DROPOUT.launches = 0
+    _reset_bert_counts()
     _, traced = traced_launches(lambda: [step(*args, batch_size=B_TRAIN)
-                                         for _ in range(TRACED_STEPS)])
-    booked = dict(_launch_counts(), dropout=DROPOUT.launches)
+                                         for _ in range(TRACED_STEPS)],
+                                _reset_bert_counts)
+    booked = dict(_launch_counts(), dropout=DROPOUT.launches,
+                  dropout_bwd=DROPOUT_BWD.launches)
     traced = {k: traced[k] for k in booked}
     expect = {k: TRACED_STEPS * n_layers for k in booked}
+    # both kernels: the forward and the backward of each dropout
     expect["dropout"] = TRACED_STEPS * 2 * (2 * n_layers + 1)
+    expect["dropout_bwd"] = TRACED_STEPS * (2 * n_layers + 1)
     traced_ok = traced == expect and booked == expect
     log(f"train: {TRACED_STEPS} replayed steps traced: launches on the card "
         f"{json.dumps(traced)}, by the wrappers {json.dumps(booked)}, "
@@ -2531,7 +2833,7 @@ def phase_train_amp(dev):
     from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
     from mxnet_tpu_torch.lr_scheduler import PolyScheduler
     from mxnet_tpu_torch.models import BertForPretraining
-    from mxnet_tpu_torch.ops.nn import DROPOUT
+    from mxnet_tpu_torch.ops.nn import DROPOUT, DROPOUT_BWD
 
     marks = [("start", time.perf_counter())]
 
@@ -2577,18 +2879,21 @@ def phase_train_amp(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = AMP_CFG["num_layers"]
-        _reset_counts()
-        DROPOUT.launches = 0
+        _reset_bert_counts()
         _, traced = traced_launches(lambda: [one()
-                                             for _ in range(TRACED_STEPS)])
-        booked = dict(_launch_counts(), dropout=DROPOUT.launches)
+                                             for _ in range(TRACED_STEPS)],
+                                    _reset_bert_counts)
+        booked = dict(_launch_counts(), dropout=DROPOUT.launches,
+                      dropout_bwd=DROPOUT_BWD.launches)
         traced = {k: traced[k] for k in booked}
         per_step = {"flash_attention_fwd": 2 * n,
                     "flash_attention_bwd_dq": n,
                     "flash_attention_bwd_dkv": n,
                     # the embeddings' and two a layer, forward and
                     # backward, and each layer's two again in its recompute
-                    "dropout": 2 * (2 * n + 1) + 2 * n}
+                    # (a forward)
+                    "dropout": 2 * (2 * n + 1) + 2 * n,
+                    "dropout_bwd": 2 * n + 1}
         expect = {k: TRACED_STEPS * v for k, v in per_step.items()}
         launches_ok = traced == expect and booked == expect
         log(f"train_amp: {TRACED_STEPS} replayed steps traced: launches on "
@@ -3186,7 +3491,8 @@ def _train_steps(step, args, n_steps, expect, batch=RESNET_BATCH,
     wall = time.perf_counter() - t0
     _reset_cnn_counts()
     _, traced = traced_launches(lambda: [step(*args, batch_size=batch)
-                                         for _ in range(TRACED_STEPS)])
+                                         for _ in range(TRACED_STEPS)],
+                                _reset_cnn_counts)
     booked = _cnn_counts()
     traced = {k: traced[k] for k in booked}
     ok = ok and all(traced[k] == booked[k] == TRACED_STEPS * expect[k]
@@ -3639,7 +3945,8 @@ def _recordio_variant(name, dev, make_mod, source, canvas_hw):
     seen, _ = _count_syncs(lambda: torch.ones(1, device=dev).item())
     out["host_syncs_per_step"] = n_syncs if seen >= 1 else "not measured"
     _reset_cnn_counts()
-    _, traced = traced_launches(lambda: [one() for _ in range(TRACED_STEPS)])
+    _, traced = traced_launches(lambda: [one() for _ in range(TRACED_STEPS)],
+                                _reset_cnn_counts)
     booked = _cnn_counts()
     out["launches"] = {k: traced[k] for k in booked}
     out["launches_booked"] = booked
@@ -3816,6 +4123,40 @@ def _host_us(fn, n=200):
     return host / n * 1e6
 
 
+RTC_HOST_WINDOWS = 5
+
+
+def rtc_host_times(dev, windows=1):
+    """Host microseconds per ``CudaKernel.launch`` of ``axpy`` (f32
+    scalar) and ``scale_bf16`` (bf16 scalar) at 128000 elements, beside
+    torch's launch of the same work (``add_``, ``mul``), and of the
+    ``resolve_device`` call that a kernel keeps the result of, in
+    ``windows`` alternating windows of `_host_us`."""
+    import torch
+
+    from mxnet_tpu_torch.context import resolve_device
+    kernels = user_kernels()
+    gen = torch.Generator(device=dev).manual_seed(52)
+    n = 128 * 1000
+    grid = (-(-n // 256),)
+    x = torch.randn(n, generator=gen, device=dev)
+    y = torch.randn(n, generator=gen, device=dev)
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    calls = {
+        "host_us_per_launch": lambda: kernels["axpy"].launch(
+            (x, y, 2.5, n), dev, grid, (256,)),
+        "torch_add_host_us": lambda: y.add_(x, alpha=2.5),
+        "bf16_scalar_host_us_per_launch": lambda: kernels[
+            "scale_bf16"].launch((xb, yb, SCALE_BF16, n), dev, grid, (256,)),
+        "torch_mul_host_us": lambda: torch.mul(xb, SCALE_BF16, out=yb),
+        "resolve_device_host_us": lambda: resolve_device(dev)}
+    out = {k: [] for k in calls}
+    for _ in range(windows):
+        for k, fn in calls.items():
+            out[k].append(_host_us(fn))
+    return {k: sorted(v)[len(v) // 2] for k, v in out.items()}, out
+
+
 def phase_rtc(dev):
     """The user module compiled once by NVRTC (timed); ``axpy``,
     ``scale<float>`` (a template found by its exported name) and
@@ -3850,11 +4191,16 @@ def phase_rtc(dev):
                                   (1024,), shared_mem=smem)
     checks[f"row_reverse_{smem}_bytes_smem_bitwise"] = bool(
         torch.equal(rev, wide.flip(1)))
+    xb = x.to(torch.bfloat16)
+    yb = torch.empty_like(xb)
+    kernels["scale_bf16"].launch((xb, yb, SCALE_BF16, n), dev,
+                                 (-(-n // 256),), (256,))
+    a_bf16 = torch.tensor(SCALE_BF16, dtype=torch.bfloat16).float()
+    checks["scale_bf16_bitwise"] = bool(torch.equal(
+        yb, (xb.float() * a_bf16.to(dev)).to(torch.bfloat16)))
     torch.cuda.synchronize()
-    host_us = _host_us(lambda: kernels["axpy"].launch(
-        (x, y, 2.5, n), dev, (-(-n // 256),), (256,)))
-    torch_us = _host_us(lambda: y.add_(x, alpha=2.5))
-    del x, y, want, out, wide, rev
+    host, _ = rtc_host_times(dev)
+    del x, y, want, out, wide, rev, xb, yb
 
     fwd, bwd = kernels["softmax_fwd"], kernels["softmax_bwd"]
     rows = []
@@ -3927,8 +4273,7 @@ def phase_rtc(dev):
             f"{'ok' if ok else 'FAILED'}")
         del x, label, prob, dx, ref, diff, bwd_diff, bwd_want, idx, neg_ones
     torch.cuda.empty_cache()
-    out = {"compile_ms": kernels["compile_ms"], "checks": checks,
-           "host_us_per_launch": host_us, "torch_add_host_us": torch_us,
+    out = {"compile_ms": kernels["compile_ms"], "checks": checks, **host,
            "softmax": rows}
     log("rtc: " + json.dumps({k: v for k, v in out.items()
                               if k != "softmax"}))
@@ -4589,7 +4934,7 @@ def _word_lm(dev):
     card), one train-mode forward traced alone."""
     import torch
     from mxnet_tpu_torch import autograd
-    from mxnet_tpu_torch.ops.nn import DROPOUT
+    from mxnet_tpu_torch.ops.nn import DROPOUT, DROPOUT_BWD
 
     torch.cuda.reset_peak_memory_stats()
     model, trainer, loss_fn, it = word_lm_setup(dev)
@@ -4606,21 +4951,23 @@ def _word_lm(dev):
     vals = torch.stack(losses).cpu().tolist()
     first, last = sum(vals[:10]) / 10, sum(vals[-10:]) / 10
     finite = all(v == v and abs(v) != float("inf") for v in vals)
-    DROPOUT.launches = 0
+    def reset():
+        DROPOUT.launches = DROPOUT_BWD.launches = 0
+    reset()
     traced_batches = batches[WORD_LM_BATCHES:WORD_LM_BATCHES +
                              WORD_LM_TRACED]
     _, traced = traced_launches(lambda: [
         word_lm_step(model, trainer, loss_fn, b, dev, gen)
-        for b in traced_batches])
-    booked = DROPOUT.launches
-    DROPOUT.launches = 0
+        for b in traced_batches], reset)
+    booked, booked_bwd = DROPOUT.launches, DROPOUT_BWD.launches
+    reset()
     fwd_batch = batches[-1]
 
     def forward_only():
         with autograd.record(generator=gen):
             return model(fwd_batch.data[0].to(dev))
 
-    _, fwd_traced = traced_launches(forward_only)
+    _, fwd_traced = traced_launches(forward_only, reset)
     fwd_booked = DROPOUT.launches
     mask = _inter_layer_mask_check(dev)
     out = {"model": "RNNModel(10000, 650, 650, 2, lstm, dropout 0.5, tied)",
@@ -4636,6 +4983,8 @@ def _word_lm(dev):
            "traced_batches": WORD_LM_TRACED,
            "dropout_launches": traced["dropout"],
            "dropout_launches_booked": booked,
+           "dropout_bwd_launches": traced["dropout_bwd"],
+           "dropout_bwd_launches_booked": booked_bwd,
            "dropout_launches_forward_alone": fwd_traced["dropout"],
            "dropout_launches_forward_alone_booked": fwd_booked,
            "inter_layer_mask": mask,
@@ -4643,9 +4992,11 @@ def _word_lm(dev):
            "card": nvidia_smi()}
     log("rnn_lm: word_lm loop: " + json.dumps(out))
     # nn.Dropout on the embedding and on the LSTM's output: two launches
-    # a forward, two more in the backward
+    # a forward, two more in the backward (the backward kernel's)
     launches_ok = traced["dropout"] == booked == 4 * WORD_LM_TRACED and \
-        fwd_traced["dropout"] == fwd_booked == 2
+        traced["dropout_bwd"] == booked_bwd == 2 * WORD_LM_TRACED and \
+        fwd_traced["dropout"] == fwd_booked == 2 and \
+        fwd_traced["dropout_bwd"] == 0
     if not (finite and last < first - WORD_LM_MARGIN and launches_ok and
             mask["bitwise"]):
         raise SystemExit(
@@ -5052,6 +5403,19 @@ def main():
         log(f"card: {card}; torch {torch.__version__}")
         wide_forward_times(dev, [int(d) for d in sys.argv[2:]] or WIDE_DIMS)
         return 0
+    if sys.argv[1:2] == ["--dropout"]:
+        # on the card, no result line: phase 2d alone (builds only the
+        # dropout source)
+        log(f"card: {card}; torch {torch.__version__}")
+        phase_dropout(dev)
+        return 0
+    if sys.argv[1:2] == ["--rtc-host"]:
+        # on the card, no result line: B6's host time a launch alone, in
+        # RTC_HOST_WINDOWS windows
+        log(f"card: {card}; torch {torch.__version__}")
+        med, windows = rtc_host_times(dev, RTC_HOST_WINDOWS)
+        log("rtc_host: " + json.dumps({"median": med, "windows": windows}))
+        return 0
     t_start = time.perf_counter()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
@@ -5116,6 +5480,7 @@ def main():
     launches = trained["launches"]
     booked = trained["launches_booked_traced"]
     drop_case = drop_rows[0]
+    lm_case = next(r for r in drop_rows if r["shape"] == [30, 32, 650])
     wide_fwd = [{k: r[k] for k in (
         "dtype", "shape", "ms", "device_ms", "kernel_device_ms", "bound_ms",
         "bound_by", "library_ms", "library_device_ms", "max_abs_err",
@@ -5226,28 +5591,54 @@ def main():
         "bound_ms": stem_case["bound_ms"], "bound_by": stem_case["bound_by"],
         "library_ms": stem_case["library_ms"],
         "first_design_ms": stem_case["first_design_ms"],
-    }, {
-        "name": "dropout", "route": "cuda",
+    }] + [{
+        "name": name, "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/dropout.cu",
         "replaces": "mxnet_tpu/ops/nn.py:566",
         "replaces_note": "not a Pallas kernel: the reference's dropout "
                          "draws from XLA's random bits",
-        "launches": launches["dropout"],
-        "launches_booked": booked["dropout"],
-        "max_abs_err": drop_case["max_abs_err"],
-        "ms": drop_case["ms"], "plain_ms": drop_case["plain_ms"],
-        "bound_ms": drop_case["bound_ms"], "bound_by": drop_case["bound_by"],
-        "library_ms": drop_case["library_ms"],
-        "torch_dropout_ms": drop_case["torch_dropout_ms"],
-        "amp_launches": amp_launches["dropout"],
-        "amp_launches_booked": amp_booked["dropout"],
-        "rnn_lm_launches": rnn_lm["word_lm"]["dropout_launches"],
-        "rnn_lm_launches_booked":
-            rnn_lm["word_lm"]["dropout_launches_booked"],
-        "rnn_lm_case": {k: drop_rows[-1][k] for k in (
-            "dtype", "shape", "p", "max_abs_err", "bitwise", "keep_rate",
-            "ms", "plain_ms", "bound_ms", "bound_by", "torch_dropout_ms")},
-    }] + [{
+        # the traced BERT steps' launches of this kernel (dropout: both
+        # kernels' in launches_both_kernels)
+        "launches": launches["dropout"] - launches["dropout_bwd"]
+        if part == "fwd" else launches["dropout_bwd"],
+        "launches_booked": booked["dropout"] - booked["dropout_bwd"]
+        if part == "fwd" else booked["dropout_bwd"],
+        "launches_both_kernels": launches["dropout"],
+        "max_abs_err": drop_case["max_abs_err" if part == "fwd"
+                                 else "bwd_max_abs_err"],
+        # the kernel's device time, its inputs out of L2; warm, and its
+        # wrapper's call by events
+        "ms": drop_case[f"{part}_ms"],
+        "warm_ms": drop_case[f"{part}_warm_ms"],
+        "events_ms": drop_case[f"{part}_events_ms"],
+        "plain_ms": drop_case[f"{part}_plain_ms"],
+        "bound_ms": drop_case[f"{part}_bound_ms"],
+        "bound_by": _contract_bound(drop_case[f"{part}_bound_by"]),
+        "bound_kind": drop_case[f"{part}_bound_by"],
+        "bytes_bound_ms": drop_case[f"{part}_bytes_bound_ms"],
+        "int_bound_ms": drop_case[f"{part}_int_bound_ms"],
+        "sass_int_ms": drop_case[f"{part}_sass_int_ms"],
+        "library_ms": None,
+        "yardstick_ms": drop_case[f"{part}_yardstick_ms"],
+        "yardstick": yard,
+        "amp_launches": amp_launches["dropout"] - amp_launches["dropout_bwd"]
+        if part == "fwd" else amp_launches["dropout_bwd"],
+        "amp_launches_booked":
+            amp_booked["dropout"] - amp_booked["dropout_bwd"]
+        if part == "fwd" else amp_booked["dropout_bwd"],
+        "rnn_lm_launches":
+            rnn_lm["word_lm"]["dropout_launches"] -
+            rnn_lm["word_lm"]["dropout_bwd_launches"]
+        if part == "fwd" else rnn_lm["word_lm"]["dropout_bwd_launches"],
+        "rnn_lm_case": {k: lm_case[k] for k in (
+            "dtype", "shape", "p", "bitwise", "bwd_bitwise", "keep_rate",
+            f"{part}_ms", f"{part}_plain_ms", f"{part}_bound_ms",
+            f"{part}_bound_by", f"{part}_yardstick_ms")},
+    } for name, part, yard in (
+        ("dropout", "fwd", "F.dropout (other bits)"),
+        ("dropout_bwd", "bwd",
+         "aten.native_dropout_backward (a bool mask, not packed bits)"))
+    ] + [{
         "name": f"rtc:{name}", "route": "cuda",
         "source": "chip_smoke.py:USER_KERNELS_SRC",
         "launcher": "mxnet_tpu_torch/rtc.py",

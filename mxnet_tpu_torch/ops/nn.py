@@ -17,13 +17,22 @@ tensor on the CPU takes its plain version, `bn_bwd_reduce_reference`.
 The wrapper counts its launches in ``BN_BWD_REDUCE.launches`` and
 ``BN_BWD_REDUCE_ROWS.launches``.
 
-Dropout in train mode is a hand-written CUDA kernel too (`dropout`,
+Dropout in train mode is two hand-written CUDA kernels (`dropout`,
 source `csrc/dropout.cu`; not the port of a TPU kernel: the reference
-draws its mask from XLA's random bits).  It reads the draw's two seed
-words from device memory, so a captured training step draws fresh bits
-at every replay; its plain version, `dropout_reference`, hashes the same
-counters with the int64 threefry of `ops/flash_attention.py`.  Launches
-count in ``DROPOUT.launches``.
+draws its mask from XLA's random bits, which no mask of the port
+matches).  The forward hashes one threefry2x32 of the draw's two seed
+words for each pair of elements, pair j's counter (j mod 2^32, j div
+2^32): its first word keeps element 2j, its second element 2j + 1 (an
+odd count's last element takes the first), where the word is below the
+keep threshold.  It reads the seed words from device memory, so a
+captured training step draws fresh bits at every replay, and writes the
+mask packed, one bit an element in int32 words (`pack_keep_bits`); the
+backward kernel applies that mask to the output gradient and hashes
+nothing.  Their plain versions, `dropout_forward_reference` (with
+`dropout_reference`, its output alone) and `dropout_backward_reference`,
+hash the same counters with the int64 threefry of `ops/threefry.py`.
+``DROPOUT.launches`` counts the launches of both kernels,
+``DROPOUT_BWD.launches`` those of the backward.
 """
 from __future__ import annotations
 
@@ -33,8 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from ._build import Kernel, stream_of
-from .flash_attention import (_DTYPES, _M32, _keep_threshold, _seed_words,
-                              _threefry2x32)
+from .flash_attention import _DTYPES, _M32, _keep_threshold, _seed_words
+from .threefry import threefry2x32
 
 __all__ = ["layer_norm", "fully_connected", "softmax", "log_softmax",
            "activation", "leaky_relu", "group_norm", "instance_norm",
@@ -42,12 +51,15 @@ __all__ = ["layer_norm", "fully_connected", "softmax", "log_softmax",
            "pooling", "batch_norm_train",
            "batch_norm_inference", "bn_bwd_reduce", "bn_bwd_reduce_reference",
            "bn_bwd_reduce_plan", "bn_bwd_reduce_rows_plan", "BN_BWD_REDUCE",
-           "BN_BWD_REDUCE_ROWS", "BN_ROWS_BELOW", "dropout_reference",
-           "DROPOUT"]
+           "BN_BWD_REDUCE_ROWS", "BN_ROWS_BELOW", "dropout_keep",
+           "pack_keep_bits", "unpack_keep_bits", "dropout_reference",
+           "dropout_forward_reference", "dropout_backward_reference",
+           "DROPOUT", "DROPOUT_BWD"]
 
 BN_BWD_REDUCE = Kernel("bn_bwd_reduce")
 BN_BWD_REDUCE_ROWS = Kernel("bn_bwd_reduce_rows")
 DROPOUT = Kernel("dropout")
+DROPOUT_BWD = Kernel("dropout_bwd")
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
@@ -147,78 +159,191 @@ def instance_norm(data, gamma, beta, eps=1e-5):
     return x * gamma.reshape(shape) + beta.reshape(shape)
 
 
-def dropout_reference(data, seed, p):
-    """Plain version of the dropout kernel: element ``i`` of ``data`` (in
-    flat order) is kept where threefry2x32(seed words, (i mod 2^32,
-    i div 2^32)) is below the keep threshold, and scaled by 1/(1 - p) in
-    ``data``'s dtype; the rest are zeros.  ``seed``: two uint32 words (a
-    tensor or a sequence)."""
+def dropout_keep(n, seed, p, device="cpu"):
+    """The keep mask of ``n`` elements in flat order, bool (n,): pair j
+    hashes threefry2x32(seed words, (j mod 2^32, j div 2^32)); its first
+    word keeps element 2j and its second element 2j + 1 where the word
+    is below the threshold of keep 1 - ``p`` (an odd ``n``'s last element
+    takes the first word).  ``seed``: two uint32 words (a tensor or a
+    sequence)."""
     s0, s1 = _seed_words(seed)
-    idx = torch.arange(data.numel(), dtype=torch.int64, device=data.device)
-    bits = _threefry2x32(s0, s1, idx & _M32, idx >> 32)
-    keep = (bits < _keep_threshold(1.0 - p)).reshape(data.shape)
-    return torch.where(keep, data * (1.0 / (1.0 - p)),
+    j = torch.arange((n + 1) // 2, dtype=torch.int64, device=device)
+    w0, w1 = threefry2x32(s0, s1, j & _M32, j >> 32)
+    thr = _keep_threshold(1.0 - p)
+    return torch.stack([w0 < thr, w1 < thr], dim=1).reshape(-1)[:n]
+
+
+def pack_keep_bits(keep):
+    """A flat bool mask packed as the forward kernel writes it: int32
+    words holding uint32 bits, bit b of word w for element 32 w + b, the
+    bits past the mask's end 0."""
+    n = keep.numel()
+    padded = torch.zeros(-(-n // 32) * 32, dtype=torch.int64,
+                         device=keep.device)
+    padded[:n] = keep.reshape(-1).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=keep.device)
+    words = (padded.reshape(-1, 32) << shifts).sum(dim=1)
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def unpack_keep_bits(words, n):
+    """The inverse of `pack_keep_bits`: bool (n,)."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64).unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(-1)[:n].bool()
+
+
+def _masked(data, keep, p):
+    return torch.where(keep.reshape(data.shape), data * (1.0 / (1.0 - p)),
                        torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+def dropout_forward_reference(data, seed, p):
+    """Plain version of the forward kernel: ``data`` with the elements
+    `dropout_keep` keeps (in flat order) scaled by 1/(1 - p) in
+    ``data``'s dtype and the rest zeros, and the mask packed
+    (`pack_keep_bits`)."""
+    keep = dropout_keep(data.numel(), seed, p, data.device)
+    return _masked(data, keep, p), pack_keep_bits(keep)
+
+
+def dropout_reference(data, seed, p):
+    """The forward kernel's output, plain (`dropout_forward_reference`)."""
+    return dropout_forward_reference(data, seed, p)[0]
+
+
+def dropout_backward_reference(grad, bits, p):
+    """Plain version of the backward kernel: ``grad`` with the elements
+    the packed mask ``bits`` keeps scaled by 1/(1 - p), the rest zeros."""
+    return _masked(grad, unpack_keep_bits(bits, grad.numel()), p)
 
 
 def _declare_dropout(lib):
     p = ctypes.c_void_p
-    lib.dropout_apply.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_uint, ctypes.c_float, p]
-    lib.dropout_apply.restype = ctypes.c_int
+    lib.dropout_forward.argtypes = [p, p, p, p, ctypes.c_longlong,
+                                    ctypes.c_int, ctypes.c_uint,
+                                    ctypes.c_float, p]
+    lib.dropout_forward.restype = ctypes.c_int
+    lib.dropout_backward.argtypes = [p, p, p, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_float, p]
+    lib.dropout_backward.restype = ctypes.c_int
 
 
-def _dropout_apply(x, seed, p):
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+def _empty_at_offset_of(x):
+    """An empty tensor like the contiguous ``x`` whose data starts as far
+    from a 16-byte boundary as ``x``'s (the kernels' 16-byte accesses
+    then line up in both)."""
+    lead = x.data_ptr() % 16 // x.element_size()
+    if lead == 0:
+        return torch.empty_like(x)
+    buf = torch.empty(x.numel() + lead, dtype=x.dtype, device=x.device)
+    return buf[lead:].view(x.shape)
+
+
+def _on_card(x):
+    """Whether ``x`` takes the kernels (CUDA) or their plain versions
+    (the CPU); other devices raise."""
     if x.device.type == "cpu":
-        return dropout_reference(x, seed, p)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"dropout runs on CUDA or the CPU; got {x.device}")
+    return True
+
+
+def _kernel_input(x):
     if x.dtype not in _DTYPES:
         raise TypeError(f"the dropout kernel takes float32, bfloat16 or "
                         f"float16; got {x.dtype}")
+    return x.contiguous()
+
+
+def _dropout_forward(x, seed, p):
+    """The forward kernel on a CUDA tensor, its plain version on a CPU
+    one: the output and the packed keep bits."""
+    if not _on_card(x):
+        return dropout_forward_reference(x, seed, p)
+    return _launch_forward(x, seed, p)
+
+
+def _launch_forward(x, seed, p):
+    x = _kernel_input(x)
     if seed.device != x.device or seed.dtype != torch.int32 or \
             seed.numel() != 2:
         raise ValueError(f"dropout's seed must be two int32 words on "
                          f"{x.device}")
     from . import _build
 
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
+    n = x.numel()
+    out = _empty_at_offset_of(x)
+    bits = torch.empty(-(-n // 32), dtype=torch.int32, device=x.device)
+    if n == 0:
+        return out, bits
     lib = _build.load("dropout", _declare_dropout)
-    err = lib.dropout_apply(x.data_ptr(), out.data_ptr(),
-                            seed.contiguous().data_ptr(), x.numel(),
-                            _DTYPES[x.dtype], _keep_threshold(1.0 - p),
-                            1.0 / (1.0 - p), stream_of(x))
+    err = lib.dropout_forward(x.data_ptr(), out.data_ptr(), bits.data_ptr(),
+                              seed.contiguous().data_ptr(), n,
+                              _DTYPES[x.dtype], _keep_threshold(1.0 - p),
+                              1.0 / (1.0 - p), stream_of(x))
     if err != 0:
-        raise RuntimeError(f"dropout launch failed: CUDA error {err}")
+        raise RuntimeError(f"dropout forward launch failed: CUDA error {err}")
     DROPOUT.launches += 1
-    return out
+    return out, bits
+
+
+def _dropout_backward(grad, bits, p):
+    """The backward kernel on a CUDA tensor, its plain version on a CPU
+    one: ``grad`` masked by the packed keep bits and rescaled."""
+    if not _on_card(grad):
+        return dropout_backward_reference(grad, bits, p)
+    return _launch_backward(grad, bits, p)
+
+
+def _launch_backward(grad, bits, p):
+    grad = _kernel_input(grad)
+    n = grad.numel()
+    if bits.device != grad.device or bits.dtype != torch.int32 or \
+            bits.numel() != -(-n // 32):
+        raise ValueError(f"dropout's keep bits must be {-(-n // 32)} int32 "
+                         f"words on {grad.device}")
+    from . import _build
+
+    dx = _empty_at_offset_of(grad)
+    if n == 0:
+        return dx
+    lib = _build.load("dropout", _declare_dropout)
+    err = lib.dropout_backward(grad.data_ptr(), bits.contiguous().data_ptr(),
+                               dx.data_ptr(), n, _DTYPES[grad.dtype],
+                               1.0 / (1.0 - p), stream_of(grad))
+    if err != 0:
+        raise RuntimeError(f"dropout backward launch failed: CUDA error "
+                           f"{err}")
+    DROPOUT.launches += 1
+    DROPOUT_BWD.launches += 1
+    return dx
 
 
 class _Dropout(torch.autograd.Function):
-    """The kernel forward; the backward is the same mask (the same seed
-    words) applied to the output gradient."""
+    """The forward kernel, which saves the packed keep bits; the backward
+    kernel applies them to the output gradient."""
 
     @staticmethod
     def forward(ctx, data, seed, p):
-        ctx.save_for_backward(seed)
+        out, bits = _dropout_forward(data, seed, p)
+        ctx.save_for_backward(bits)
         ctx.p = p
-        return _dropout_apply(data, seed, p)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        (seed,) = ctx.saved_tensors
-        return _dropout_apply(grad, seed, ctx.p), None, None
+        (bits,) = ctx.saved_tensors
+        return _dropout_backward(grad, bits, ctx.p), None, None
 
 
 def dropout(data, seed, p=0.5):
     """Zero elements at rate ``p`` and rescale the rest by 1/(1-p), with
     the keep mask hashed on the data's own device from the two seed words
     ``seed`` (an int32 (2,) tensor on that device, as `ops.seeds` hands
-    them out): the kernel on the card, `dropout_reference` on the CPU.
+    them out): the kernels on the card, their plain versions on the CPU.
     No host-device copy, no sync."""
     if p == 0.0:
         return data

@@ -30,9 +30,18 @@ C++ and templated kernels are named in ``exports`` (``"scale<float>"``)
 and found through NVRTC's lowered names, as upstream does.
 
 What bounds a user kernel on the card is the user's to say; what this
-module adds is the host's work per launch (argument checks and
-``ctypes`` marshalling, some microseconds), which `chip_smoke.py`
-measures beside torch's own launch.
+module adds is the host's work per launch, which `chip_smoke.py`
+measures beside torch's own launch.  That work is only what changes
+between two launches of one kernel on one device: the argument checks
+and the argument values, the stream, the grid.  The resolved device,
+the ``CUfunction``, the shared memory opted into and a ``ctypes``
+argument block with its ``void **kernelParams`` array (one block for
+each thread and device, refilled in place) are kept from the first
+launch; the primary context is made current once on each thread and
+device (``cuCtxGetCurrent`` then, not at every launch).  A launch that
+fails on a kept handle, such as one whose thread had another context
+made current by other code, takes the full lookup and is tried again
+once.
 
 There is no CPU route for user CUDA source: a CPU tensor, a CPU
 ``ctx`` or a machine without CUDA raises :class:`MXNetError`.
@@ -51,8 +60,10 @@ from __future__ import annotations
 
 import ctypes
 import glob
+import math
 import numbers
 import os
+import struct
 import threading
 
 import torch
@@ -87,6 +98,11 @@ _QUALIFIERS = ("const", "__restrict__", "volatile")
 _lock = threading.RLock()
 _libs = {}          # "nvrtc" / "cuda" -> ctypes.CDLL
 _primary = {}       # device index -> CUcontext (retained primary context)
+# .device: the index of the device whose primary context `_make_current`
+# last made current on this thread
+_current = threading.local()
+_F32, _F16 = struct.Struct("<f"), struct.Struct("<e")
+_U32, _U16 = struct.Struct("<I"), struct.Struct("<H")
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +121,10 @@ class _Param:
         self.dtype = getattr(torch, _TYPES[ctype][1])
         self.integral = ctype not in ("float", "double", "__half",
                                       "__nv_bfloat16")
+        # Python types a launch writes into the scalar's slot as they are
+        # (the rest go through `_scalar`)
+        self.direct = () if pointer or self.scalar_type is ctypes.c_uint16 \
+            else (int,) if self.integral else (float, int)
 
     @property
     def where(self):
@@ -153,9 +173,52 @@ def _scalar(param, value):
         raise MXNetError(f"{param.where}: expected an integer for "
                          f"{param.ctype}, got {value!r}")
     if param.scalar_type is ctypes.c_uint16:
-        bits = torch.tensor(float(value), dtype=param.dtype)
-        return ctypes.c_uint16(bits.view(torch.int16).item() & 0xFFFF)
+        return ctypes.c_uint16(_half_bits(float(value), param.ctype))
     return param.scalar_type(value)
+
+
+def _half_bits(value, ctype):
+    """The bits of ``value`` as ``__half`` or ``__nv_bfloat16``, rounded
+    as torch rounds a Python float into those types: to float32 first,
+    then from float32, each to nearest even (inf past float32's range,
+    NaN as torch writes it)."""
+    try:
+        f32 = _F32.pack(value)
+    except OverflowError:
+        f32 = _F32.pack(math.copysign(math.inf, value))
+    if ctype == "__half":
+        try:
+            return _U16.unpack(_F16.pack(_F32.unpack(f32)[0]))[0]
+        except OverflowError:
+            return 0xFC00 if value < 0 else 0x7C00
+    if value != value:
+        return 0x7FC0
+    u = _U32.unpack(f32)[0]
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) & 0xFFFF
+
+
+def _pointer(param, arg, device):
+    """``arg`` as the pointer ``param`` takes: a contiguous tensor of its
+    dtype on ``device``; raises naming the argument otherwise."""
+    want = param.dtype
+    if not isinstance(arg, torch.Tensor):
+        raise MXNetError(f"{param.where}: expected a {want} tensor, got "
+                         f"{type(arg).__name__}")
+    if arg.dtype != want:
+        raise MXNetError(f"{param.where}: expected a {want} tensor, got "
+                         f"{arg.dtype}")
+    if arg.device != device:
+        raise MXNetError(f"{param.where}: the tensor is on {arg.device}, "
+                         f"the kernel launches on {device}")
+    if not arg.is_contiguous():
+        raise MXNetError(f"{param.where}: the tensor is not contiguous")
+    return ctypes.c_void_p(arg.data_ptr())
+
+
+def _count_args(params, args):
+    if len(args) != len(params):
+        raise MXNetError(f"the kernel takes {len(params)} arguments "
+                         f"{params}, got {len(args)}")
 
 
 def marshal(params, args, device):
@@ -163,28 +226,9 @@ def marshal(params, args, device):
     a pointer takes a contiguous tensor of its dtype on ``device``, a
     scalar a Python number.  Every mismatch raises with the argument's
     index and name."""
-    if len(args) != len(params):
-        raise MXNetError(f"the kernel takes {len(params)} arguments "
-                         f"{params}, got {len(args)}")
-    values = []
-    for param, arg in zip(params, args):
-        if not param.pointer:
-            values.append(_scalar(param, arg))
-            continue
-        want = param.dtype
-        if not isinstance(arg, torch.Tensor):
-            raise MXNetError(f"{param.where}: expected a {want} tensor, got "
-                             f"{type(arg).__name__}")
-        if arg.dtype != want:
-            raise MXNetError(f"{param.where}: expected a {want} tensor, got "
-                             f"{arg.dtype}")
-        if arg.device != device:
-            raise MXNetError(f"{param.where}: the tensor is on {arg.device}, "
-                             f"the kernel launches on {device}")
-        if not arg.is_contiguous():
-            raise MXNetError(f"{param.where}: the tensor is not contiguous")
-        values.append(ctypes.c_void_p(arg.data_ptr()))
-    return values
+    _count_args(params, args)
+    return [_pointer(param, arg, device) if param.pointer
+            else _scalar(param, arg) for param, arg in zip(params, args)]
 
 
 def pack(values):
@@ -195,12 +239,47 @@ def pack(values):
         *[ctypes.addressof(v) for v in values])
 
 
+class _ArgBlock:
+    """One ``ctypes`` value for each parameter and the ``void
+    **kernelParams`` array of their addresses, built once; `fill` writes
+    a launch's arguments into the values in place, with `marshal`'s
+    checks and errors."""
+
+    def __init__(self, params):
+        self.params = params
+        self.values = [ctypes.c_void_p() if p.pointer else p.scalar_type()
+                       for p in params]
+        self.array = pack(self.values)
+
+    def fill(self, args, device):
+        _count_args(self.params, args)
+        index = device.index
+        for param, value, arg in zip(self.params, self.values, args):
+            if param.pointer:
+                if isinstance(arg, torch.Tensor) and \
+                        arg.dtype is param.dtype and arg.is_cuda and \
+                        arg.get_device() == index and arg.is_contiguous():
+                    value.value = arg.data_ptr()
+                else:
+                    value.value = _pointer(param, arg, device).value
+            elif type(arg) in param.direct:
+                value.value = arg
+            else:
+                value.value = _scalar(param, arg).value
+
+
 def _dims(dims, what):
     dims = tuple(map(int, dims))
     if not 1 <= len(dims) <= 3 or min(dims) < 1:
         raise MXNetError(f"{what} must be 1 to 3 positive integers, got "
                          f"{dims}")
     return dims + (1,) * (3 - len(dims))
+
+
+def _raw_stream(device):
+    """torch's current stream of the CUDA ``device`` as an integer,
+    without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +453,7 @@ def _make_current(index):
     _check_cuda(lib.cuCtxGetCurrent(ctypes.byref(cur)), "cuCtxGetCurrent")
     if cur.value != ctx:
         _check_cuda(lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+    _current.device = index
 
 
 # ---------------------------------------------------------------------------
@@ -487,33 +567,70 @@ class CudaKernel:
         self._lowered = lowered
         self.params = params
         self._smem_opt_in = {}        # device index -> bytes opted into
+        self._devices = {}            # torch.device ctx -> resolved device
+        self._fns = {}                # device index -> CUfunction
+        self._blocks = threading.local()   # .by_device: index -> _ArgBlock
         self.launches = 0
+
+    def _device(self, ctx):
+        device = self._devices.get(ctx) if type(ctx) is torch.device \
+            else None
+        if device is None:
+            device = resolve_device(ctx)
+            if device.type != "cuda":
+                raise MXNetError(f"kernel {self.name}: ctx {device} is not a "
+                                 "CUDA device; there is no CPU route for "
+                                 "CUDA source")
+            if type(ctx) is torch.device and ctx.index is not None:
+                self._devices[ctx] = device
+        return device
+
+    def _args(self, index):
+        by_device = getattr(self._blocks, "by_device", None)
+        if by_device is None:
+            by_device = self._blocks.by_device = {}
+        block = by_device.get(index)
+        if block is None:
+            block = by_device[index] = _ArgBlock(self.params)
+        return block
+
+    def _lookup(self, index):
+        """The full lookup: the device's primary context made current on
+        this thread, the module loaded there, the CUfunction found."""
+        fn = self._fns[index] = self._module._function(index, self._lowered)
+        return fn
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Run the kernel over ``args`` (tensors in place, and numbers) on
         ``ctx``'s current stream, with ``grid_dims`` blocks of
         ``block_dims`` threads and ``shared_mem`` bytes of dynamic shared
         memory.  Returns without a sync."""
-        device = resolve_device(ctx)
-        if device.type != "cuda":
-            raise MXNetError(f"kernel {self.name}: ctx {device} is not a CUDA "
-                             "device; there is no CPU route for CUDA "
-                             "source")
+        device = self._device(ctx)
+        index = device.index
         grid = _dims(grid_dims, "grid_dims")
         block = _dims(block_dims, "block_dims")
-        values = marshal(self.params, args, device)
-        fn = self._module._function(device.index, self._lowered)
+        argblock = self._args(index)
+        argblock.fill(args, device)
+        fn = self._fns.get(index)
+        kept = fn is not None and getattr(_current, "device", None) == index
+        if not kept:
+            fn = self._lookup(index)
         lib = _lib("cuda")
-        if shared_mem > max(_DEFAULT_SMEM_LIMIT,
-                            self._smem_opt_in.get(device.index, 0)):
+        if shared_mem > _DEFAULT_SMEM_LIMIT and \
+                shared_mem > self._smem_opt_in.get(index, 0):
             _check_cuda(lib.cuFuncSetAttribute(
                 fn, _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES,
                 int(shared_mem)),
                 f"cuFuncSetAttribute({self.name}, {shared_mem} bytes)")
-            self._smem_opt_in[device.index] = int(shared_mem)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        params = pack(values)
-        _check_cuda(lib.cuLaunchKernel(fn, *grid, *block, int(shared_mem),
-                                       stream, params, None),
-                    f"cuLaunchKernel({self.name})")
+            self._smem_opt_in[index] = int(shared_mem)
+        stream = _raw_stream(device)
+        result = lib.cuLaunchKernel(fn, *grid, *block, int(shared_mem),
+                                    stream, argblock.array, None)
+        if result != 0 and kept:
+            # a kept handle may have gone stale (another context made
+            # current on this thread by other code): look up again, once
+            fn = self._lookup(index)
+            result = lib.cuLaunchKernel(fn, *grid, *block, int(shared_mem),
+                                        stream, argblock.array, None)
+        _check_cuda(result, f"cuLaunchKernel({self.name})")
         self.launches += 1

@@ -20,8 +20,10 @@ mobilenetv2_0.25, a DenseNet with one layer per dense block, and
 Inception v3's five mixed blocks one by one; the full chip networks
 (vgg16_bn, mobilenet1.0, mobilenetv2_1.0, densenet121, inceptionv3)
 are held to the reference's parameter names and order.  Also
-`get_model`'s dotted names, and ``resnet18_v1(layout="NHWC")`` in
-train mode against the reference's NHWC model.
+`get_model`'s dotted names, ``resnet18_v1(layout="NHWC")`` in
+train mode against the reference's NHWC model, and vgg16_bn's
+trajectory over three steps of the zoo phase's optimizer (SGD, lr 0.1,
+momentum 0.9) in train mode with its Dropout rates set to 0.
 
 Tolerance: f32 on both sides, true f32 products summed in other
 orders through up to 20 layers: logits and new parameters at
@@ -38,6 +40,7 @@ from mxnet_tpu.gluon.model_zoo.vision import densenet as ref_densenet
 from mxnet_tpu.gluon.model_zoo.vision import inception as ref_inception
 from mxnet_tpu_torch import autograd, cpu
 from mxnet_tpu_torch.gluon import Trainer
+from mxnet_tpu_torch.gluon import loss as gloss
 from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.gluon.model_zoo.vision import densenet, inception
 from mxnet_tpu_torch.utils.convert import load_reference_params
@@ -178,3 +181,84 @@ def test_resnet18_nhwc_matches_reference():
         _batch((2, 16, 16, 3)), True, tol=5e-4)
     assert net.features[0].weight.shape == (64, 3, 3, 3)
     assert net.features[1][0].body[1]._axis == 3
+
+
+def _xavier_values(net, rng):
+    """Values for each parameter of ``net`` as `mx.init.Xavier()` draws
+    them (uniform, magnitude 3, fan average), from numpy: weights at
+    +-sqrt(6 / (fan_in + fan_out)), biases and betas 0, gammas 1, the
+    running mean 0 and variance 1."""
+    values = {}
+    for k, p in net.collect_params().items():
+        if k.endswith(("gamma", "running_var")):
+            val = onp.ones(p.shape)
+        elif len(p.shape) == 1:
+            val = onp.zeros(p.shape)
+        else:
+            field = int(onp.prod(p.shape[2:]))
+            bound = onp.sqrt(6.0 / ((p.shape[0] + p.shape[1]) * field))
+            val = rng.uniform(-bound, bound, p.shape)
+        values[k] = val.astype(onp.float32)
+    return values
+
+
+def test_vgg16_bn_trajectory_matches_reference():
+    """vgg16_bn with 3 classes, three train-mode steps of softmax cross
+    entropy under SGD at lr 0.1 and momentum 0.9, as the zoo phase of
+    `chip_smoke.py` trains it (there at batch 64 in bf16, where its loss
+    rises): the same Xavier weights in both packages, the same (4, 3,
+    32, 32) batch and seeded labels, BatchNorm on the batch's
+    statistics.  Both classifiers' Dropout(0.5) blocks run at rate 0,
+    the only way the two packages draw the same masks.  Each step's
+    loss and the final parameters (running statistics included) agree
+    within `TOL`: f32 on both sides, the same functions summed in other
+    orders (the worst parameter differs by about 1e-5 of TOL's
+    terms)."""
+    x = _batch((4, 3, 32, 32))
+    y = onp.random.default_rng(6).integers(0, 3, 4).astype(onp.int32)
+    shaper = vision.vgg16_bn(classes=3)
+    shaper.initialize(ctx=cpu())
+    with torch.no_grad(), autograd.predict_mode():
+        shaper(torch.from_numpy(x))
+    values = _xavier_values(shaper, onp.random.default_rng(13))
+    ref = ref_vision.vgg16_bn(classes=3)
+    ref.initialize(init=mx.init.Zero())     # replaced by load_dict
+    ref.load_dict({k: mx.np.array(v) for k, v in values.items()})
+    net = vision.vgg16_bn(classes=3)
+    net.initialize(ctx=[cpu()])
+    load_reference_params(net, values)
+
+    def dropouts(block):
+        found = [block] if type(block).__name__ == "Dropout" else []
+        for child in block._children.values():
+            found += dropouts(child)
+        return found
+    drops = dropouts(ref) + [m for m in net.modules()
+                             if type(m).__name__ == "Dropout"]
+    assert len(drops) == 4
+    for block in drops:
+        block._rate = 0.0
+    ref.hybridize()
+    opt = {"learning_rate": LR, "momentum": 0.9}
+    ref_trainer = mx.gluon.Trainer(ref.collect_params(), "sgd", opt)
+    trainer = Trainer(net.collect_params(), "sgd", opt)
+    ref_loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn = gloss.SoftmaxCrossEntropyLoss()
+    ref_losses, losses = [], []
+    for _ in range(3):
+        with mx.autograd.record(train_mode=True):
+            ref_loss = ref_loss_fn(ref(mx.np.array(x)), mx.np.array(y))
+        ref_loss.backward()
+        ref_trainer.step(x.shape[0])
+        ref_losses.append(float(ref_loss.asnumpy().mean()))
+        with autograd.record(train_mode=True):
+            loss = loss_fn(net(torch.from_numpy(x)), torch.from_numpy(y))
+        autograd.backward(loss)
+        trainer.step(x.shape[0])
+        losses.append(float(loss.detach().mean()))
+    onp.testing.assert_allclose(losses, ref_losses, atol=TOL, rtol=TOL)
+    ref_params = ref.collect_params()
+    for k, p in net.collect_params().items():
+        onp.testing.assert_allclose(p.data().detach().numpy(),
+                                    ref_params[k].data().asnumpy(),
+                                    atol=TOL, rtol=TOL, err_msg=k)
