@@ -157,7 +157,43 @@ the package is missing.  Phases, each fatal on failure:
    B3/B4/B5 once a layer.
 3d. **Flash vs dense crossover.**  (8, 12, T, 64) bf16 at T = 128 ..
    2048: device ms of flash and of the model's dense attention, forward
-   alone and forward plus backward (``flash_crossover:`` lines).
+   alone and forward plus backward (``flash_crossover:`` lines); then,
+   as the auto policy sees BERT's attention, at D = 64 (8, 12, T, 64)
+   and D = 256 (8, 4, T, 256) with a (B, T) key-padding mask whose
+   first 75 % of keys are valid: the forward in predict mode, and
+   forward plus backward in train mode with attention dropout 0.1
+   (``flash_crossover_masked:`` lines), and the smallest T of the grid
+   from which flash wins at both head dims, forward alone and forward
+   plus backward (``flash_crossover_policy:``), beside the policy's
+   constants.
+3f. **The operations layer on BERT-base's training step.**
+   ``BertForPretraining`` as in 3b (full width and depth, bf16, (32,
+   128), Adam, a captured ``FusedTrainStep`` whose dropout and flash
+   seed words come from ``mx.random``'s default generator), 30 steps of
+   their own seeded batches with telemetry on and a ``faultline`` plan
+   of ``nan_grad`` at ``train.grads`` arrival 7; a
+   ``CheckpointManager(keep=2, async_write=True)`` saves
+   ``gather_training_state`` every 10 steps into a temporary directory
+   (removed after).  Then the same seed and plan with ``preempt`` at
+   arrival 23: the phase catches ``InjectedPreemption``, builds a fresh
+   net, Trainer and step as a restarted process would (its generator
+   reseeded elsewhere), restores the newest checkpoint and runs to step
+   30.  Gates: the final parameters, Adam states, update counts and
+   random stream bitwise the uninterrupted run's; step 7 leaves
+   parameters and states bitwise as they were; the recovered and skipped
+   counters tick once in each run, ``mxtpu_trainer_steps_total`` and the
+   ``fused-step`` phase count equal the steps taken; each step captures
+   once, the watchdog counts no retrace; a replay between saves makes no
+   host sync and a save one; three replays under
+   ``profiler.set_state("run")`` dump a chrome trace holding their three
+   ``step/fused-step`` spans and B3, B4, B5 and both dropout kernels at
+   the wrappers' counts (12, 12, 12 and 25 + 25 a step); the flight
+   recorder's dump is of the reference's schema and holds the runs'
+   phase, fault, recovery and checkpoint events; ``DivergenceSentinel``
+   trips on no loss.  Printed (``ops:``): step ms replayed with
+   telemetry on and off in turns, host ms a call, the save's ms on the
+   host's path and the writer's ms, checkpoint MB, restore ms, each with
+   the card's name and power limit.
 5. **B1 vs plain.**  The BatchNorm-backward reduction at ResNet-50's
    nine batch-128 BatchNorm shapes and an odd one (C = 3, M = 2331),
    f32 made on the card from a seed: worst error against an allowance
@@ -285,7 +321,7 @@ the package is missing.  Phases, each fatal on failure:
 Every measurement is printed on a line of its own (``kernel``,
 ``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``kernel_rtc``,
 ``serve:``, ``train:``, ``train_amp:``, ``odd_bert:``, ``flash_crossover:``,
-``resnet:``, ``resnet_s2d:``, ``recordio:``, ``rtc:``, ``resnet_custom:``,
+``ops:``, ``resnet:``, ``resnet_s2d:``, ``recordio:``, ``rtc:``, ``resnet_custom:``,
 ``rnn_lm:``, ``profile:``).  The last three lines are a ``{"kernels": [...]}``
 object.  A captured path's ``launches`` are counted on the card, from
 the ``torch.profiler`` trace of its traced run (`KERNEL_NAMES`), with
@@ -487,6 +523,14 @@ STEM_CASES = [("float32", (128, 12, 112, 112), 64),
               ("bfloat16", (3, 12, 15, 17), 40)]
 # the flash-vs-dense crossover: (8, 12, T, 64) bf16 at these T
 CROSSOVER_T = (128, 256, 512, 1024, 2048)
+# ... and as the policy sees BERT: (B, heads, D) with a key-padding mask,
+# CROSSOVER_VALID of the keys valid, attention dropout in training
+CROSSOVER_MASKED = ((8, 12, 64), (8, 4, 256))
+CROSSOVER_VALID, CROSSOVER_DROPOUT = 0.75, 0.1
+# the operations phase: steps, checkpoint interval, faults' arrivals
+OPS_STEPS, OPS_SAVE_EVERY, OPS_NAN_AT, OPS_PREEMPT_AT = 30, 10, 7, 23
+OPS_SEED, OPS_TIMING_WINDOWS, OPS_WINDOW_STEPS = 5, 6, 10
+OPS_HOOK_CALLS = 500
 # BERT with head_dim 96 (units 768, 8 heads) and BERT-base in f16, with
 # use_flash=True: one forward and one training step each, cut to 2 layers
 ODD_BERTS = [("d96_bf16", dict(num_heads=8), "bfloat16"),
@@ -3015,7 +3059,8 @@ def phase_flash_crossover(dev):
         for name, fn in (("flash", fa.flash_attention),
                          ("dense", _dense_attention)):
             with torch.no_grad():
-                row[f"{name}_fwd_ms"] = device_ms(lambda: fn(q, k, v))
+                row[f"{name}_fwd_ms"] = _device_ms_kept(
+                    lambda: fn(q, k, v))
             qg, kg, vg = (x.detach().clone().requires_grad_()
                           for x in (q, k, v))
 
@@ -3023,13 +3068,115 @@ def phase_flash_crossover(dev):
                 return torch.autograd.grad(fn(qg, kg, vg), (qg, kg, vg),
                                            dout)
 
-            row[f"{name}_fwd_bwd_ms"] = device_ms(fwd_bwd)
+            row[f"{name}_fwd_bwd_ms"] = _device_ms_kept(fwd_bwd)
             del qg, kg, vg
         rows.append(row)
         log("flash_crossover: " + json.dumps(row))
         del q, k, v, dout
     torch.cuda.empty_cache()
-    return rows
+    return rows, phase_flash_crossover_masked(dev)
+
+
+def _dense_masked(q, k, v, mask, p):
+    """The model's dense attention (`MultiHeadAttention`, use_flash=False)
+    with a (B, T) key-padding mask and, at ``p`` > 0, its attention
+    dropout (the port's dropout kernel, seeds from the scope)."""
+    import math
+
+    import torch
+    from mxnet_tpu_torch import npx
+    b, _h, t, d = q.shape
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
+    scores = scores.masked_fill(mask.reshape(b, 1, 1, t) == 0,
+                                torch.tensor(-1e9).to(scores.dtype))
+    attn = npx.softmax(scores, axis=-1)
+    if p:
+        attn = npx.dropout(attn, p=p)
+    return torch.matmul(attn, v)
+
+
+def _device_ms_kept(fn):
+    """`device_ms` of ``fn``, taken again where the trace lost every
+    kernel record (it reads 0.0: seen on an H100 in this phase), at most
+    twice more; a third loss fails."""
+    for _ in range(3):
+        ms = device_ms(fn)
+        if ms > 0:
+            return ms
+    raise SystemExit("the profiler lost every kernel of a crossover "
+                     "timing three times")
+
+
+def _crossover_from(rows, key):
+    """The smallest T of the grid from which flash's ``key`` time is
+    below dense's at every head dim, for that T and every larger one;
+    None where flash loses at the largest."""
+    by_t = {}
+    for r in rows:
+        by_t.setdefault(r["shape"][2], []).append(
+            r[f"flash_{key}"] < r[f"dense_{key}"])
+    wins = [t for t in sorted(by_t) if all(by_t[t])]
+    best = None
+    for t in sorted(by_t, reverse=True):
+        if t not in wins:
+            break
+        best = t
+    return best
+
+
+def phase_flash_crossover_masked(dev):
+    """Flash against the model's dense attention as the auto policy sees
+    BERT's: a (B, T) key-padding mask with `CROSSOVER_VALID` of the keys
+    valid, at each (B, heads, D) of `CROSSOVER_MASKED` and each T of
+    `CROSSOVER_T`; the forward in predict mode, forward plus backward in
+    train mode with attention dropout `CROSSOVER_DROPOUT`.  Prints the
+    smallest T from which flash wins at both head dims beside the
+    policy's constants."""
+    import torch
+    from mxnet_tpu_torch import autograd, npx
+    from mxnet_tpu_torch.models import transformer as tr
+
+    gen = torch.Generator().manual_seed(9)
+    rows = []
+    for b, h, d in CROSSOVER_MASKED:
+        for t in CROSSOVER_T:
+            q, k, v, dout = (torch.randn(b, h, t, d, generator=gen).to(
+                dev, torch.bfloat16) for _ in range(4))
+            mask = torch.zeros(b, t, dtype=torch.int32)
+            mask[:, :int(t * CROSSOVER_VALID)] = 1
+            mask = mask.to(dev)
+            row = {"shape": [b, h, t, d], "valid": CROSSOVER_VALID,
+                   "dropout_training": CROSSOVER_DROPOUT}
+            for name, fn in (
+                    ("flash", lambda q, k, v, p: npx.flash_attention(
+                        q, k, v, mask=mask, dropout=p)),
+                    ("dense", lambda q, k, v, p: _dense_masked(
+                        q, k, v, mask, p))):
+                with torch.no_grad():
+                    row[f"{name}_fwd_ms"] = _device_ms_kept(
+                        lambda: fn(q, k, v, 0.0))
+                qg, kg, vg = (x.detach().clone().requires_grad_()
+                              for x in (q, k, v))
+                seeds = torch.Generator().manual_seed(10)
+
+                def fwd_bwd():
+                    with autograd.train_mode(generator=seeds):
+                        out = fn(qg, kg, vg, CROSSOVER_DROPOUT)
+                    return torch.autograd.grad(out, (qg, kg, vg), dout)
+
+                row[f"{name}_fwd_bwd_ms"] = _device_ms_kept(fwd_bwd)
+                del qg, kg, vg
+            rows.append(row)
+            log("flash_crossover_masked: " + json.dumps(row))
+            del q, k, v, dout
+        torch.cuda.empty_cache()
+    policy = {"fwd_from_t": _crossover_from(rows, "fwd_ms"),
+              "fwd_bwd_from_t": _crossover_from(rows, "fwd_bwd_ms"),
+              "FLASH_AUTO_MIN_T": tr.FLASH_AUTO_MIN_T,
+              "FLASH_AUTO_MIN_T_TRAINING": tr.FLASH_AUTO_MIN_T_TRAINING,
+              "card": nvidia_smi()}
+    log("flash_crossover_policy: " + json.dumps(policy))
+    return {"rows": rows, "policy": policy}
 
 
 def phase_odd_berts(dev):
@@ -3138,6 +3285,392 @@ def phase_train_profile(one, label, named=None):
     log(f"profile: {label}: {n_syncs} device-to-host syncs {examples}; "
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the operations layer on BERT-base's training step
+# ---------------------------------------------------------------------------
+def _ops_build(dev):
+    """BERT-base pretraining as in `phase_train`, its step's draws from
+    ``mx.random``'s default generator."""
+    import torch
+    from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
+    from mxnet_tpu_torch.models import BertForPretraining
+
+    net = BertForPretraining(**TRAIN_CFG).initialize(
+        ctx=dev, generator=torch.Generator().manual_seed(0))
+    net.cast("bfloat16")
+    mod = pretrain_loss(net)
+    trainer = Trainer(mod.collect_params(), "adam", {"learning_rate": 1e-4})
+    return mod, trainer, FusedTrainStep(mod, trainer)
+
+
+def _ops_bits(arrays):
+    """name -> bytes of a gathered training state (bf16 tensors through
+    an int16 view)."""
+    import torch
+    return {k: (a.view(torch.int16).numpy() if isinstance(a, torch.Tensor)
+                else a).tobytes() for k, a in arrays.items()}
+
+
+def _ops_device_state(trainer):
+    import torch
+    return [p.data().detach().clone() for p in trainer._params] + \
+        [s.clone() for i in sorted(trainer._states)
+         for s in trainer._states[i]]
+
+
+def _ops_metric(name, labels=None):
+    from mxnet_tpu_torch import telemetry
+    v = telemetry.default_registry().get_sample_value(name, labels)
+    return 0.0 if v is None else v
+
+
+OPS_COUNTERS = {
+    "recovered": ("mxtpu_faults_recovered_total",
+                  {"site": "train.grads", "kind": "nan_grad"}),
+    "skipped": ("mxtpu_train_steps_skipped_total", None),
+    "steps": ("mxtpu_trainer_steps_total", None),
+    "fused_step_phases": ("mxtpu_trainer_step_phase_seconds_count",
+                          {"phase": "fused-step"}),
+    "save_seconds_sum": ("mxtpu_checkpoint_save_seconds_sum", None),
+    "save_seconds_count": ("mxtpu_checkpoint_save_seconds_count", None),
+    "bytes": ("mxtpu_checkpoint_bytes_total", None),
+}
+
+
+def _ops_counts():
+    return {k: _ops_metric(*v) for k, v in OPS_COUNTERS.items()}
+
+
+def _ops_run(dev, batches, root, plan, first=1, state=None):
+    """Steps ``first`` .. OPS_STEPS of a fresh net under ``plan``, a
+    checkpoint every OPS_SAVE_EVERY steps into ``root``; ``state`` (a
+    restored checkpoint's arrays and meta) is put into the fresh trainer
+    first.  Returns what the gates read; a preemption ends the run where
+    it strikes, with ``preempted_at`` set."""
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.resilience import (CheckpointManager, faultline,
+                                            gather_training_state,
+                                            restore_training_state)
+
+    mod, trainer, step = _ops_build(dev)
+    out = {"saves_host_ms": [], "save_syncs": [], "replay_syncs": None,
+           "restore_ms": None, "preempted_at": None, "nan_step_held": None}
+    if state is not None:
+        mod._ensure_shapes(*batches[0])
+        t0 = time.perf_counter()
+        restored = restore_training_state(*state, trainer)
+        torch.cuda.synchronize()
+        out["restore_copy_ms"] = (time.perf_counter() - t0) * 1e3
+        if restored != first - 1:
+            raise SystemExit(f"ops: restored step {restored}, expected "
+                             f"{first - 1}")
+    faultline.plan(plan)
+    mgr = CheckpointManager(root, keep=2, async_write=True)
+    name = f"FusedTrainStep[{type(mod).__name__}]"
+    retraces0 = telemetry.watchdog().retrace_count(name)
+    before = _ops_counts()
+    losses, taken = [], 0
+    for t in range(first, OPS_STEPS + 1):
+        args = batches[t - 1]
+        held = _ops_device_state(trainer) if t == OPS_NAN_AT else None
+        try:
+            if t == OPS_SAVE_EVERY + OPS_SAVE_EVERY // 2:
+                out["replay_syncs"], _ = _count_syncs(lambda: losses.append(
+                    step(*args, batch_size=B_TRAIN)))
+            else:
+                losses.append(step(*args, batch_size=B_TRAIN))
+        except faultline.InjectedPreemption:
+            out["preempted_at"] = t
+            break
+        taken += 1
+        if held is not None:
+            now = _ops_device_state(trainer)
+            out["nan_step_held"] = all(torch.equal(a, b)
+                                       for a, b in zip(held, now)) and \
+                not bool(step.last_step_finite)
+            del held, now
+        if t % OPS_SAVE_EVERY == 0:
+            box = {}
+
+            def save():
+                box["state"] = gather_training_state(trainer, t)
+                mgr.save(t, *box["state"])
+
+            t0 = time.perf_counter()
+            n, _ = _count_syncs(save)
+            out["saves_host_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["save_syncs"].append(n)
+            out["final"] = box["state"]
+    mgr.close()
+    faultline.clear()
+    after = _ops_counts()
+    out.update(
+        mod=mod, trainer=trainer, step=step, taken=taken, losses=losses,
+        counts={k: after[k] - before[k] for k in after},
+        captures=step.captures,
+        retraces=telemetry.watchdog().retrace_count(name) - retraces0)
+    return out
+
+
+def _ops_trace(step, args, dev):
+    """Three replays under ``profiler.set_state("run")``: the dumped
+    chrome trace's ``step/fused-step`` spans and kernels of
+    `KERNEL_NAMES`, beside the wrappers' counts of the same replays."""
+    import os
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops.nn import DROPOUT, DROPOUT_BWD
+
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="ops-trace-")
+    os.close(fd)
+    profiler.set_config(filename=path)
+    try:
+        for attempt in range(2):
+            _reset_bert_counts()
+            torch.cuda.synchronize()
+            profiler.set_state("run")
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(TRACE_PAD_CYCLES)
+            torch.cuda.synchronize()
+            for _ in range(TRACED_STEPS + 1):
+                step(*args, batch_size=B_TRAIN)
+            profiler.dump()
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+            if any(re.search(TRACE_PAD_NAME, k) for k in kernels):
+                break
+            log("ops: the profiler lost every spin kernel; tracing again")
+        else:
+            raise SystemExit("ops: the profiler lost every spin kernel twice")
+    finally:
+        profiler.set_config(filename="profile.json")
+        os.remove(path)
+    names = {k: KERNEL_NAMES[k] for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv", "dropout", "dropout_bwd")}
+    traced = {k: sum(1 for n in kernels if re.search(pat, n))
+              for k, pat in names.items()}
+    booked = dict(_launch_counts(), dropout=DROPOUT.launches,
+                  dropout_bwd=DROPOUT_BWD.launches)
+    spans = sum(1 for e in events if e.get("name") == "step/fused-step"
+                and e.get("ph") == "X")
+    return {"spans": spans, "traced": traced, "booked": booked,
+            "kernel_events": len(kernels)}
+
+
+def _ops_hooks_us(step, n=OPS_HOOK_CALLS):
+    """Host us of the operations hooks one `FusedTrainStep` call runs
+    (the faultline poll, `mark_step`, the ``fused-step`` phase around
+    nothing, the watchdog's observe), ``n`` times in a loop, with
+    telemetry on and off in turns: what telemetry costs the host a
+    step, which a replay's wait for the card hides from its step ms."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.resilience import faultline
+
+    wd, name = telemetry.watchdog(), "FusedTrainStep[ops-hooks]"
+    out = {"on": [], "off": []}
+    try:
+        for w in range(4):
+            tag = "on" if w % 2 == 0 else "off"
+            telemetry.set_enabled(tag == "on")
+            t0 = time.perf_counter()
+            for _ in range(n):
+                faultline.poll("train.grads")
+                telemetry.mark_step()
+                with telemetry.step_phase("fused-step"):
+                    pass
+                wd.observe(step, name=name)
+            out[tag].append((time.perf_counter() - t0) / n * 1e6)
+    finally:
+        telemetry.set_enabled(True)
+    return out
+
+
+def _ops_timing(step, batches):
+    """Replayed step ms with telemetry on and off in turns
+    (`OPS_TIMING_WINDOWS` windows of `OPS_WINDOW_STEPS` steps, synced at
+    each window's ends), the host ms of each call (unsynced: it waits
+    for the seed ring's buffers, so the card's pace), and
+    `_ops_hooks_us`."""
+    import torch
+    from mxnet_tpu_torch import telemetry
+
+    out = {"on": [], "off": [], "on_host": [], "off_host": [],
+           "hooks_us": _ops_hooks_us(step)}
+    try:
+        for w in range(OPS_TIMING_WINDOWS):
+            tag = "on" if w % 2 == 0 else "off"
+            telemetry.set_enabled(tag == "on")
+            torch.cuda.synchronize()
+            host = 0.0
+            t0 = time.perf_counter()
+            for i in range(OPS_WINDOW_STEPS):
+                h0 = time.perf_counter()
+                step(*batches[i % len(batches)], batch_size=B_TRAIN)
+                host += time.perf_counter() - h0
+            torch.cuda.synchronize()
+            out[tag].append((time.perf_counter() - t0) / OPS_WINDOW_STEPS
+                            * 1e3)
+            out[f"{tag}_host"].append(host / OPS_WINDOW_STEPS * 1e3)
+    finally:
+        telemetry.set_enabled(True)
+    return out
+
+
+def phase_ops(dev):
+    """Phase 3f (see the module's docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch import observe
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.ops import invoke
+    from mxnet_tpu_torch.resilience import (CheckpointManager,
+                                            DivergenceSentinel,
+                                            gather_training_state)
+
+    card = nvidia_smi()
+    batches = [train_batch(dev, TRAIN_CFG["vocab_size"], seed=100 + t)
+               for t in range(OPS_STEPS)]
+    nan = {"site": "train.grads", "kind": "nan_grad", "at": OPS_NAN_AT}
+    root = tempfile.mkdtemp(prefix="chip-smoke-ops-")
+    observe.reset()
+    observe.configure(root=root)
+    try:
+        _reset_bert_counts()                 # the main path's launches
+        mxrandom.seed(OPS_SEED)
+        oracle = _ops_run(dev, batches, f"{root}/oracle", [nan])
+        launches = dict(_launch_counts())
+        from mxnet_tpu_torch.ops.nn import DROPOUT, DROPOUT_BWD
+        launches.update(dropout=DROPOUT.launches,
+                        dropout_bwd=DROPOUT_BWD.launches)
+        want = _ops_bits(oracle["final"][0])
+        want_meta = oracle["final"][1]
+        # the gather alone, three times back to back with the writer idle
+        # (pinned blocks of earlier saves freed and cached by torch)
+        gather_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            gather_training_state(oracle["trainer"], OPS_STEPS)
+            gather_ms.append((time.perf_counter() - t0) * 1e3)
+        trace = _ops_trace(oracle["step"], batches[0], dev)
+        timing = _ops_timing(oracle["step"], batches)
+        oracle_losses = torch.stack(oracle["losses"]).float().cpu().tolist()
+        del oracle["mod"], oracle["trainer"], oracle["step"], oracle["final"]
+        torch.cuda.empty_cache()
+
+        mxrandom.seed(OPS_SEED)
+        first = _ops_run(dev, batches, f"{root}/faulted", [
+            nan, {"site": "train.grads", "kind": "preempt",
+                  "at": OPS_PREEMPT_AT}])
+        del first["mod"], first["trainer"], first["step"]
+        first.pop("final", None)
+        torch.cuda.empty_cache()
+        invoke.set_default_generator(None)   # a restarted process
+        mxrandom.seed(OPS_SEED + 1000)
+        t0 = time.perf_counter()
+        latest = CheckpointManager(f"{root}/faulted").restore_latest()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        resumed = _ops_run(dev, batches, f"{root}/faulted", [], latest[0] + 1,
+                           state=latest[1:])
+        got = _ops_bits(resumed["final"][0])
+        got_meta = resumed["final"][1]
+        del resumed["mod"], resumed["trainer"], resumed["step"]
+        resumed.pop("final")
+        torch.cuda.empty_cache()
+        dump = observe.dump(reason="chip_smoke")
+        with open(dump) as f:
+            record = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    differing = sorted(k for k in want if got.get(k) != want[k])
+    sentinel = DivergenceSentinel()
+    trips = [i + 1 for i, x in enumerate(oracle_losses) if sentinel.observe(x)]
+    cats = sorted({e[4] for e in record["events"]})
+    n_layers = TRAIN_CFG["num_layers"]
+    per_step = {"flash_attention_fwd": n_layers,
+                "flash_attention_bwd_dq": n_layers,
+                "flash_attention_bwd_dkv": n_layers,
+                "dropout": 2 * (2 * n_layers + 1),
+                "dropout_bwd": 2 * n_layers + 1}
+    expect = {k: (TRACED_STEPS + 1) * n for k, n in per_step.items()}
+    save_ms = [c["save_seconds_sum"] / max(1, c["save_seconds_count"]) * 1e3
+               for c in (oracle["counts"], first["counts"],
+                         resumed["counts"])]
+    mb = oracle["counts"]["bytes"] / max(1, oracle["counts"][
+        "save_seconds_count"]) / 2 ** 20
+    gates = {
+        "resume_bitwise": not differing and len(got) == len(want),
+        "update_counts_equal": got_meta["opt_update_counts"] ==
+        want_meta["opt_update_counts"] and
+        got_meta["rng_counter"] == want_meta["rng_counter"],
+        "preempted_at": first["preempted_at"] == OPS_PREEMPT_AT,
+        "restored_step": latest[0] == 20,
+        "nan_step_held": oracle["nan_step_held"] is True and
+        first["nan_step_held"] is True,
+        "recovered_and_skipped_once": all(
+            r["counts"]["recovered"] == 1 and r["counts"]["skipped"] == 1
+            for r in (oracle, first)) and
+        resumed["counts"]["recovered"] == resumed["counts"]["skipped"] == 0,
+        "steps_counted": all(
+            r["counts"]["steps"] == r["counts"]["fused_step_phases"] ==
+            r["taken"] for r in (oracle, first, resumed)) and
+        oracle["taken"] == OPS_STEPS and
+        first["taken"] + resumed["taken"] == OPS_PREEMPT_AT - 1 +
+        OPS_STEPS - 20,
+        "one_capture_no_retrace": all(
+            r["captures"] == 1 and r["retraces"] == 0
+            for r in (oracle, first, resumed)),
+        "replay_no_sync": oracle["replay_syncs"] == 0 and
+        first["replay_syncs"] == 0,
+        "save_one_sync": all(n == 1 for r in (oracle, first, resumed)
+                             for n in r["save_syncs"]),
+        "trace_spans": trace["spans"] == TRACED_STEPS + 1,
+        "trace_kernels": trace["traced"] == expect and
+        trace["booked"] == expect,
+        "main_path_launched": all(launches[k] > 0 for k in per_step),
+        "flight_record": record["schema"] == observe.SCHEMA_VERSION and
+        {"phase", "fault", "recovery", "checkpoint"} <= set(cats),
+        "sentinel_quiet": not trips,
+    }
+    out = {
+        "model": "BertForPretraining (bert_base width and depth)",
+        "dtype": "bfloat16", "batch": [B_TRAIN, T_TRAIN], "steps": OPS_STEPS,
+        "step_ms_telemetry_on": timing["on"],
+        "step_ms_telemetry_off": timing["off"],
+        "host_ms_per_call_on": timing["on_host"],
+        "host_ms_per_call_off": timing["off_host"],
+        "hooks_host_us_on": timing["hooks_us"]["on"],
+        "hooks_host_us_off": timing["hooks_us"]["off"],
+        "save_host_ms": oracle["saves_host_ms"] + first["saves_host_ms"] +
+        resumed["saves_host_ms"],
+        "save_syncs": oracle["save_syncs"] + first["save_syncs"] +
+        resumed["save_syncs"],
+        "gather_ms_writer_idle": gather_ms,
+        "write_ms_mean": save_ms, "checkpoint_mb": mb,
+        "restore_load_ms": load_ms,
+        "restore_copy_ms": resumed["restore_copy_ms"],
+        "replay_syncs": [oracle["replay_syncs"], first["replay_syncs"]],
+        "launches": launches, "trace": trace, "trace_expected": expect,
+        "counts": {"oracle": oracle["counts"], "faulted": first["counts"],
+                   "resumed": resumed["counts"]},
+        "flight_record": {"schema": record["schema"], "events": len(
+            record["events"]), "categories": cats},
+        "differing_arrays": differing[:5], "sentinel_trips": trips,
+        "losses_first_last": [oracle_losses[0], oracle_losses[-1]],
+        "gates": gates, "card": card}
+    log("ops: " + json.dumps(out))
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise SystemExit(f"ops: gates failed: {failed}")
     return out
 
 
@@ -5409,6 +5942,18 @@ def main():
         log(f"card: {card}; torch {torch.__version__}")
         phase_dropout(dev)
         return 0
+    if sys.argv[1:2] == ["--ops"]:
+        # on the card, no result line: phase 3f alone (the kernels build
+        # at their first use)
+        log(f"card: {card}; torch {torch.__version__}")
+        phase_ops(dev)
+        return 0
+    if sys.argv[1:2] == ["--flash-crossover"]:
+        # on the card, no result line: phase 3d alone (the kernels build
+        # at their first use)
+        log(f"card: {card}; torch {torch.__version__}")
+        phase_flash_crossover(dev)
+        return 0
     if sys.argv[1:2] == ["--rtc-host"]:
         # on the card, no result line: B6's host time a launch alone, in
         # RTC_HOST_WINDOWS windows
@@ -5432,6 +5977,7 @@ def main():
     trained_amp = phase_train_amp(dev)
     phase_odd_berts(dev)
     phase_flash_crossover(dev)
+    ops = phase_ops(dev)
     bn_rows = phase_bn_reduce(dev)
     stem_rows = phase_stem(dev)
     resnet = phase_resnet(dev)
@@ -5507,6 +6053,7 @@ def main():
         "library_ms": main_case["library_ms"],
         "library_device_ms": main_case["library_device_ms"],
         "wide_cases": wide_fwd,
+        "ops_launches": ops["launches"]["flash_attention_fwd"],
         "training_case": {
             "launches": launches["flash_attention_fwd"],
             "launches_booked": booked["flash_attention_fwd"],
@@ -5522,6 +6069,7 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:536",
         "launches": launches["flash_attention_bwd_dq"],
         "launches_booked": booked["flash_attention_bwd_dq"],
+        "ops_launches": ops["launches"]["flash_attention_bwd_dq"],
         "max_abs_err": bwd_case["max_abs_err"]["dq"],
         "ms": bwd_case["dq_ms"], "device_ms": bwd_case["dq_device_ms"],
         "plain_ms": bwd_case["plain_ms"],
@@ -5538,6 +6086,7 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:604",
         "launches": launches["flash_attention_bwd_dkv"],
         "launches_booked": booked["flash_attention_bwd_dkv"],
+        "ops_launches": ops["launches"]["flash_attention_bwd_dkv"],
         "max_abs_err": max(bwd_case["max_abs_err"]["dk"],
                            bwd_case["max_abs_err"]["dv"]),
         "ms": bwd_case["dkv_ms"], "device_ms": bwd_case["dkv_device_ms"],
@@ -5604,6 +6153,9 @@ def main():
         "launches_booked": booked["dropout"] - booked["dropout_bwd"]
         if part == "fwd" else booked["dropout_bwd"],
         "launches_both_kernels": launches["dropout"],
+        "ops_launches": ops["launches"]["dropout"] -
+        ops["launches"]["dropout_bwd"] if part == "fwd"
+        else ops["launches"]["dropout_bwd"],
         "max_abs_err": drop_case["max_abs_err" if part == "fwd"
                                  else "bwd_max_abs_err"],
         # the kernel's device time, its inputs out of L2; warm, and its

@@ -8,7 +8,9 @@ process pool for Python-bound transforms.  With ``prefetch_to_device``
 the copies go through `io.DevicePrefetcher` (pinned slots, a side
 stream), ``depth`` batches ahead of the consumer.  ``device`` defaults
 to the card; the CPU must be asked for.  The reference's ``sharding=``
-is ROADMAP queue A item 7 and raises.
+is ROADMAP queue A item 7 and raises.  Each batch's production is timed
+as the ``data-wait`` step phase (`telemetry.step_phase`), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -81,6 +83,25 @@ def _prefetched_device_batches(host_batches, device, depth):
             yield _unflatten(structures.popleft(), iter(arrays))
 
 
+def _timed(inner):
+    """``inner``'s batches, each one's production timed as the
+    ``data-wait`` step phase (as the reference's DataLoader does): with
+    enough workers or prefetch it collapses toward zero; a fat span
+    means the input pipeline, not the card, bounds the step.  The
+    exhausted probe at the end is not a batch wait and is discarded."""
+    from ... import telemetry as _telemetry
+
+    while True:
+        phase = _telemetry.step_phase("data-wait")
+        phase.__enter__()
+        try:
+            batch = next(inner)
+        except StopIteration:
+            return
+        phase.__exit__(None, None, None)
+        yield batch
+
+
 class _Worker:
     """Top-level callable, so that it pickles for a process pool."""
 
@@ -147,10 +168,12 @@ class DataLoader:
         if self._prefetch_to_device:
             depth = (None if self._prefetch_to_device is True
                      else int(self._prefetch_to_device))
-            return _prefetched_device_batches(self._host_batches(),
-                                              self._device, depth)
-        return (_as_device_batch(b, self._device)
-                for b in self._host_batches())
+            inner = _prefetched_device_batches(self._host_batches(),
+                                               self._device, depth)
+        else:
+            inner = (_as_device_batch(b, self._device)
+                     for b in self._host_batches())
+        return _timed(inner)
 
     def _host_batches(self):
         if self._num_workers == 0:

@@ -75,6 +75,23 @@ step without a scaler syncs never.  As in the reference, the update
 counts move on before the verdict is known, so a skipped step advances
 them too.  An optimizer with ``supports_fused = False`` is refused
 (``ValueError``).
+
+Operations (the reference's hooks, `telemetry`, `resilience`): each
+call polls ``faultline`` at ``train.grads`` before anything of the step
+happens.  A ``nan_grad`` fault writes NaN into the rescale slot of the
+packed scalars, which the eager step and a replay alike read on the
+card, so every gradient goes NaN and the finite verdict holds the
+update, as the reference poisons its program's rescale input; the
+other kinds raise there (``InjectedPreemption`` for ``preempt``), so the
+interrupted step changes nothing, not even the update counts.  A
+skipped step ticks ``mxtpu_train_steps_skipped_total`` and
+``faultline.recovered("train.grads", "nan_grad")``: with a scaler from
+the verdict it reads anyway; without one only on a step whose
+``nan_grad`` this call injected, which reads the verdict once (the
+reference ticks nothing there).  Each call counts a step
+(``telemetry.mark_step``), runs inside ``step_phase("fused-step")``
+(host time: the eager step, or the replay's launch, never a sync) and
+lets the retrace watchdog observe ``captures``.
 """
 from __future__ import annotations
 
@@ -84,11 +101,14 @@ import numpy as onp
 import torch
 
 from .. import autograd
+from .. import telemetry as _telemetry
 from ..ops import capture
 from ..ops.aux_scope import aux_update_scope
 from ..ops.invoke import current_generator, set_seed_table, tracing
 from ..ops.seeds import SeedTable, draw_words
 from ..optimizer.optimizer import Optimizer, all_finite, write_back_multi
+from ..resilience import faultline as _faultline
+from ..resilience.policies import step_skip_counter as _step_skip_counter
 
 __all__ = ["FusedTrainStep"]
 
@@ -209,6 +229,9 @@ class FusedTrainStep:
         return self.step(*args, batch_size=batch_size)
 
     def step(self, *args, batch_size=1):
+        inject = _faultline.poll("train.grads")
+        if inject is not None and inject != "nan_grad":
+            _faultline.raise_fault("train.grads", inject)
         if self._plist is None:
             self._setup(args)
         self._trainable()
@@ -217,6 +240,20 @@ class FusedTrainStep:
         weights = [self._plist[k].data() for k in self._train_idx]
         plan = trainer._plan(self._opt_index, None if self._scaler is None
                              else float(self._scaler.loss_scale))
+        if inject == "nan_grad":
+            # poison the rescale: every gradient goes NaN and the step's
+            # own guard must hold the update
+            plan.host[0] = onp.float32("nan")
+        _telemetry.mark_step()
+        with _telemetry.step_phase("fused-step"):
+            outs = self._dispatch(args, weights, plan, batch_size)
+        _telemetry.watchdog().observe(
+            self, name=f"FusedTrainStep[{type(self._block).__name__}]",
+            scope_root=getattr(self._block, "name", None))
+        self._guard(inject)
+        return outs
+
+    def _dispatch(self, args, weights, plan, batch_size):
         if not weights or not capture.capturable(weights[0].device):
             return self._eager(args, weights, plan)
         sig = (tuple((tuple(a.shape), a.dtype, a.device)
@@ -275,18 +312,21 @@ class FusedTrainStep:
         buf = capture.upload(plan.host, weights[0].device if weights
                              else "cpu")
         outs, self.last_step_finite = self._body(args, weights, plan, buf)
-        self._update_scale()
         return outs
 
-    def _update_scale(self):
-        """With a scaler: read the step's verdict (the one sync) and move
-        the scale."""
-        if self._scaler is None:
+    def _guard(self, inject):
+        """With a scaler, or after an injected ``nan_grad`` (``inject``):
+        read the step's verdict (the one sync), count a skipped step and,
+        with a scaler, move the scale."""
+        if self._scaler is None and inject != "nan_grad":
             return
         ok = bool(self.last_step_finite)
         if not ok:
             self._trainer.skipped_steps += 1
-        self._scaler.update_scale(not ok)
+            _step_skip_counter().inc()
+            _faultline.recovered("train.grads", "nan_grad")
+        if self._scaler is not None:
+            self._scaler.update_scale(not ok)
 
     # -- capture and replay --------------------------------------------------
     def _generations(self):
@@ -352,5 +392,4 @@ class FusedTrainStep:
                 self._plist[k].data().grad = None
         entry.graph.replay()
         self.last_step_finite = entry.finite.clone()
-        self._update_scale()
         return _detached(entry.outs, copy=True)

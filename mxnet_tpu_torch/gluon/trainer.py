@@ -36,6 +36,13 @@ itself in ``skipped_steps`` and backs the scale off; a clean step lets
 the scaler count it.  The check is one verdict over all gradients on the
 device and one read of it.
 
+Telemetry, as in the reference: ``step`` counts a step
+(``mxtpu_trainer_steps_total``), times its ``allreduce`` (nothing to do
+on one device) and ``optimizer`` phases and the whole step
+(``mxtpu_step_duration_seconds``, and a flight-recorder event); a step
+the guard skips ticks ``mxtpu_train_steps_skipped_total`` and
+``faultline.recovered("train.grads", "nan_grad")``.
+
 ``save_states`` / ``load_states`` write and read the optimizer states
 in the JAX package's format (`optimizer.Updater`): the file of either
 package loads in the other.  As in the reference, the file holds the
@@ -43,10 +50,14 @@ states only (SGD's momentum, Adam's moments), not the update counts.
 """
 from __future__ import annotations
 
+import time as _time
+
 import numpy as onp
 import torch
 
+from .. import observe as _observe
 from .. import optimizer as opt
+from .. import telemetry as _telemetry
 from ..ops import capture
 from ..optimizer.optimizer import write_back_multi
 from .parameter import Parameter
@@ -54,6 +65,15 @@ from .parameter import Parameter
 __all__ = ["Trainer", "StepPlan"]
 
 _LOCAL_KVSTORES = (None, False, "local", "device")
+
+
+def _step_duration_histogram():
+    return _telemetry.histogram(
+        "mxtpu_step_duration_seconds",
+        "End-to-end Trainer.step wall time (allreduce + step-guards + "
+        "optimizer update), including steps the guards skipped — the "
+        "distribution the straggler policy and the blackbox step lane "
+        "both read")
 
 
 class StepPlan:
@@ -199,26 +219,46 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """Normalize the gradients by ``batch_size`` and update; with a
         loss scaler attached, skip a step whose gradients overflowed."""
+        t0 = _time.perf_counter()
+        try:
+            self._step(batch_size, ignore_stale_grad)
+        finally:
+            dt = _time.perf_counter() - t0
+            _step_duration_histogram().observe(dt)
+            _observe.record("step", "trainer.step", seconds=dt)
+
+    def _step(self, batch_size, ignore_stale_grad):
         self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        _telemetry.mark_step()
+        with _telemetry.step_phase("allreduce"):
+            pass                        # one device: nothing to reduce
         scaler = getattr(self, "_amp_loss_scaler", None)
         if scaler is not None and scaler.has_overflow(
                 [p for p in self._params if p.grad_req != "null"]):
+            from ..resilience import faultline as _faultline
+            from ..resilience.policies import step_skip_counter
             self.skipped_steps += 1
+            step_skip_counter().inc()
+            _faultline.recovered("train.grads", "nan_grad")
             scaler.update_scale(True)
             return
-        self._update(ignore_stale_grad)
+        with _telemetry.step_phase("optimizer"):
+            self._update(ignore_stale_grad)
         if scaler is not None:
             scaler.update_scale(False)
 
     def allreduce_grads(self):
         """Nothing to reduce on one device."""
         self._init_kvstore()
+        with _telemetry.step_phase("allreduce"):
+            pass
 
     def update(self, batch_size, ignore_stale_grad=False):
         self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self._update(ignore_stale_grad)
+        with _telemetry.step_phase("optimizer"):
+            self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
         self._init_states()

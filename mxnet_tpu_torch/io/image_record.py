@@ -13,9 +13,11 @@ Batches are NHWC uint8 with f32 labels, on the host: normalisation and
 the cast belong on the card, inside the training step
 (`gluon.data.DeviceAugment`, or the step's own prologue), and
 `io.DevicePrefetcher` moves the batches there.  Records that fail to
-decode are zero-filled and counted (``decode_errors``); `stats()`
-returns the counts that the reference publishes as telemetry, which
-waits for the port's telemetry (ROADMAP queue A, operations).
+decode are zero-filled and counted (``decode_errors``).  As in the
+reference, the counts are published to the telemetry registry
+(``mxtpu_io_decode_errors_total``, ``mxtpu_io_batches_total``, the
+``mxtpu_io_ring_ready`` gauge and the ``mxtpu_io_next_wait_seconds``
+histogram); `stats()` returns this iterator's own.
 """
 from __future__ import annotations
 
@@ -28,6 +30,23 @@ import torch
 
 from .._native import img_lib
 from ..env import decode_threads, io_error_tolerance
+
+
+def _io_metrics():
+    from .. import telemetry as _tm
+
+    return (
+        _tm.counter("mxtpu_io_decode_errors_total",
+                    "Records the native image pipeline failed to decode "
+                    "(zero-filled and counted, never dropped)"),
+        _tm.counter("mxtpu_io_batches_total",
+                    "Batches popped from the native decode ring"),
+        _tm.gauge("mxtpu_io_ring_ready",
+                  "Completed batches waiting in the decode ring at the "
+                  "last pop (0 while compute waits = decode-bound)"),
+        _tm.histogram("mxtpu_io_next_wait_seconds",
+                      "Consumer wait for the next completed batch"),
+    )
 from .io import DataBatch, DataDesc, DataIter
 
 __all__ = ["ImageRecordIter"]
@@ -76,6 +95,9 @@ class ImageRecordIter(DataIter):
         # decode-error watermarks of the warning's window
         self._err_window_base = 0
         self._err_window_records = 0
+        self._err_seen = 0
+        self._err_ctr, self._batch_ctr, self._ring_gauge, self._wait_hist = \
+            _io_metrics()
         self.batches = 0
         self.wait_seconds = 0.0
         shape = (batch_size, c, h, w) if layout == "NCHW" else \
@@ -115,6 +137,10 @@ class ImageRecordIter(DataIter):
         current window (one part's worth of records) exceeds
         `env.io_error_tolerance`."""
         errs = self.decode_errors
+        delta = errs - self._err_seen
+        if delta > 0:
+            self._err_ctr.inc(delta)
+            self._err_seen = errs
         self._err_window_records += self.batch_size
         if self._err_window_records >= max(self._part_records,
                                            self.batch_size):
@@ -140,8 +166,12 @@ class ImageRecordIter(DataIter):
             self._handle,
             data.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             labels.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
-        self.wait_seconds += time.perf_counter() - t0
+        waited = time.perf_counter() - t0
+        self.wait_seconds += waited
+        self._wait_hist.observe(waited)
         self.batches += 1
+        self._batch_ctr.inc()
+        self._ring_gauge.set(self.ready_batches)
         self._account_errors()
         return data, labels
 

@@ -19,8 +19,13 @@ card while the card runs the previous steps, so a step waits for
 ``dtypes=`` casts on the host, before the copy, as the reference does.
 On the CPU (``ctx=cpu()``) it is a plain ordered queue of CPU tensors.
 The reference's ``sharding=`` (per-device global batches over a mesh)
-is ROADMAP queue A item 7 and raises.  ``stats()`` holds the counts the
-reference publishes as telemetry (batches, the consumer's wait).
+is ROADMAP queue A item 7 and raises.  As in the reference, the counts
+are published to the telemetry registry (``mxtpu_prefetch_batches_total``,
+the ``mxtpu_prefetch_ring_occupancy`` gauge and the
+``mxtpu_prefetch_wait_seconds`` histogram), and the feeder polls
+``faultline`` at ``data.iterator`` before each pull (an injected fault
+reaches the consumer as the exception); ``stats()`` returns this
+prefetcher's own counts.
 """
 from __future__ import annotations
 
@@ -38,6 +43,20 @@ from .io import DataBatch, DataIter
 __all__ = ["DevicePrefetcher"]
 
 _STOP = object()
+
+
+def _prefetch_metrics():
+    from .. import telemetry as _tm
+
+    return (
+        _tm.counter("mxtpu_prefetch_batches_total",
+                    "Batches delivered by DevicePrefetcher"),
+        _tm.gauge("mxtpu_prefetch_ring_occupancy",
+                  "Transferred batches queued ahead of the consumer at "
+                  "the last pop (0 while compute waits = feed-bound)"),
+        _tm.histogram("mxtpu_prefetch_wait_seconds",
+                      "Consumer wait for the next device-resident batch"),
+    )
 
 
 def _host_array(a):
@@ -108,6 +127,8 @@ class DevicePrefetcher:
         self.batches = 0
         self.wait_seconds = 0.0
         self.slot_waits = 0
+        self._batch_ctr, self._ring_gauge, self._wait_hist = \
+            _prefetch_metrics()
         self._start()
 
     def stats(self):
@@ -118,6 +139,9 @@ class DevicePrefetcher:
 
     # -- the feeder ----------------------------------------------------------
     def _pull(self):
+        from ..resilience import faultline as _faultline
+
+        _faultline.check("data.iterator")
         src = self._source
         if isinstance(src, DataIter):
             if hasattr(src, "next_arrays"):
@@ -205,8 +229,12 @@ class DevicePrefetcher:
         if isinstance(item, Exception):
             self._done = True
             raise item
-        self.wait_seconds += time.perf_counter() - t0
+        waited = time.perf_counter() - t0
+        self.wait_seconds += waited
         self.batches += 1
+        self._wait_hist.observe(waited)
+        self._batch_ctr.inc()
+        self._ring_gauge.set(self._q.qsize())
         tensors, event = item
         if event is not None:
             stream = torch.cuda.current_stream(self._device)

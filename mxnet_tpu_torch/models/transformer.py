@@ -41,9 +41,14 @@ __all__ = [
     "bert_large", "flash_auto",
 ]
 
-# The flash-vs-dense crossovers of the auto policy.  These are the
-# reference's values, kept as the policy's constants until they are
-# measured again on the H100.
+# The flash-vs-dense crossovers of the auto policy: the smallest T from
+# which flash beats the model's dense attention at head dims 64 and 256
+# alike, on an H100 with BERT's key-padding mask (`chip_smoke.py` phase
+# 3d, ``flash_crossover_policy:``).  The forward wins at D = 64 from
+# T = 128-256 but at D = 256 only at 2048.  Forward plus backward with
+# dropout 0.1 wins at D = 64 from 1024 and at D = 256 at no T up to
+# 2048 (B4/B5 past 128 are several times SDPA's backward), so the
+# training constant stays the reference's 1024, which D = 64 confirms.
 FLASH_AUTO_MIN_T = 2048           # fwd-only (inference) crossover
 FLASH_AUTO_MIN_T_TRAINING = 1024  # fwd+bwd crossover
 

@@ -24,19 +24,29 @@ of the host for the whole step.
   values.
 - `capturable` says where graphs are used: on a CUDA device.  On the
   CPU the same paths run eagerly.
+- `add_capture_listener` registers a function that each capture calls
+  with its host seconds (`telemetry.install_compile_listener` counts
+  captures through it).
 """
 from __future__ import annotations
 
 import threading
+import time
 
 import torch
 
 from ._build import launch_counts
 
-__all__ = ["GRAPH_LOCK", "Graph", "HostRing", "capturable", "new_pool",
-           "upload"]
+__all__ = ["GRAPH_LOCK", "Graph", "HostRing", "add_capture_listener",
+           "capturable", "new_pool", "upload"]
 
 GRAPH_LOCK = threading.RLock()
+_capture_listeners = []
+
+
+def add_capture_listener(fn):
+    """Call ``fn(seconds)`` after every capture, with its host time."""
+    _capture_listeners.append(fn)
 
 
 def capturable(device):
@@ -77,14 +87,18 @@ class Graph:
         graph's memory, rewritten by each replay).  A failure raises."""
         with GRAPH_LOCK:
             before = launch_counts()
+            t0 = time.perf_counter()
             try:
-                return self._record(fn)
+                out = self._record(fn)
             finally:
                 after = launch_counts()
                 self.launches = {k: after[k] - n for k, n in before.items()
                                  if after[k] != n}
                 for k, n in self.launches.items():
                     k.launches -= n
+        for listener in _capture_listeners:
+            listener(time.perf_counter() - t0)
+        return out
 
     def replay(self):
         """Launch the captured work on the current stream."""

@@ -6,7 +6,9 @@ autograd is torch's own, so only the thread-local mode flags remain:
 (dropout active) and ``is_backward_expected`` (a backward pass will run
 through this forward — what the flash auto policy's training crossover
 reads).  ``generator`` is the explicit CPU ``torch.Generator`` that
-train-mode randomness draws its seeds from, and ``seed_table`` the
+train-mode randomness draws its seeds from (where the scope names none,
+the process's default generator, which ``mx.random.seed`` makes and
+seeds; None before it), and ``seed_table`` the
 `ops.seeds.SeedTable` that hands the draws their device slots while a
 step is captured (None otherwise).  ``draw_tapes`` is the stack of
 `ops.seeds.DrawTape`s of the `npx.remat` boundaries the forward is in.
@@ -28,11 +30,13 @@ import threading
 
 __all__ = ["is_recording", "set_recording", "is_training", "set_training",
            "is_backward_expected", "set_backward_expected",
-           "current_generator", "set_generator", "current_seed_table",
+           "current_generator", "set_generator", "default_generator",
+           "set_default_generator", "current_seed_table",
            "set_seed_table", "draw_tapes", "modes", "set_modes",
            "is_tracing", "set_tracing", "tracing"]
 
 _state = threading.local()
+_default_generator = [None]
 
 
 def is_recording():
@@ -70,13 +74,29 @@ def set_backward_expected(flag):
 
 def current_generator():
     """The CPU ``torch.Generator`` train-mode randomness draws its seeds
-    from (None outside ``autograd.record`` / ``autograd.train_mode`` with
-    a ``generator``)."""
-    return getattr(_state, "generator", None)
+    from: the scope's (``autograd.record`` / ``autograd.train_mode``
+    with a ``generator``), else the default one (`default_generator`),
+    else None."""
+    gen = getattr(_state, "generator", None)
+    return _default_generator[0] if gen is None else gen
+
+
+def default_generator():
+    """The process's default CPU generator (``mx.random.seed`` makes and
+    seeds it), or None."""
+    return _default_generator[0]
+
+
+def set_default_generator(gen):
+    """Install ``gen`` as the default generator; returns the previous
+    one."""
+    prev = _default_generator[0]
+    _default_generator[0] = gen
+    return prev
 
 
 def set_generator(gen):
-    prev = current_generator()
+    prev = getattr(_state, "generator", None)
     _state.generator = gen
     return prev
 

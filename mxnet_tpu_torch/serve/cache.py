@@ -133,6 +133,11 @@ class ExecutableCache:
         with self._lock:
             return len(self._entries)
 
+    def _cache_size(self):
+        """Entries built so far: what `telemetry.RetraceWatchdog` reads,
+        as the reference's reads a jitted function's trace cache."""
+        return len(self)
+
     def __call__(self, tensors):
         """Run the function on ``tensors``, counting a hit when their
         shape was warmed and a miss (which warms it) otherwise.  Returns

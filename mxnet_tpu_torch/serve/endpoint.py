@@ -25,7 +25,9 @@ CUDA work, and synchronises the device's stream before it stamps a
 batch's latency.  Results are torch tensors on the endpoint's device.
 
 Not ported yet: the reference's fault-injection and telemetry hooks
-around the device call, its transient retry, and its batch hooks.
+around the device call, its transient retry, its batch hooks and its
+metrics (ROADMAP queue A6; the `resilience` and `telemetry` modules
+they call are ported).
 """
 from __future__ import annotations
 

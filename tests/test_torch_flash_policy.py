@@ -3,7 +3,9 @@ the type it now takes, against the JAX package.
 
 - The model's ``use_flash="auto"`` policy (`flash_auto`) against the
   kernels' accepted set (`flash_supported`, which `_LaunchArgs` checks):
-  the policy never picks flash for what the kernels refuse.
+  the policy never picks flash for what the kernels refuse; and against
+  its constants, the crossovers measured on the card, at head dims 64
+  and 256.
 - The plain versions (`flash_attention_reference`,
   `flash_attention_backward_reference`, through the port's
   `torch.autograd.Function` on the CPU) at head_dim 40 and 96 and in
@@ -68,6 +70,19 @@ def test_auto_takes_flash_where_the_reference_does():
     assert tr.flash_auto("cuda", torch.float16, 96, 96, t_train, 2, True)
     assert not tr.flash_auto("cuda", torch.float16, 96, 96, t_train, 2,
                              False)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_auto_switches_at_the_measured_crossovers(d):
+    """The policy takes flash from the constants on, at both head dims
+    the crossovers were measured at (BERT's key-padding mask), and the
+    dense path below them; the training crossover where a backward is
+    expected."""
+    for t in (128, 256, 512, 1024, 2048, 4096):
+        for backward, min_t in ((False, tr.FLASH_AUTO_MIN_T),
+                                (True, tr.FLASH_AUTO_MIN_T_TRAINING)):
+            assert tr.flash_auto("cuda", torch.bfloat16, d, 8 * 12, t, 2,
+                                 backward) == (t >= min_t), (t, backward)
 
 
 def test_auto_refuses_what_it_should():

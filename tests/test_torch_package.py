@@ -1,8 +1,9 @@
 """Package rules of the PyTorch/CUDA port.
 
-The port (``mxnet_tpu_torch/`` and ``chip_smoke.py``) imports neither JAX
-nor anything of the JAX package, and its entry points run on the card
-unless the caller names the CPU.
+The port (``mxnet_tpu_torch/`` and ``chip_smoke.py``) imports neither JAX,
+nor anything of the JAX package, nor ``ml_dtypes`` (the port's
+checkpoints decode bfloat16 through torch), and its entry points run on
+the card unless the caller names the CPU.
 """
 import ast
 import pathlib
@@ -15,7 +16,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 torch.set_num_threads(1)
 
@@ -55,9 +56,20 @@ def test_import_leaves_jax_out():
             "mxnet_tpu_torch.optimizer.rmsprop, mxnet_tpu_torch.io, "
             "mxnet_tpu_torch.recordio, mxnet_tpu_torch.gluon.data, "
             "mxnet_tpu_torch._native, mxnet_tpu_torch.env, "
-            "mxnet_tpu_torch.image, mxnet_tpu_torch.ops.threefry, chip_smoke; "
+            "mxnet_tpu_torch.image, mxnet_tpu_torch.ops.threefry, "
+            "mxnet_tpu_torch.random, mxnet_tpu_torch.lockwitness, "
+            "mxnet_tpu_torch.observe, mxnet_tpu_torch.observe.flightrec, "
+            "mxnet_tpu_torch.profiler, mxnet_tpu_torch.telemetry, "
+            "mxnet_tpu_torch.telemetry.registry, "
+            "mxnet_tpu_torch.telemetry.spans, "
+            "mxnet_tpu_torch.telemetry.watchdog, mxnet_tpu_torch.monitor, "
+            "mxnet_tpu_torch.resilience, "
+            "mxnet_tpu_torch.resilience.faultline, "
+            "mxnet_tpu_torch.resilience.policies, "
+            "mxnet_tpu_torch.resilience.checkpoint, "
+            "mxnet_tpu_torch.resilience.sentinel, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
+            "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
