@@ -104,6 +104,39 @@ the package is missing.  Phases, each fatal on failure:
    the smallest bucket, timed back to back and traced with
    ``torch.profiler``: device time by kernel, and the share the card
    idles.
+4c. **Serving breadth.**  (a) The endpoint's hooks, on an endpoint of
+   phase 3's configuration over the same BERT-base (bf16, flash, 8 x
+   (128 | 256 | 512) captured): phase 3's 48 requests from 4 clients in
+   four windows, telemetry on and off in turns (req/s, execute p50/p99
+   from a batch hook); a ``serve.model_call`` timeout injected once,
+   retried once and answered within ``SERVE_REL_TOL`` of the request
+   alone; one ``serve/<name>/batch`` span a batch in a running
+   profiler's dump; two `Monitor.install_endpoint` rows a batch; the
+   host us a batch of the hooks around no device call, on and off; the
+   registry's ``mxtpu_serve_*`` counts equal to ``stats()``; after the
+   storm below, ``swap_model(stage=True)`` with no miss after the flip
+   and ``stage=False`` with one miss per warmed shape used.  (b)
+   ``tools/storm.py``'s traffic shape: 96 requests of 1-512 tokens from
+   6 clients (16 each, 0-4 ms apart, seeded), the classes interactive,
+   standard and batch in turn, at the default deadlines, each run
+   traced: through the bare endpoint; a `Fleet` of 2 replicas on the
+   card (its ``RuntimeWarning`` required); the same with a faultline
+   ``preempt`` at ``serve.replica``'s 24th dispatch; a 1-replica
+   `Fleet`.  Gates: every future resolves, none failed or shed, every
+   result within ``SERVE_REL_TOL`` of the request through the net alone,
+   B3 12 a batch on the card and by its wrapper; with the kill, one
+   replica dead, the recovered counter and the failover histogram
+   ticked, each class's p99 within its objective.  (c) ``ContinuousBatcher``
+   over the word LM (BASELINE config 5's ``RNNModel(10000, 650, 650, 2,
+   "lstm", tie_weights=True)``, Xavier weights, bf16, greedy; the decode
+   one CUDA graph over 8 slots): 32 prompts of 4-64 tokens with budgets
+   of 8-64 and an ``eos_id``, all at once, then each alone through the
+   same batcher.  Gates: each sequence's tokens bitwise its solo run's,
+   one decode capture, no retrace, 1 host sync a step, 32 joins and 32
+   leaves.  Printed (``fleet:``, ``continuous:``): req/s, tokens/s,
+   latency by class, failover and kill seconds, batches a replica, peak
+   memory; decode ms a replay, host ms a step, mean occupancy, prefill
+   ms p50.
 3b. **Training.**  ``BertForPretraining`` at the same width, dropout 0.1,
    bf16, the repo's pretraining loss (masked MLM + NSP) on a fixed
    32 x 128 batch with ragged valid lengths, Adam at lr 1e-4 through
@@ -320,7 +353,8 @@ the package is missing.  Phases, each fatal on failure:
 
 Every measurement is printed on a line of its own (``kernel``,
 ``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``kernel_rtc``,
-``serve:``, ``train:``, ``train_amp:``, ``odd_bert:``, ``flash_crossover:``,
+``serve:``, ``fleet:``, ``continuous:``, ``train:``, ``train_amp:``,
+``odd_bert:``, ``flash_crossover:``,
 ``ops:``, ``resnet:``, ``resnet_s2d:``, ``recordio:``, ``rtc:``, ``resnet_custom:``,
 ``rnn_lm:``, ``profile:``).  The last three lines are a ``{"kernels": [...]}``
 object.  A captured path's ``launches`` are counted on the card, from
@@ -471,6 +505,7 @@ GRAD_REL_TOL = 1e-3
 # flash vs dense attention, as a relative L2 error over its valid rows
 SERVE_REL_TOL = 2e-2
 N_CLIENTS, PER_CLIENT = 4, 12
+SEQ_BUCKETS = (128, 256, 512)
 # the port's kernels by the names the profiler's trace gives them: the
 # launches of the main paths are counted from these records, which see
 # the kernels a CUDA graph replays (the wrappers count only at capture)
@@ -1952,8 +1987,7 @@ def serve(net, dev, reqs, seq_buckets):
     return results, latencies, wall, stats, launches, ep
 
 
-def phase_serve(dev, cfg=None, seq_buckets=(128, 256, 512),
-                dtype="bfloat16"):
+def phase_serve(dev, cfg=None, seq_buckets=SEQ_BUCKETS, dtype="bfloat16"):
     import numpy as onp
     import torch
     from mxnet_tpu_torch.models import bert_base
@@ -2191,44 +2225,53 @@ def _named_launches(prof, names):
 
 
 # spin kernels (``torch.cuda._sleep``) run at the start of a counted
-# trace, before ``fn``: the profiler now and then loses the first records
-# of a trace (seen on an H100: the leading kernels of a word-LM forward,
-# its first dropout launch among them), so a count is read only from a
-# trace that kept at least one of these
+# trace, before ``fn``, and again at its end: the profiler now and then
+# loses the first records of a trace (seen on an H100: the leading
+# kernels of a word-LM forward, its first dropout launch among them),
+# and once lost one replay's kernels at the end of a fleet's storm, so a
+# count is read only from a trace that kept more of these than one end
+# launched (so at least one at each end, if what it loses are the
+# first or the last records)
 TRACE_PAD, TRACE_PAD_CYCLES = 256, 10000
 TRACE_PAD_NAME = r"\bspin_kernel\b"
 
 
 def traced_launches(fn, reset):
     """Run ``fn()`` traced by ``torch.profiler`` (device activity only)
-    after `TRACE_PAD` spin kernels; returns its result and the launches
-    of each of `KERNEL_NAMES` the trace recorded, a CUDA graph's replayed
-    kernels included.  A count is read only from a trace that kept a
-    spin kernel, since what a trace lost may reach into ``fn``'s
-    launches: where every one is lost (seen on an H100 right after
-    another trace), ``reset()`` puts the caller's bookkeeping back to
-    where it stood and ``fn`` runs again under a fresh trace, once; a
-    second loss fails."""
+    between two runs of `TRACE_PAD` spin kernels; returns its result and
+    the launches of each of `KERNEL_NAMES` the trace recorded, a CUDA
+    graph's replayed kernels included.  A count is read only from a
+    trace that kept more than `TRACE_PAD` spin kernels, since what a
+    trace lost at either end may reach into ``fn``'s launches: where
+    fewer were kept (seen on an H100 right after another trace),
+    ``reset()`` puts the caller's bookkeeping back to where it stood and
+    ``fn`` runs again under a fresh trace, once; a second loss fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(TRACE_PAD_CYCLES)
+        torch.cuda.synchronize()
+
     for attempt in range(2):
         if attempt:
-            log(f"the profiler lost all {TRACE_PAD} spin kernels at the "
-                f"start of a counted trace; tracing again")
+            log(f"the profiler kept {kept} of the {2 * TRACE_PAD} spin "
+                "kernels around a counted trace; tracing again")
             reset()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TRACE_PAD):
-                torch.cuda._sleep(TRACE_PAD_CYCLES)
-            torch.cuda.synchronize()
+            pad()
             result = fn()
             torch.cuda.synchronize()
+            pad()
         counts = _named_launches(prof, dict(KERNEL_NAMES,
                                             pad=TRACE_PAD_NAME))
-        if counts.pop("pad"):
+        kept = counts.pop("pad")
+        if kept > TRACE_PAD:
             return result, counts
-    raise SystemExit(f"the profiler lost all {TRACE_PAD} spin kernels at "
-                     f"the start of a counted trace, twice")
+    raise SystemExit(f"the profiler kept {kept} of the {2 * TRACE_PAD} "
+                     "spin kernels around a counted trace, twice")
 
 
 def device_ms(fn, iters=20, match=None):
@@ -2317,6 +2360,583 @@ def phase_profile(net, dev):
             blk._use_flash = True
     return [profile_forward(net, dev, 8, 512),
             profile_forward(net, dev, 1, 128)]
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: serving breadth: the endpoint's hooks, a Fleet, continuous
+# batching
+# ---------------------------------------------------------------------------
+# tools/storm.py's traffic shape at BERT-base: 6 clients x 16 requests of
+# 1-512 tokens, the classes in turn, a replica killed at the 24th
+# dispatch (a quarter in, after warm traffic: the tool's total / 4)
+STORM_CLIENTS, STORM_PER_CLIENT = 6, 16
+STORM_CLASSES = ("interactive", "standard", "batch")
+STORM_KILL_AT = 24
+# the endpoint's timing windows (telemetry on and off in turns) and the
+# hooks' microbenchmark
+HOOK_WINDOWS, HOOK_CALLS = 4, 2000
+# the word LM (BASELINE config 5) behind ContinuousBatcher: 8 decode
+# slots, 32 prompts of 4-64 tokens with budgets of 8-64 tokens
+CONT_SLOTS, CONT_PROMPTS = 8, 32
+CONT_PROMPT_LEN, CONT_BUDGET, CONT_EOS = (4, 64), (8, 64), 3
+
+
+def _registry(name, labels):
+    from mxnet_tpu_torch import telemetry
+    v = telemetry.default_registry().get_sample_value(name, labels)
+    return 0.0 if v is None else v
+
+
+def storm_requests(vocab, seed):
+    """STORM_CLIENTS x STORM_PER_CLIENT requests, ((tokens, segments,
+    valid), class): one row each of 1-512 tokens from ``seed``, the
+    classes in turn."""
+    import numpy as onp
+    rng = onp.random.default_rng(seed)
+    out = []
+    for i in range(STORM_CLIENTS * STORM_PER_CLIENT):
+        n_tok = int(rng.integers(1, SEQ_BUCKETS[-1] + 1))
+        tokens = rng.integers(1, vocab, (1, n_tok)).astype(onp.int32)
+        segments = (onp.arange(n_tok) >= n_tok // 2).astype(onp.int32)[None]
+        out.append(((tokens, segments, onp.ones((1, n_tok), onp.int32)),
+                    STORM_CLASSES[i % len(STORM_CLASSES)]))
+    return out
+
+
+def _alone(net, dev, reqs):
+    """Each request's (seq, pooled) from the net alone, eagerly."""
+    import torch
+    with torch.inference_mode():
+        return [net(*[torch.from_numpy(a).to(dev) for a in req])
+                for req, _ in reqs]
+
+
+def _endpoints(target):
+    return [r.endpoint for r in target.replicas] \
+        if hasattr(target, "replicas") else [target]
+
+
+def _storm_traffic(target, reqs):
+    """``reqs`` submitted to ``target`` (a Fleet, with each request's
+    class, or an Endpoint) from STORM_CLIENTS threads, each pausing
+    0-4 ms between submits (seeded), then every future awaited.  Returns
+    (outcomes: result or exception, latencies_s, wall_s)."""
+    import numpy as onp
+    n = len(reqs)
+    futs, t_sub, t_done = [None] * n, [None] * n, [None] * n
+    fleet = hasattr(target, "router")
+
+    def done(i, _fut):
+        t_done[i] = time.perf_counter()
+
+    def client(c):
+        rng = onp.random.default_rng(100 + c)
+        for i in range(c, n, STORM_CLIENTS):
+            req, cls = reqs[i]
+            t_sub[i] = time.perf_counter()
+            fut = target.submit(*req, cls=cls) if fleet else \
+                target.submit(*req)
+            fut.add_done_callback(functools.partial(done, i))
+            futs[i] = fut
+            time.sleep(float(rng.uniform(0.0, 0.004)))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(STORM_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    outcomes = []
+    for f in futs:
+        try:
+            outcomes.append(f.result(timeout=300))
+        except Exception as exc:              # noqa: BLE001
+            outcomes.append(exc)
+    ends = [t for t in t_done if t is not None]
+    wall = (max(ends) if ends else time.perf_counter()) - t0
+    lat = [d - s if d is not None else None for s, d in zip(t_sub, t_done)]
+    return outcomes, lat, wall
+
+
+def _class_latency(lat, reqs):
+    """Exact p50/p99 ms of each class's latencies, submit to result."""
+    import numpy as onp
+    out = {}
+    for cls in STORM_CLASSES:
+        ms = [x * 1e3 for x, (_, c) in zip(lat, reqs)
+              if c == cls and x is not None]
+        out[cls] = {"p50_ms": float(onp.percentile(ms, 50)) if ms else None,
+                    "p99_ms": float(onp.percentile(ms, 99)) if ms else None}
+    return out
+
+
+def storm(label, build, reqs, alone, n_layers, plan=None):
+    """The storm through ``build()``'s target, traced by `traced_launches`
+    (a lost trace rebuilds the target when ``plan``, a faultline plan,
+    has killed a replica of it).  Returns the run's numbers, its gates'
+    inputs and the target."""
+    import torch
+    from mxnet_tpu_torch.ops.flash_attention import FLASH_FWD
+    from mxnet_tpu_torch.resilience import faultline
+    from mxnet_tpu_torch.serve import DeadlineExceeded
+
+    state = {}
+    recovered = {"site": "serve.replica", "kind": "preempt"}
+
+    def reset():
+        if plan and "target" in state:
+            state.pop("target").shutdown(drain=False)
+        if "target" not in state:
+            state["base_gb"] = torch.cuda.memory_allocated() / 1e9
+            state["target"] = build()
+        FLASH_FWD.launches = 0
+        state["batches"] = [ep.stats()["batches"]
+                            for ep in _endpoints(state["target"])]
+        state["recovered"] = _registry("mxtpu_faults_recovered_total",
+                                       recovered)
+        if plan:
+            faultline.plan(plan)
+        torch.cuda.reset_peak_memory_stats()
+
+    reset()
+    try:
+        (outcomes, lat, wall), traced = traced_launches(
+            lambda: _storm_traffic(state["target"], reqs), reset)
+    finally:
+        faultline.clear()
+    target = state["target"]
+    batches = [ep.stats()["batches"] - b0
+               for ep, b0 in zip(_endpoints(target), state["batches"])]
+    done = [(i, o) for i, o in enumerate(outcomes)
+            if not isinstance(o, BaseException)]
+    shed = sum(isinstance(o, DeadlineExceeded) for o in outcomes)
+    errors = [o for o in outcomes if isinstance(o, BaseException)
+              and not isinstance(o, DeadlineExceeded)]
+    err = max((rel_err(a, b) for i, o in done
+               for a, b in zip(o, alone[i])), default=None)
+    tokens = sum(req[0].shape[1] for req, _ in reqs)
+    out = {
+        "what": label, "requests": len(reqs), "completed": len(done),
+        "shed": shed, "failed": len(errors),
+        "first_error": repr(errors[0])[:200] if errors else None,
+        "wall_s": wall, "req_per_s": len(reqs) / wall,
+        "tokens_per_s": tokens / wall,
+        "latency_ms": _class_latency(lat, reqs),
+        "batches_per_replica": batches,
+        "flash_launches": traced["flash_attention_fwd"],
+        "flash_launches_booked": FLASH_FWD.launches,
+        "flash_launches_expected": n_layers * sum(batches),
+        "max_rel_err_vs_alone": err, "rel_tol": SERVE_REL_TOL,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "mem_before_build_gb": state["base_gb"],
+        "traced": True,
+    }
+    if hasattr(target, "sla_report"):
+        out["sla"] = target.sla_report()
+        out["dead"] = [f"r{r.index}" for r in target.replicas
+                       if r.state == "dead"]
+        out["failover_s"] = {"count": target.metrics._failover.count,
+                             "sum": target.metrics._failover.sum}
+        out["recovered"] = _registry("mxtpu_faults_recovered_total",
+                                     recovered) - state["recovered"]
+        out["kill_s"] = target.kill_seconds
+    log(f"fleet: {label}: " + json.dumps(out))
+    if len(done) + shed + len(errors) != len(reqs) or errors or shed \
+            or err is None or err > SERVE_REL_TOL:
+        raise SystemExit(f"fleet: {label}: a request was not answered, "
+                         f"failed, shed or wrong: {out}")
+    if not out["flash_launches"] == out["flash_launches_booked"] == \
+            out["flash_launches_expected"]:
+        raise SystemExit(f"fleet: {label}: flash launches "
+                         f"{out['flash_launches']} traced, "
+                         f"{out['flash_launches_booked']} booked != "
+                         f"{n_layers} x {sum(batches)} batches")
+    return out, target
+
+
+def _hooks_us(ep, n=HOOK_CALLS):
+    """Host us of what `Endpoint._execute` runs around one batch's device
+    call (the fault hook inside the one-retry wrapper inside the batch
+    span, the metrics' batch and execute observations, the batch hooks
+    registered on ``ep``), around no device call, ``n`` times, with
+    telemetry on and off in turns.  The metrics go to a throwaway
+    `EndpointMetrics`."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.resilience import faultline
+    from mxnet_tpu_torch.resilience.policies import retry_transient
+    from mxnet_tpu_torch.serve import EndpointMetrics
+
+    metrics = EndpointMetrics("chip_smoke/hooks")
+    hooks = list(ep._batch_hooks)
+    out = {"on": [], "off": []}
+    try:
+        for w in range(HOOK_WINDOWS):
+            tag = "on" if w % 2 == 0 else "off"
+            telemetry.set_enabled(tag == "on")
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with telemetry.span("serve/chip_smoke/hooks/batch",
+                                    cat="serve", args={"rows": 8,
+                                                       "bucket": 8,
+                                                       "requests": 8}):
+                    retry_transient(
+                        lambda: faultline.check("serve.model_call"),
+                        site="serve.model_call", retries=1)
+                metrics.observe_batch(8, 8)
+                metrics.observe_execute(1e-3)
+                for hook in hooks:
+                    hook(ep, 8, 8, 1e-3)
+            out[tag].append((time.perf_counter() - t0) / n * 1e6)
+    finally:
+        telemetry.set_enabled(True)
+    return out
+
+
+def _timed_windows(ep, reqs):
+    """The 48 requests of phase 3's traffic through ``ep``, HOOK_WINDOWS
+    times with telemetry on and off in turns: req/s, and execute p50/p99
+    from the batch hook's latencies."""
+    import numpy as onp
+    from mxnet_tpu_torch import telemetry
+
+    seen = []
+    handle = ep.register_batch_hook(lambda _e, _r, _b, s: seen.append(s))
+    out = {"on": [], "off": []}
+    try:
+        for w in range(HOOK_WINDOWS):
+            tag = "on" if w % 2 == 0 else "off"
+            telemetry.set_enabled(tag == "on")
+            seen.clear()
+            wall = _traffic(ep, reqs, [None] * len(reqs),
+                            [None] * len(reqs))
+            ms = onp.asarray(seen) * 1e3
+            out[tag].append({"req_per_s": len(reqs) / wall,
+                             "batches": len(seen),
+                             "execute_ms_p50": float(onp.percentile(ms, 50)),
+                             "execute_ms_p99": float(onp.percentile(ms, 99))})
+    finally:
+        telemetry.set_enabled(True)
+        handle.detach()
+    return out
+
+
+def _retry_once(ep, net, dev, vocab):
+    """One request with a ``serve.model_call`` timeout injected at the
+    next arrival: retried once, answered within SERVE_REL_TOL of the
+    request alone."""
+    import torch
+    from mxnet_tpu_torch.resilience import faultline
+
+    req = make_requests(1, 300, vocab, seed=21)[0]
+    labels = {"site": "serve.model_call", "kind": "timeout"}
+    before = _registry("mxtpu_faults_recovered_total", labels)
+    faultline.plan([{"site": "serve.model_call", "kind": "timeout",
+                     "at": 1}])
+    try:
+        got = ep.predict(*req)
+        arrivals = faultline.arrivals("serve.model_call")
+    finally:
+        faultline.clear()
+    with torch.inference_mode():
+        want = net(*[torch.from_numpy(a).to(dev) for a in req])
+    out = {"arrivals": arrivals,
+           "recovered": _registry("mxtpu_faults_recovered_total", labels)
+           - before,
+           "rel_err_vs_alone": max(rel_err(a, b) for a, b in zip(got, want))}
+    if not (arrivals == 2 and out["recovered"] == 1
+            and out["rel_err_vs_alone"] <= SERVE_REL_TOL):
+        raise SystemExit(f"fleet: the injected model-call timeout was not "
+                         f"retried once and answered: {out}")
+    return out
+
+
+def _registry_vs_stats(ep):
+    s = ep.stats()
+    lab = {"endpoint": ep.name}
+    got = {e: _registry("mxtpu_serve_requests_total", dict(lab, event=e))
+           for e in ("submitted", "completed", "failed", "timeouts",
+                     "rejected_full")}
+    got["cache_hits"] = _registry("mxtpu_serve_cache_total",
+                                  dict(lab, kind="hit"))
+    got["cache_misses"] = _registry("mxtpu_serve_cache_total",
+                                    dict(lab, kind="miss"))
+    got["batches"] = _registry("mxtpu_serve_batches_total", lab)
+    bad = {k: (v, s[k]) for k, v in got.items() if v != s[k]}
+    counts = {"latency": ("mxtpu_serve_latency_seconds_count", "completed"),
+              "execute": ("mxtpu_serve_execute_seconds_count", "batches")}
+    for key, (series, stat) in counts.items():
+        if _registry(series, lab) != s[stat]:
+            bad[key] = (_registry(series, lab), s[stat])
+    if bad:
+        raise SystemExit(f"fleet: registry != stats(): {bad}")
+    return {k: got[k] for k in ("submitted", "completed", "batches",
+                                "cache_hits", "cache_misses")}
+
+
+def _spans_and_monitor(ep, reqs):
+    """The traffic under a running profiler: one ``serve/<name>/batch``
+    span a batch in its dump; and again under `Monitor.install_endpoint`:
+    two rows a batch (occupancy, latency)."""
+    import os
+    import tempfile
+
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.monitor import Monitor
+
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="serve-trace-")
+    os.close(fd)
+    profiler.set_config(filename=path)
+    try:
+        b0 = ep.stats()["batches"]
+        profiler.set_state("run")
+        _traffic(ep, reqs, [None] * len(reqs), [None] * len(reqs))
+        profiler.dump()
+        batches = ep.stats()["batches"] - b0
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        profiler.set_config(filename="profile.json")
+        os.remove(path)
+    spans = sum(1 for e in events if e.get("ph") == "X"
+                and e.get("name") == f"serve/{ep.name}/batch")
+    mon = Monitor(interval=1)
+    mon.install_endpoint(ep)
+    b0 = ep.stats()["batches"]
+    mon.tic()
+    _traffic(ep, reqs, [None] * len(reqs), [None] * len(reqs))
+    rows = mon.toc()
+    mon.uninstall()
+    mon_batches = ep.stats()["batches"] - b0
+    out = {"batches": batches, "spans": spans, "monitor_rows": len(rows),
+           "monitor_batches": mon_batches}
+    if spans != batches or len(rows) != 2 * mon_batches:
+        raise SystemExit(f"fleet: spans or monitor rows != batches: {out}")
+    return out
+
+
+def _swap_stage(ep, net, vocab):
+    """``swap_model(stage=True)``: no miss after the flip over phase 3's
+    traffic; ``stage=False``: one miss per warmed shape used, then
+    hits."""
+    reqs = make_requests(N_CLIENTS * PER_CLIENT, SEQ_BUCKETS[-1], vocab,
+                         seed=23)
+    m0 = ep.stats()["cache_misses"]
+    t0 = time.perf_counter()
+    ep.swap_model(net, stage=True)
+    staged_s = time.perf_counter() - t0
+    _traffic(ep, reqs, [None] * len(reqs), [None] * len(reqs))
+    staged = ep.stats()["cache_misses"] - m0
+    ep.swap_model(net, stage=False)
+    one_each = make_requests(len(SEQ_BUCKETS), SEQ_BUCKETS[-1], vocab,
+                             seed=25)
+    m0 = ep.stats()["cache_misses"]
+    for req in one_each + one_each:
+        ep.predict(*req)
+    lazy = ep.stats()["cache_misses"] - m0
+    shapes = len({ep.spec.signature(r) for r in one_each})
+    out = {"stage_true_misses": staged, "stage_true_s": staged_s,
+           "stage_false_misses": lazy, "shapes_used": shapes,
+           "model_version": ep.stats()["model_version"]}
+    if staged != 0 or lazy != shapes:
+        raise SystemExit(f"fleet: swap_model(stage=) misses: {out}")
+    return out
+
+
+def phase_fleet(net, dev):
+    """Phase 4c (a) and (b): the endpoint's hooks on phase 3's endpoint
+    configuration, then the storm through a 2-replica Fleet with a
+    replica killed, a 1-replica Fleet and the bare Endpoint."""
+    import gc
+    import warnings
+
+    import torch
+    from mxnet_tpu_torch.monitor import Monitor
+    from mxnet_tpu_torch.serve import Endpoint, Fleet
+
+    for blk in net.modules():
+        if hasattr(blk, "_use_flash"):
+            blk._use_flash = True
+    vocab = net.word_embed._input_dim
+    n_layers = net.encoder._num_layers
+    kw = dict(max_batch_size=8, max_latency_ms=5, seq_buckets=SEQ_BUCKETS)
+    reqs = make_requests(N_CLIENTS * PER_CLIENT, SEQ_BUCKETS[-1], vocab,
+                         seed=7)
+    traffic = storm_requests(vocab, seed=11)
+    alone = _alone(net, dev, traffic)
+    out = {}
+    with Endpoint(net, name="chip_smoke/bert_base", device=dev,
+                  **kw) as ep:
+        ep.warmup(*reqs[0])
+        hooks = {"windows": _timed_windows(ep, reqs),
+                 "retry": _retry_once(ep, net, dev, vocab),
+                 "traced": _spans_and_monitor(ep, reqs)}
+        mon = Monitor(interval=1)
+        mon.install_endpoint(ep)
+        hooks["hooks_us"] = _hooks_us(ep)
+        mon.uninstall()
+        hooks["registry"] = _registry_vs_stats(ep)
+        log("fleet: endpoint hooks: " + json.dumps(hooks))
+        out["endpoint"], _ = storm("bare endpoint", lambda: ep, traffic,
+                                   alone, n_layers)
+        hooks["swap"] = _swap_stage(ep, net, vocab)
+        log("fleet: swap_model(stage=): " + json.dumps(hooks["swap"]))
+    out["hooks"] = hooks
+
+    def fleet(replicas, name):
+        def build():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                f = Fleet(net, replicas=replicas,
+                          name=f"chip_smoke/{name}", **kw)
+            shared = [str(w.message) for w in caught
+                      if issubclass(w.category, RuntimeWarning)]
+            if replicas > 1 and not shared:
+                raise SystemExit("fleet: no RuntimeWarning for replicas "
+                                 "sharing the card")
+            # the seconds the dispatcher spends in each replica kill
+            kill, f.kill_seconds = f.kill_replica, []
+
+            def timed_kill(index):
+                t0 = time.perf_counter()
+                kill(index)
+                f.kill_seconds.append(time.perf_counter() - t0)
+            f.kill_replica = timed_kill
+            t0 = time.perf_counter()
+            f.warmup(*reqs[0])
+            log(f"fleet: {replicas} replica(s) warmed in "
+                f"{time.perf_counter() - t0:.2f} s"
+                + (f"; warned: {shared[0][:120]}" if shared else ""))
+            return f
+        return build
+
+    out["fleet2"], f2 = storm("2 replicas", fleet(2, "fleet2"), traffic,
+                              alone, n_layers)
+    f2.shutdown(drain=True)
+    del f2
+    plan = [{"site": "serve.replica", "kind": "preempt",
+             "at": STORM_KILL_AT}]
+    out["fleet2_kill"], f2 = storm("2 replicas, one killed",
+                                   fleet(2, "fleet2_kill"), traffic, alone,
+                                   n_layers, plan=plan)
+    f2.shutdown(drain=True)
+    del f2, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    k = out["fleet2_kill"]
+    if not (len(k["dead"]) == 1 and k["recovered"] >= 1
+            and k["failover_s"]["count"] >= 1
+            and all(v["ok"] for v in k["sla"].values())):
+        raise SystemExit(f"fleet: the killed replica's failover or the "
+                         f"SLA failed: {k}")
+    out["fleet1"], f1 = storm("1 replica", fleet(1, "fleet1"), traffic,
+                              alone, n_layers)
+    f1.shutdown(drain=True)
+    del f1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def word_lm_decoder(dev, seed=0):
+    """BASELINE config 5's model, `RNNModel(10000, 650, 650, 2, "lstm",
+    tie_weights=True)`, Xavier weights from ``seed``, in bf16 on ``dev``;
+    and its greedy prefill and decode for `ContinuousBatcher` (the carry
+    is (h, c), (layers, units) a sequence), the prefill timing itself
+    into the list returned third."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.models import RNNModel
+
+    model = RNNModel(RNN_VOCAB, RNN_UNITS, RNN_UNITS, RNN_LAYERS, "lstm",
+                     tie_weights=True)
+    model.initialize(init=mx.init.Xavier(), ctx=dev,
+                     generator=torch.Generator().manual_seed(seed))
+    model.cast("bfloat16")
+    prefill_ms = []
+
+    def prefill(prompt):
+        t0 = time.perf_counter()
+        x = torch.from_numpy(prompt.astype(onp.int64)).reshape(-1, 1).to(dev)
+        with torch.no_grad(), autograd.predict_mode():
+            logits, (h, c) = model(x, model.begin_state(1, ctx=dev))
+            tok = logits[-1, 0].argmax()
+        _sync(dev)
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        return (h[:, 0], c[:, 0]), tok
+
+    def decode(carry, toks):
+        h, c = (s.transpose(0, 1) for s in carry)
+        with autograd.predict_mode():
+            logits, (h, c) = model(toks.reshape(1, -1), [h, c])
+        return (h.transpose(0, 1), c.transpose(0, 1)), logits[0].argmax(-1)
+
+    return prefill, decode, prefill_ms
+
+
+def phase_continuous(dev):
+    """Phase 4c (c): `ContinuousBatcher` over the word LM (see the
+    module's docstring)."""
+    import numpy as onp
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serve import ContinuousBatcher
+
+    rng = onp.random.default_rng(13)
+    prompts = [rng.integers(0, RNN_VOCAB, int(rng.integers(
+        CONT_PROMPT_LEN[0], CONT_PROMPT_LEN[1] + 1))) for _ in
+        range(CONT_PROMPTS)]
+    budgets = [int(b) for b in rng.integers(CONT_BUDGET[0],
+                                            CONT_BUDGET[1] + 1,
+                                            CONT_PROMPTS)]
+    prefill, decode, prefill_ms = word_lm_decoder(dev)
+    name = "chip_smoke/word_lm"
+    with ContinuousBatcher(prefill, decode, slots=CONT_SLOTS,
+                           eos_id=CONT_EOS, name=name) as cb:
+        t0 = time.perf_counter()
+        futs = [cb.submit(p, max_new_tokens=b)
+                for p, b in zip(prompts, budgets)]
+        outs = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        run = cb.stats()
+        prefill_p50 = float(onp.percentile(prefill_ms, 50))
+        solo = [cb.generate(p, max_new_tokens=b, timeout=300)
+                for p, b in zip(prompts, budgets)]
+        seen, _ = _count_syncs(lambda: torch.ones(1, device=dev).item())
+        syncs, examples = _count_syncs(
+            lambda: (cb._decode(cb._carry, cb._last), cb._last.tolist()))
+        step_ms = cuda_ms(lambda: cb._decode(cb._carry, cb._last), iters=50)
+        captures = cb._decode.captures
+    retraces = telemetry.watchdog().retrace_count(f"serve/{name}/decode")
+    equal = sum(onp.array_equal(a, b) for a, b in zip(outs, solo))
+    # decode steps a sequence was in a slot for: its tokens after the
+    # prefill's, and the eos step where it stopped short of its budget
+    active = sum(len(o) if len(o) < b else b - 1
+                 for o, b in zip(outs, budgets))
+    generated = sum(len(o) for o in outs)
+    out = {"model": f"RNNModel({RNN_VOCAB}, {RNN_UNITS}, {RNN_UNITS}, "
+                    f"{RNN_LAYERS}, lstm, tie_weights)",
+           "dtype": "bfloat16", "slots": CONT_SLOTS,
+           "sequences": len(prompts), "eos_id": CONT_EOS,
+           "ended_at_eos": sum(len(o) < b for o, b in zip(outs, budgets)),
+           "steps": run["steps"], "joins": run["joins"],
+           "leaves": run["leaves"], "wall_s": wall,
+           "tokens": generated, "tokens_per_s": generated / wall,
+           "host_ms_per_step": wall / max(run["steps"], 1) * 1e3,
+           "decode_replay_ms": step_ms,
+           "mean_occupancy": active / max(run["steps"] * CONT_SLOTS, 1),
+           "prefill_ms_p50": prefill_p50, "captures": captures,
+           "retraces": retraces, "host_syncs_per_step": syncs
+           if seen else "not measured", "sync_examples": examples,
+           "solo_bitwise_equal": equal}
+    log("continuous: " + json.dumps(out))
+    if not (equal == len(prompts) and captures == 1 and retraces == 0
+            and syncs == 1 and seen
+            and run["joins"] == run["leaves"] == len(prompts)):
+        raise SystemExit(f"continuous: a gate failed: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5948,6 +6568,19 @@ def main():
         log(f"card: {card}; torch {torch.__version__}")
         phase_ops(dev)
         return 0
+    if sys.argv[1:2] == ["--fleet"]:
+        # on the card, no result line: phase 4c alone, on a BERT-base of
+        # its own (B3 builds at its first use)
+        log(f"card: {card}; torch {torch.__version__}")
+        from mxnet_tpu_torch.models import bert_base
+        net = bert_base(use_flash=True, dropout=0.1).initialize(
+            ctx=dev, generator=torch.Generator().manual_seed(0))
+        net.cast("bfloat16")
+        phase_fleet(net, dev)
+        del net
+        torch.cuda.empty_cache()
+        phase_continuous(dev)
+        return 0
     if sys.argv[1:2] == ["--flash-crossover"]:
         # on the card, no result line: phase 3d alone (the kernels build
         # at their first use)
@@ -5971,8 +6604,10 @@ def main():
     drop_rows = phase_dropout(dev)
     served, net = phase_serve(dev)
     phase_profile(net, dev)
+    fleet = phase_fleet(net, dev)
     del net
     torch.cuda.empty_cache()
+    phase_continuous(dev)
     trained = phase_train(dev)
     trained_amp = phase_train_amp(dev)
     phase_odd_berts(dev)
@@ -6054,6 +6689,9 @@ def main():
         "library_device_ms": main_case["library_device_ms"],
         "wide_cases": wide_fwd,
         "ops_launches": ops["launches"]["flash_attention_fwd"],
+        # the traced storm through the 2-replica fleet with a replica
+        # killed (phase 4c)
+        "fleet_launches": fleet["fleet2_kill"]["flash_launches"],
         "training_case": {
             "launches": launches["flash_attention_fwd"],
             "launches_booked": booked["flash_attention_fwd"],

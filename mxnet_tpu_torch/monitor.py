@@ -69,11 +69,26 @@ class Monitor:
         return self
 
     def install_endpoint(self, endpoint, name=None):
-        """Watch a serving endpoint's batches.  The port's `serve.Endpoint`
-        has no batch hooks yet (ROADMAP queue A6): raises."""
-        raise NotImplementedError(
-            "Monitor.install_endpoint needs the endpoint's batch hooks, "
-            "which are ROADMAP queue A6 (serving breadth)")
+        """Watch a serving endpoint (`mxnet_tpu_torch.serve.Endpoint`):
+        every dispatched batch records occupancy (real rows / bucket
+        slots) and device latency into the same tic/toc queue as tensor
+        stats, so a training-style monitor loop can watch serving
+        health."""
+        _name = name or endpoint.name
+
+        def hook(_ep, real_rows, bucket_rows, latency_s):
+            if not self.activated:
+                return
+            occ_key = f"{_name}_batch_occupancy"
+            lat_key = f"{_name}_batch_latency_ms"
+            if self.pattern.match(occ_key):
+                self.queue.append((self.step, occ_key,
+                                   real_rows / max(bucket_rows, 1)))
+            if self.pattern.match(lat_key):
+                self.queue.append((self.step, lat_key, latency_s * 1e3))
+
+        self._handles.append(endpoint.register_batch_hook(hook))
+        return self
 
     def tic(self):
         """Start collecting for this batch if the interval hits."""
@@ -105,5 +120,8 @@ class Monitor:
 
     def uninstall(self):
         for h in self._handles:
-            h.remove()
+            if hasattr(h, "detach"):      # an endpoint's batch hook
+                h.detach()
+            else:                         # a block's torch hook handle
+                h.remove()
         self._handles = []

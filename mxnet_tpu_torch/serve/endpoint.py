@@ -20,14 +20,17 @@ The same design as the reference:
   fails its own future, never the batch loop (a failed batch is retried
   request by request to isolate the poison).
 
+Around each batch's device call, in the reference's order: the
+``serve.model_call`` fault hook (`resilience.faultline.check`), a
+``serve/<name>/batch`` span (`telemetry.span`, in a running profiler's
+dump), one transient retry (`resilience.policies.retry_transient`), then
+the metrics (`EndpointMetrics`, published to the telemetry registry) and
+the batch hooks (:meth:`Endpoint.register_batch_hook`, which
+`Monitor.install_endpoint` uses).
+
 On the card the batcher thread selects the endpoint's device for its own
 CUDA work, and synchronises the device's stream before it stamps a
 batch's latency.  Results are torch tensors on the endpoint's device.
-
-Not ported yet: the reference's fault-injection and telemetry hooks
-around the device call, its transient retry, its batch hooks and its
-metrics (ROADMAP queue A6; the `resilience` and `telemetry` modules
-they call are ported).
 """
 from __future__ import annotations
 
@@ -40,8 +43,11 @@ from concurrent.futures import Future
 import numpy as onp
 import torch
 
+from .. import telemetry as _telemetry
 from ..autograd import predict_mode
 from ..context import resolve_device
+from ..resilience import faultline as _faultline
+from ..resilience.policies import retry_transient as _retry_transient
 from .bucketing import BucketSpec, pick_bucket
 from .cache import ExecutableCache
 from .metrics import EndpointMetrics
@@ -79,6 +85,20 @@ class _Request:
         self.version = 0          # model version that admitted the request
 
 
+class _HookHandle:
+    def __init__(self, collection, hook, lock):
+        self._collection = collection
+        self._hook = hook
+        self._lock = lock
+
+    def detach(self):
+        # check-then-remove must be atomic: two concurrent detaches of the
+        # same hook otherwise race between the `in` and the `remove`
+        with self._lock:
+            if self._hook in self._collection:
+                self._collection.remove(self._hook)
+
+
 def _tree_map(fn, out):
     if isinstance(out, (tuple, list)):
         return type(out)(_tree_map(fn, o) for o in out)
@@ -109,11 +129,17 @@ class Endpoint:
         submit() behavior on a full queue.
     timeout_ms : float or None
         Default per-request deadline (None = no deadline).
+    donate : bool
+        Accepted for the reference's signature, where it donates the
+        input buffers to the executable.  Here it changes nothing: a
+        call already copies the padded batch into the bucket graph's
+        static inputs, so no batch-sized buffer outlives the call
+        either way.
     device : torch.device, str or None
         Where batches run.  None is the card (``cuda:0``); pass
         ``"cpu"`` to serve on the CPU.
 
-    Models are **versioned**: :meth:`swap_model` warms a new version's
+    Models are **versioned**: :meth:`swap_model` stages a new version's
     grid off the hot path, then flips atomically.  Every request is
     pinned at submit() to the version that admitted it; a retired
     version is dropped once its last in-flight request resolves.
@@ -122,7 +148,7 @@ class Endpoint:
     def __init__(self, model, name=None, max_batch_size=8,
                  max_latency_ms=5.0, batch_buckets=None, seq_buckets=None,
                  seq_axis=1, max_queue=256, full_policy="raise",
-                 timeout_ms=None, device=None, start=True):
+                 timeout_ms=None, donate=False, device=None, start=True):
         if full_policy not in ("raise", "block"):
             raise ValueError("full_policy must be 'raise' or 'block'")
         self.device = resolve_device(device)
@@ -133,13 +159,16 @@ class Endpoint:
         self.max_latency_s = max_latency_ms / 1e3
         self.full_policy = full_policy
         self.timeout_s = timeout_ms / 1e3 if timeout_ms else None
+        self.donate = donate
         self.metrics = EndpointMetrics(self.name)
         self._queue = _queue.Queue(maxsize=max_queue)
         self._version = 0
         self._models = {0: model}     # version -> model
         self._caches = {}             # version -> ExecutableCache (lazy)
         self._inflight = {}           # version -> unresolved request count
+        self._example_arrays = None   # first-seen inputs (swap staging)
         self._model_lock = threading.Lock()
+        self._batch_hooks = []
         self._closed = False
         self._draining = False
         self._holdover = None     # request that would overflow its batch
@@ -238,6 +267,13 @@ class Endpoint:
         t = (timeout_ms / 1e3 if timeout_ms is not None else self.timeout_s)
         return fut.result(timeout=t + 60 if t else None)
 
+    def register_batch_hook(self, hook):
+        """``hook(endpoint, real_rows, bucket_rows, latency_s)`` after
+        every dispatched batch (monitor integration)."""
+        with self._model_lock:
+            self._batch_hooks.append(hook)
+        return _HookHandle(self._batch_hooks, hook, self._model_lock)
+
     # -- model -> function -------------------------------------------------
     def _build_cache(self, model):
         """The endpoint function and its :class:`ExecutableCache`: a
@@ -257,9 +293,13 @@ class Endpoint:
 
         return ExecutableCache(fn, metrics=self.metrics, device=self.device)
 
-    def _cache_for(self, version):
-        """The executable cache serving ``version``, built lazily."""
+    def _cache_for(self, version, arrays=None):
+        """The executable cache serving ``version``, built lazily;
+        ``arrays`` (a request's or warmup's inputs) become the staging
+        example if none was seen yet."""
         with self._model_lock:
+            if self._example_arrays is None and arrays is not None:
+                self._example_arrays = [onp.asarray(a) for a in arrays]
             cache = self._caches.get(version)
             if cache is None:
                 cache = self._caches[version] = self._build_cache(
@@ -280,20 +320,24 @@ class Endpoint:
                 self._caches.pop(v, None)
                 self._models.pop(v, None)
 
-    def swap_model(self, model):
+    def swap_model(self, model, stage=True):
         """Hot-swap to a new model version.
 
-        Warms the new version's cache over the live cache's grid first
+        Stages the new version's cache over the live cache's grid first
         (on the card: an eager run and a capture per bucket, on torch's
         capture stream in thread-local mode and under
         `ops.capture.GRAPH_LOCK`, so the live version's replays go on
-        around it), then flips the version atomically.  Requests already admitted
-        keep the version that admitted them; requests submitted after
-        the flip get ``model``.  Returns the new version number."""
+        around it), then flips the version atomically.  Requests already
+        admitted keep the version that admitted them; requests submitted
+        after the flip get ``model``.  Returns the new version number.
+        ``stage=False`` captures nothing before the flip: the first
+        request of each shape after it pays the eager run and the
+        capture, and counts a cache miss."""
         staged = None
         with self._model_lock:
             live_cache = self._caches.get(self._version)
-        if live_cache is not None:
+            example = self._example_arrays
+        if stage and live_cache is not None and example is not None:
             staged = self._build_cache(model)
             staged.adopt_grid(live_cache)
         with self._model_lock:
@@ -315,7 +359,7 @@ class Endpoint:
         per-input trailing shapes and dtypes (their batch/seq extents are
         ignored).  Returns the number of entries warmed."""
         arrays = [self._to_numpy(x) for x in example_inputs]
-        cache = self._cache_for(self._version)
+        cache = self._cache_for(self._version, arrays)
         warmed = 0
         seq_grid = self.spec.seq_buckets or [None]
         for b in self.spec.batch_buckets:
@@ -462,7 +506,7 @@ class Endpoint:
                         self._dispatch([req])
 
     def _execute(self, group):
-        cache = self._cache_for(group[0].version)
+        cache = self._cache_for(group[0].version, group[0].arrays)
         rows = sum(r.rows for r in group)
         bucket = pick_bucket(rows, self.spec.batch_buckets)
         t0 = time.perf_counter()
@@ -472,11 +516,25 @@ class Endpoint:
         padded_seq = padded[0].shape[self.spec.seq_axis] \
             if (self.spec.seq_buckets
                 and padded[0].ndim > self.spec.seq_axis) else None
-        out = cache(padded)           # synchronises the device's stream
+
+        def model_call():
+            # the fault hook fires BEFORE the device call, so a retried
+            # injection never replays twice; each call copies the padded
+            # batch into the graph's static inputs anew
+            _faultline.check("serve.model_call")
+            return cache(padded)      # synchronises the device's stream
+
+        with _telemetry.span(f"serve/{self.name}/batch", cat="serve",
+                             args={"rows": rows, "bucket": bucket,
+                                   "requests": len(group)}):
+            out = _retry_transient(model_call, site="serve.model_call",
+                                   retries=1)
         latency = time.perf_counter() - t0
 
         self.metrics.observe_batch(rows, bucket)
         self.metrics.observe_execute(latency)
+        for hook in list(self._batch_hooks):
+            hook(self, rows, bucket, latency)
 
         row = 0
         for req in group:

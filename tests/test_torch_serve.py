@@ -8,6 +8,13 @@ are padded by the endpoint onto the (16, 32, 128) sequence grid and the
 output whose sequence axis has the bucket's length, so no bucket equals
 the model width of 64, or the pooled output would be trimmed too.)
 
+The endpoint's hooks, as the reference runs them around each batch: the
+batch hooks and `Monitor.install_endpoint`, the ``stats()`` surface, the
+registry's ``mxtpu_serve_*`` series against ``stats()``, a
+``serve.model_call`` timeout retried once (and, under a stand-in for the
+CUDA graph, a retry copying the batch into the graph's static inputs
+anew), ``swap_model(stage=)`` and ``donate=``.
+
 Tolerance: a request served inside a padded batch sees the same valid
 keys as the request alone — padded keys are masked to exact zero weight
 — so the two differ only by the summation order of products over a
@@ -25,8 +32,11 @@ import torch
 import mxnet_tpu as mx
 from mxnet_tpu.models import BertModel as RefBert
 from mxnet_tpu.serve import Endpoint as RefEndpoint
-from mxnet_tpu_torch import cpu
+from mxnet_tpu_torch import cpu, telemetry
 from mxnet_tpu_torch.models import BertModel
+from mxnet_tpu_torch.monitor import Monitor
+from mxnet_tpu_torch.ops import capture
+from mxnet_tpu_torch.resilience import faultline
 from mxnet_tpu_torch.serve import (Endpoint, QueueFullError, RequestTimeout)
 from mxnet_tpu_torch.utils.convert import load_reference_params
 
@@ -238,3 +248,224 @@ def test_latency_window_bounds_the_batch(net, window_ms, batches):
         f.result(timeout=120)
     ep.shutdown()
     assert ep.stats()["batches"] == batches
+
+
+# -- the hooks around each batch ----------------------------------------------
+
+def _sample(name, labels):
+    v = telemetry.default_registry().get_sample_value(name, labels)
+    return 0.0 if v is None else v
+
+
+@pytest.fixture
+def no_plan():
+    faultline.clear()
+    yield
+    faultline.clear()
+
+
+def test_batch_hooks_fire_and_detach(net):
+    calls = []
+    with Endpoint(net, device="cpu", max_batch_size=4, max_latency_ms=200,
+                  seq_buckets=SEQ_BUCKETS, start=False) as ep:
+        handle = ep.register_batch_hook(
+            lambda e, rows, bucket, lat: calls.append((e, rows, bucket, lat)))
+        futs = [ep.submit(*_request(n, n)) for n in (5, 9, 12)]
+        for f in futs:
+            f.result(timeout=120)
+        handle.detach()
+        handle.detach()                  # a second detach is a no-op
+        ep.predict(*_request(4, 4))
+    assert len(calls) == 1
+    e, rows, bucket, lat = calls[0]
+    assert e is ep and rows == 3 and bucket == 4 and lat > 0
+
+
+def test_monitor_install_endpoint(net):
+    mon = Monitor(interval=1)
+    with Endpoint(net, device="cpu", max_batch_size=4, max_latency_ms=5,
+                  seq_buckets=SEQ_BUCKETS) as ep:
+        mon.install_endpoint(ep)
+        mon.tic()
+        ep.predict(*_request(6, 1))
+        rows = mon.toc()
+        mon.uninstall()
+        mon.tic()
+        ep.predict(*_request(6, 2))
+        after = mon.toc()
+    keys = {k for _s, k, _v in rows}
+    assert keys == {f"{ep.name}_batch_occupancy",
+                    f"{ep.name}_batch_latency_ms"}
+    occ = next(v for _s, k, v in rows if k.endswith("_occupancy"))
+    assert occ == 1.0                    # one row in the 1-row bucket
+    assert after == []
+
+
+def test_stats_surface(net):
+    req = _request(9, 3)
+    with Endpoint(net, device="cpu", max_batch_size=8, max_latency_ms=1,
+                  seq_buckets=SEQ_BUCKETS) as ep:
+        ep.warmup(*req)
+        for _ in range(5):
+            ep.predict(*req)
+        s = ep.stats()
+    for key in ("qps", "latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
+                "mean_batch_occupancy", "queue_depth", "cache_hit_rate",
+                "submitted", "completed", "batches", "failed", "timeouts",
+                "rejected_full", "cache_hits", "cache_misses",
+                "queue_wait_ms_p50", "queue_wait_ms_p99", "execute_ms_p50",
+                "execute_ms_p99", "executables", "model_version"):
+        assert key in s, key
+    assert s["qps"] > 0 and s["latency_ms_p50"] > 0
+    assert s["submitted"] == s["completed"] == 5
+    assert s["cache_hit_rate"] == 1.0
+
+
+def test_registry_counts_equal_stats(net):
+    name = "t_serve_registry"
+    ep = Endpoint(net, name=name, device="cpu", max_batch_size=4,
+                  max_queue=3, seq_buckets=SEQ_BUCKETS, start=False)
+    late = ep.submit(*_request(4, 1), timeout_ms=1)
+    futs = [ep.submit(*_request(n, n)) for n in (7, 20)]
+    with pytest.raises(QueueFullError):
+        ep.submit(*_request(4, 3))
+    time.sleep(0.05)
+    ep.start()
+    with pytest.raises(RequestTimeout):
+        late.result(timeout=60)
+    for f in futs:
+        f.result(timeout=120)
+    ep.predict(*_request(40, 5))
+    ep.shutdown()
+    s = ep.stats()
+    lab = {"endpoint": name}
+    for event in ("submitted", "completed", "failed", "timeouts",
+                  "rejected_full"):
+        assert _sample("mxtpu_serve_requests_total",
+                       dict(lab, event=event)) == s[event], event
+    assert _sample("mxtpu_serve_cache_total", dict(lab, kind="hit")) == \
+        s["cache_hits"]
+    assert _sample("mxtpu_serve_cache_total", dict(lab, kind="miss")) == \
+        s["cache_misses"]
+    assert _sample("mxtpu_serve_batches_total", lab) == s["batches"]
+    real = _sample("mxtpu_serve_batch_rows_total", dict(lab, kind="real"))
+    slots = _sample("mxtpu_serve_batch_rows_total", dict(lab, kind="slots"))
+    assert real / slots == pytest.approx(s["mean_batch_occupancy"])
+    assert _sample("mxtpu_serve_latency_seconds_count", lab) == \
+        s["completed"]
+    assert _sample("mxtpu_serve_execute_seconds_count", lab) == s["batches"]
+    assert _sample("mxtpu_serve_queue_wait_seconds_count", lab) == \
+        s["completed"]
+    assert s["timeouts"] == s["rejected_full"] == 1 and s["completed"] == 3
+
+
+def test_model_call_timeout_is_retried_once(net, no_plan):
+    name = "t_serve_retry"
+    labels = {"site": "serve.model_call", "kind": "timeout"}
+    before = _sample("mxtpu_faults_recovered_total", labels)
+    req = _request(11, 4)
+    faultline.plan([{"site": "serve.model_call", "kind": "timeout",
+                     "at": 1}])
+    with Endpoint(net, name=name, device="cpu", max_batch_size=4,
+                  max_latency_ms=1, seq_buckets=SEQ_BUCKETS) as ep:
+        seq, pooled = ep.predict(*req)
+        s = ep.stats()
+    seq_d, pooled_d = _direct(net, req)
+    torch.testing.assert_close(seq, seq_d, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(pooled, pooled_d, atol=1e-5, rtol=1e-5)
+    assert _sample("mxtpu_faults_recovered_total", labels) == before + 1
+    assert faultline.arrivals("serve.model_call") == 2
+    assert s["completed"] == 1 and s["failed"] == 0 and s["batches"] == 1
+    # the fault fired before the device call: one cache lookup
+    assert s["cache_hits"] + s["cache_misses"] == 1
+
+
+class _FlakyReplay(capture.Graph):
+    """A stand-in graph (its capture runs the function once, its replay
+    runs it again into the first outputs) whose first replay clobbers
+    the static inputs and raises a transient error, as a transport
+    timeout after the copy-in would."""
+
+    flaky = True
+
+    def _record(self, fn):
+        self._fn = fn
+        self._out = fn()
+        self._inputs = None
+        return self._out
+
+    def _launch(self):
+        if _FlakyReplay.flaky:
+            _FlakyReplay.flaky = False
+            for t in self._inputs:
+                t.zero_()
+            raise TimeoutError("replay timed out")
+        new = self._fn()
+        with torch.inference_mode():
+            for old, fresh in zip(self._out, new):
+                old.copy_(fresh)
+
+
+def test_retry_copies_the_batch_into_the_graph_again(net, monkeypatch):
+    """A transient failure after the batch was copied into the graph's
+    static inputs: the retry copies it in anew, so the answer is the
+    request's own."""
+    from mxnet_tpu_torch.serve import cache as cache_mod
+
+    _FlakyReplay.flaky = True
+    made = []
+
+    class Entry(cache_mod._Entry):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.graph._inputs = self.inputs
+            made.append(self)
+
+    monkeypatch.setattr(capture, "Graph", _FlakyReplay)
+    monkeypatch.setattr(capture, "capturable", lambda device: True)
+    monkeypatch.setattr(capture, "new_pool", lambda: None)
+    monkeypatch.setattr(cache_mod, "_Entry", Entry)
+    req = _request(13, 6)
+    with Endpoint(net, device="cpu", max_batch_size=1, max_latency_ms=1,
+                  seq_buckets=(16,)) as ep:
+        ep.warmup(*req)
+        seq, pooled = ep.predict(*req)
+        s = ep.stats()
+    assert not _FlakyReplay.flaky and len(made) == 1
+    seq_d, pooled_d = _direct(net, req)
+    torch.testing.assert_close(seq, seq_d, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(pooled, pooled_d, atol=1e-5, rtol=1e-5)
+    assert s["cache_hits"] == 2 and s["completed"] == 1
+
+
+@pytest.mark.parametrize("stage", [True, False])
+def test_swap_model_stage(net, stage):
+    """``stage=True`` captures the new version's grid before the flip:
+    no miss after it.  ``stage=False`` captures nothing: each warmed
+    shape used after the flip misses once."""
+    other = BertModel(use_flash=True, **CFG).initialize(
+        ctx=cpu(), generator=torch.Generator().manual_seed(13))
+    reqs = [_request(n, n) for n in (10, 25, 12)]   # two shapes: 16, 32
+    with Endpoint(net, device="cpu", max_batch_size=1, max_latency_ms=1,
+                  seq_buckets=(16, 32)) as ep:
+        ep.warmup(*reqs[0])
+        assert ep.swap_model(other, stage=stage) == 1
+        outs = [ep.predict(*r) for r in reqs]
+        s = ep.stats()
+    assert s["cache_misses"] == (0 if stage else 2)
+    assert s["cache_hits"] == 3 - s["cache_misses"]
+    assert s["executables"] == 2
+    for r, (seq, _) in zip(reqs, outs):
+        torch.testing.assert_close(seq, _direct(other, r)[0],
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_donate_is_accepted_and_changes_nothing(net):
+    req = _request(8, 2)
+    with Endpoint(net, device="cpu", max_batch_size=2, max_latency_ms=1,
+                  seq_buckets=(16,), donate=True) as ep:
+        assert ep.donate is True
+        assert ep.warmup(*req) == 2
+        seq, _ = ep.predict(*req)
+    torch.testing.assert_close(seq, _direct(net, req)[0],
+                               atol=1e-5, rtol=1e-5)
