@@ -385,6 +385,7 @@ import functools
 import json
 import logging
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -6521,6 +6522,252 @@ def phase_zoo(dev):
     return [_zoo_net(name, side, dev) for name, side in ZOO]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data parallelism over parameter copies in one process
+# (examples/image-classification/train_imagenet.py's loop, BASELINE config 3)
+# ---------------------------------------------------------------------------
+# the example's defaults: ResNet-50 v1, f32, batch 64, SGD lr 0.1 momentum 0.9
+DP_BATCH, DP_STEPS = 64, 5
+# (b): a copy on the card and one on the host, 4 images a copy
+DP_HOST_PER_COPY, DP_HOST_STEPS = 4, 3
+# (b): the two copies of a trainable parameter after each step.  Both
+# take the same reduced gradient; the optimizer's f32 update runs once on
+# each device, whose elementwise kernels may round (or fuse a
+# multiply-add) differently: a few f32 ulps of the update a step, so
+# 1e-5 of max(1, |w|) leaves room for 3 steps of momentum
+DP_COPY_TOL = 1e-5
+DP_STORE_CALLS = 20
+
+
+def _dp_net(ctxs, seed=0):
+    """``vision.resnet50_v1()`` (1000 classes, f32), Xavier from
+    ``seed``, one copy on each of ``ctxs``, hybridized as the example
+    does."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet50_v1()
+    net.initialize(init=mx.init.Xavier(), ctx=ctxs,
+                   generator=torch.Generator().manual_seed(seed))
+    net.hybridize(static_alloc=True)
+    return net
+
+
+def _dp_batch(n, seed=41):
+    """uniform(-1, 1) f32 images and labels below 1000, on the host, from
+    ``seed`` (the loop's split_and_load sends them to the copies)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, 3, RESNET_IMAGE, RESNET_IMAGE, generator=gen) * 2 - 1
+    y = torch.randint(0, 1000, (n,), generator=gen, dtype=torch.int32)
+    return x, y
+
+
+def _dp_step(net, trainer, loss_fn, ctxs, x, y, split=False):
+    """One step of `train_imagenet.py`'s loop: ``split_and_load`` over
+    ``ctxs``, a loss a copy, ``autograd.backward``, ``trainer.step``.
+    With ``split``, the step's reduce and update run as
+    ``allreduce_grads`` and ``update``, each timed to a sync of every
+    device.  Returns the losses (detached) and the seconds of the
+    forward and backward, the reduce and the update (None without
+    ``split``)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.utils import split_and_load
+
+    t0 = time.perf_counter()
+    xs, ys = split_and_load(x, ctxs), split_and_load(y, ctxs)
+    with mx.autograd.record():
+        losses = [loss_fn(net(xb), yb).mean() for xb, yb in zip(xs, ys)]
+    mx.autograd.backward(losses)
+    if not split:
+        trainer.step(x.shape[0])
+        return [l.detach() for l in losses], None
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.allreduce_grads()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    trainer.update(x.shape[0])
+    torch.cuda.synchronize()
+    return [l.detach() for l in losses], (t1 - t0, t2 - t1,
+                                          time.perf_counter() - t2)
+
+
+def _dp_card(dev):
+    """(a): ResNet-50 at full width on ``ctx=[gpu(0)]`` with
+    ``kvstore="tpu_ici"``, DP_STEPS steps of the loop on one seeded batch,
+    B1's launches counted step by step from 0, each step timed to a sync;
+    the same loop with ``kvstore=None`` on a second net from the same
+    seed, a step of each in turns; the store's host time a reduce over
+    one copy a parameter."""
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+
+    opt = {"learning_rate": 0.1, "momentum": 0.9}
+    loss_fn = SoftmaxCrossEntropyLoss()
+    x, y = _dp_batch(DP_BATCH)
+    runs = {}
+    for store in ("tpu_ici", None):
+        net = _dp_net([dev])
+        runs[store] = {"net": net, "ms": [], "losses": [], "b1": [],
+                       "trainer": Trainer(net.collect_params(), "sgd", opt,
+                                          kvstore=store)}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(DP_STEPS):
+        for store, run in runs.items():
+            torch.cuda.synchronize()
+            BN_BWD_REDUCE.launches = 0
+            t0 = time.perf_counter()
+            losses, _ = _dp_step(run["net"], run["trainer"], loss_fn, [dev],
+                                 x, y)
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            run["b1"].append(BN_BWD_REDUCE.launches)
+            run["losses"].append(float(losses[0]))
+    main = runs["tpu_ici"]
+    store = main["trainer"].kvstore
+    t0 = time.perf_counter()
+    for _ in range(DP_STORE_CALLS):
+        main["trainer"].allreduce_grads()
+    store_us = (time.perf_counter() - t0) / DP_STORE_CALLS * 1e6
+    out = {"model": "resnet50_v1", "classes": 1000, "dtype": "float32",
+           "input": [DP_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE],
+           "ctx": [str(dev)], "kvstore": store.type,
+           "kvstore_class": type(store).__name__, "steps": DP_STEPS,
+           "losses": main["losses"], "step_ms": main["ms"],
+           "median_step_ms": statistics.median(main["ms"][1:]),
+           "b1_launches_per_step": main["b1"],
+           "no_store": {"kvstore": runs[None]["trainer"].kvstore,
+                        "losses": runs[None]["losses"],
+                        "step_ms": runs[None]["ms"],
+                        "median_step_ms":
+                            statistics.median(runs[None]["ms"][1:])},
+           "allreduce_host_us_one_copy": store_us,
+           "params": len(main["trainer"]._params),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["store_minus_no_store_ms"] = out["median_step_ms"] - \
+        out["no_store"]["median_step_ms"]
+    finite = all(v == v and abs(v) != float("inf")
+                 for run in runs.values() for v in run["losses"])
+    b1_ok = all(n == BN_LAYERS for n in main["b1"])
+    log("dp: (a) one card copy: " + json.dumps(out))
+    if not (finite and b1_ok and store is not None
+            and store.type == "tpu_ici"):
+        raise SystemExit(f"data-parallel ResNet-50 on one card copy failed: "
+                         f"finite={finite} B1 launches a step "
+                         f"{main['b1']} (expected {BN_LAYERS}) store={store}")
+    del runs, main, store
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_card_and_host(dev):
+    """(b): ResNet-50 on ``ctx=[gpu(0), cpu()]`` with ``kvstore="device"``,
+    DP_HOST_PER_COPY images a copy, DP_HOST_STEPS steps: the store sums
+    the two copies' gradients on the card and writes the sum to both;
+    after each step every trainable parameter's two copies agree within
+    DP_COPY_TOL; the reduce's share of the step."""
+    import torch
+    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.utils import split_and_load
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+
+    ctxs = [dev, cpu()]
+    net = _dp_net(ctxs, seed=1)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      kvstore="device")
+    loss_fn = SoftmaxCrossEntropyLoss()
+    x, y = _dp_batch(DP_HOST_PER_COPY * len(ctxs), seed=43)
+    net._ensure_shapes(split_and_load(x, ctxs)[0])   # draws, then copies
+    params = net.collect_params()
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    start = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in (p.list_data() for p in trainable))
+    steps = []
+    for _ in range(DP_HOST_STEPS):
+        BN_BWD_REDUCE.launches = 0
+        losses, (fb, reduce_s, update_s) = _dp_step(
+            net, trainer, loss_fn, ctxs, x, y, split=True)
+        worst, name = 0.0, None
+        for p in trainable:
+            a, b = p.list_data()
+            err = float((a.detach().cpu() - b.detach()).abs().max()) / \
+                max(1.0, float(b.detach().abs().max()))
+            if err >= worst:
+                worst, name = err, p.name
+        stats = params["features.1.running_mean"].list_data()
+        total = fb + reduce_s + update_s
+        steps.append({
+            "losses": [float(l) for l in losses],
+            "forward_backward_ms": fb * 1e3, "reduce_ms": reduce_s * 1e3,
+            "update_ms": update_s * 1e3, "reduce_share": reduce_s / total,
+            "b1_launches_card_copy": BN_BWD_REDUCE.launches,
+            "copies_max_rel_diff": worst, "worst_param": name,
+            "stem_bn_running_mean_copies_differ": not torch.equal(
+                stats[0].cpu(), stats[1])})
+    out = {"model": "resnet50_v1", "dtype": "float32",
+           "ctx": [str(c) for c in ctxs], "kvstore": "device",
+           "kvstore_class": type(trainer.kvstore).__name__,
+           "images_per_copy": DP_HOST_PER_COPY, "copies_start_max_diff": start,
+           "tolerance": DP_COPY_TOL, "steps": steps}
+    log("dp: (b) a card copy and a host copy: " + json.dumps(out))
+    finite = all(v == v and abs(v) != float("inf")
+                 for s in steps for v in s["losses"])
+    agree = start == 0.0 and all(s["copies_max_rel_diff"] <= DP_COPY_TOL
+                                 for s in steps)
+    b1_ok = all(s["b1_launches_card_copy"] == BN_LAYERS for s in steps)
+    if not (finite and agree and b1_ok):
+        raise SystemExit(f"the card and host copies failed: finite={finite} "
+                         f"copies agree={agree} (start {start}, "
+                         f"{[s['copies_max_rel_diff'] for s in steps]}) "
+                         f"B1 a step on the card copy "
+                         f"{[s['b1_launches_card_copy'] for s in steps]}")
+    del net, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_nccl(dev):
+    """(c): `TPUICIStore`'s branch for copies on distinct cards, one NCCL
+    all-reduce, against the plain sum; run only with two cards or more."""
+    import torch
+    from mxnet_tpu_torch import kv
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        out = {"run": False,
+               "why": f"{n} card: the branch for copies on distinct cards "
+                      "(torch.cuda.nccl.all_reduce) needs two or more"}
+        log("dp: (c) NCCL branch: " + json.dumps(out))
+        return out
+    gen = torch.Generator().manual_seed(47)
+    host = [torch.randn(1000, 257, generator=gen) for _ in range(n)]
+    copies = [h.to(torch.device("cuda", i)) for i, h in enumerate(host)]
+    kv.create("tpu_ici").pushpull(0, copies)
+    plain = sum(host[1:], host[0])
+    err = max(float((c.cpu() - plain).abs().max()) for c in copies)
+    out = {"run": True, "cards": n, "max_abs_err": err}
+    log("dp: (c) NCCL branch: " + json.dumps(out))
+    if not err <= 1e-5:
+        raise SystemExit(f"the NCCL all-reduce of the copies is {err} from "
+                         "their sum")
+    return out
+
+
+def phase_dp(dev):
+    out = {"card_copy": _dp_card(dev),
+           "card_and_host_copies": _dp_card_and_host(dev),
+           "nccl_copies": _dp_nccl(dev), "card": nvidia_smi()}
+    return out
+
+
 def main():
     try:
         import torch
@@ -6587,6 +6834,12 @@ def main():
         log(f"card: {card}; torch {torch.__version__}")
         phase_flash_crossover(dev)
         return 0
+    if sys.argv[1:2] == ["--dp"]:
+        # on the card, no result line: phase 14 alone (B1 builds at its
+        # first use)
+        log(f"card: {card}; torch {torch.__version__}")
+        phase_dp(dev)
+        return 0
     if sys.argv[1:2] == ["--rtc-host"]:
         # on the card, no result line: B6's host time a launch alone, in
         # RTC_HOST_WINDOWS windows
@@ -6625,6 +6878,7 @@ def main():
     phase_lenet(dev)
     phase_mnist_mlp(dev)
     zoo = phase_zoo(dev)
+    dp = phase_dp(dev)
     log(f"seconds: {time.perf_counter() - t_start:.1f}")
 
     main_case = next(r for r in rows
@@ -6747,6 +7001,13 @@ def main():
                               for v in ("a", "b") if v in rec},
         "zoo_launches_per_step": {z["model"]: z["launches"]["bn_bwd_reduce"]
                                   // TRACED_STEPS for z in zoo},
+        # phase 14's eager loop over parameter copies: each step's
+        # launches from 0, on the one card copy and on the card copy of
+        # the card-and-host pair
+        "dp_launches_per_step": dp["card_copy"]["b1_launches_per_step"],
+        "dp_card_and_host_launches_per_step": [
+            s["b1_launches_card_copy"]
+            for s in dp["card_and_host_copies"]["steps"]],
         "max_abs_err": bn_case["max_abs_err"],
         "ms": bn_case["ms"], "plain_ms": bn_case["plain_ms"],
         "bound_ms": bn_case["bound_ms"], "bound_by": bn_case["bound_by"],

@@ -29,6 +29,8 @@ from . import amp, callback, lr_scheduler, operator, optimizer, rtc  # noqa: E40
 from . import image, io, recordio  # noqa: E402
 from . import env, monitor, observe, profiler, random  # noqa: E402
 from . import resilience, telemetry  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import kvstore as kv  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from . import numpy as np  # noqa: E402
 from . import numpy_extension as npx  # noqa: E402
@@ -42,5 +44,5 @@ env.apply()
 __all__ = ["amp", "autograd", "callback", "gluon", "initializer", "init", "lr_scheduler",
            "models", "optimizer", "serve", "np", "npx", "nd", "operator", "rtc",
            "image", "io", "recordio", "env", "monitor", "observe",
-           "profiler", "random", "resilience", "telemetry",
+           "profiler", "random", "resilience", "telemetry", "kvstore", "kv",
            "MXNetError", "cpu", "gpu", "num_gpus", "current_context"]

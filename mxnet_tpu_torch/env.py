@@ -65,7 +65,7 @@ MXNET_PROFILE_RANK           set by ``tools/launch.py --profile-rank``:
                              the matching rank (or every rank, ``-1``)
                              starts the profiler at import and dumps a
                              chrome trace at exit (the port has one rank
-                             until ROADMAP queue A7)
+                             until ROADMAP queue A7b)
 MXNET_PROFILE_DIR            output directory for the launcher-requested
                              profile dumps (default ``.``)
 MXNET_KVSTORE_SPARSE_HOST_BOUND  row-sparse pushpull crossover: below

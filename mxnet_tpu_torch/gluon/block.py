@@ -21,6 +21,14 @@ the reference's traced contract.
 ``cast`` recurses through the child blocks' own ``cast``, as the
 reference's does, so a block that keeps a dtype of its own (the RNN
 layers' initial states) follows a cast of its parent.
+
+A call enters its input's context (`context.tensor_context` of the
+first tensor argument) for the length of ``forward``, as the
+reference's does, so a parameter with copies on several contexts hands
+each ``data()`` inside the copy of the input's context: a CUDA tensor's
+card, or the host copy that `split_and_load` marked on a CPU tensor.
+An unmarked CPU input keeps a CPU context already current, else takes
+``cpu(0)``.  The outputs of a call on a CPU context carry its mark on.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import re
 import torch
 from torch import nn
 
+from ..context import (context_scope, cpu, current_context, mark_context,
+                       tensor_context)
 from ..ops.invoke import is_tracing, tracing
 from .parameter import Parameter
 
@@ -43,12 +53,60 @@ class _Children(dict):
         return iter(list(self.values()))
 
 
+def _first_tensor(items):
+    """The first tensor among ``items``, one level of list or tuple
+    nesting deep (an RNN's list of states), or None."""
+    for a in items:
+        if isinstance(a, torch.Tensor):
+            return a
+        if isinstance(a, (list, tuple)):
+            for b in a:
+                if isinstance(b, torch.Tensor):
+                    return b
+    return None
+
+
+def _call_context(args, kwargs):
+    """The context a call on ``args`` enters, or None to stay in the
+    current one."""
+    first = _first_tensor(args)
+    if first is None:
+        first = _first_tensor(kwargs.values())
+    if first is None:
+        return None
+    ctx = tensor_context(first)
+    current = current_context()
+    if ctx is None:                       # an unmarked CPU tensor
+        if current.type == "cpu":
+            return None
+        ctx = cpu(0)
+    return None if ctx == current else ctx
+
+
+def _mark_outputs(out, ctx):
+    if isinstance(out, torch.Tensor):
+        mark_context(out, ctx)
+    elif isinstance(out, (list, tuple)):
+        for o in out:
+            if isinstance(o, torch.Tensor):
+                mark_context(o, ctx)
+    return out
+
+
 class Block(nn.Module):
     """Base building block."""
 
     def __init__(self):
         super().__init__()
         self._reg_params = {}
+
+    def __call__(self, *args, **kwargs):
+        ctx = _call_context(args, kwargs)
+        if ctx is None:
+            return super().__call__(*args, **kwargs)
+        with context_scope(ctx):
+            out = super().__call__(*args, **kwargs)
+        return _mark_outputs(out, ctx) if ctx.type == "cpu" else out
 
     def __setattr__(self, name, value):
         reg = self.__dict__.get("_reg_params")
@@ -93,7 +151,8 @@ class Block(nn.Module):
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False, generator=None):
         """Allocate every parameter on ``ctx`` (None = the card; pass
-        ``mx.cpu()`` for the CPU) and fill it from ``generator``, a CPU
+        ``mx.cpu()`` for the CPU; a list keeps one copy of each parameter
+        on every context of it) and fill it from ``generator``, a CPU
         ``torch.Generator`` (None = one seeded with 0).  Parameters
         without an initializer of their own use ``init``.  Parameters of
         unknown shape are filled at the first forward, from the same
@@ -116,16 +175,16 @@ class Block(nn.Module):
 
     # -- save / load (reference block.py:209-250) ---------------------------
     def save_parameters(self, filename, deduplicate=False):
-        """Save every initialized parameter's values under its dotted
-        name (``deduplicate``: a parameter shared by several blocks
-        once, under its first name)."""
+        """Save every initialized parameter's values (its first copy)
+        under its dotted name (``deduplicate``: a parameter shared by
+        several blocks once, under its first name)."""
         from ..utils.serialization import save_ndarrays
         arg_dict, seen = {}, set()
         for name, param in self._collect_params_with_prefix().items():
             if param._data is None or (deduplicate and id(param) in seen):
                 continue
             seen.add(id(param))
-            arg_dict[name] = param.data()
+            arg_dict[name] = param.list_data()[0]
         save_ndarrays(filename, arg_dict)
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,

@@ -8,7 +8,7 @@ process pool for Python-bound transforms.  With ``prefetch_to_device``
 the copies go through `io.DevicePrefetcher` (pinned slots, a side
 stream), ``depth`` batches ahead of the consumer.  ``device`` defaults
 to the card; the CPU must be asked for.  The reference's ``sharding=``
-is ROADMAP queue A item 7 and raises.  Each batch's production is timed
+is ROADMAP queue A item A7d and raises.  Each batch's production is timed
 as the ``data-wait`` step phase (`telemetry.step_phase`), as in the
 reference.
 """
@@ -123,7 +123,7 @@ class DataLoader:
         if sharding is not None:
             raise NotImplementedError(
                 "DataLoader(sharding=...) builds batches over a mesh: "
-                "ROADMAP queue A item 7 (distribution) in the port")
+                "ROADMAP queue A item A7d (distribution) in the port")
         self._dataset = dataset
         self._device = resolve_device(device)
         # an int is the prefetcher's depth; True takes env.prefetch_depth

@@ -60,8 +60,10 @@ Deferred parameter shapes are settled before the first step by one
 forward in predict mode (`Block._ensure_shapes`).  Train-mode randomness
 draws from ``generator`` (a CPU ``torch.Generator``), or from an
 enclosing ``autograd.record``/``train_mode`` scope's.  SPMD (``mesh``,
-``recipe``, ``partition_rules``, ``data_spec``) is not ported yet and
-raises ``NotImplementedError``.
+``recipe``, ``partition_rules``, ``data_spec``) and parameters with
+copies on several contexts are ROADMAP queue A item A7b and raise
+``NotImplementedError``; the record/backward/``Trainer.step`` loop
+trains over copies.
 
 Loss scaling (amp): a `amp.LossScaler`, ``scaler=`` or the one
 ``amp.init_trainer`` attached to the trainer, multiplies the backward
@@ -187,7 +189,7 @@ class FusedTrainStep:
                 partition_rules is not None or data_spec is not None:
             raise NotImplementedError(
                 "FusedTrainStep is single-device in the port: SPMD meshes "
-                "and recipes are ROADMAP queue A (distribution)")
+                "and recipes are ROADMAP queue A item A7b")
         self._block = block
         self._trainer = trainer
         self._scaler = scaler if scaler is not None else \
@@ -210,6 +212,12 @@ class FusedTrainStep:
             raise ValueError(f"{type(opt).__name__} has no update_multi; "
                              "use the eager record/backward/step path")
         self._block._ensure_shapes(*args)
+        several = [p.name for p in trainer._params if len(p.list_ctx()) > 1]
+        if several:
+            raise NotImplementedError(
+                f"parameters with copies on several contexts ({several[0]}, "
+                "...): FusedTrainStep over copies is ROADMAP queue A item "
+                "A7b; use the record/backward/Trainer.step loop")
         trainer._init_kvstore()
         trainer._init_states()
         params = self._block.collect_params()

@@ -8,7 +8,7 @@ import warnings
 
 import torch
 
-from ..context import resolve_device
+from ..context import mark_context, resolve_device
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
            "check_sha1", "shape_is_known"]
@@ -32,12 +32,15 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
     """`split_data` into one slice per context of ``ctx_list``, each
-    moved to its device."""
+    moved to its device.  With several contexts, each CPU slice is
+    marked with its own (`context.mark_context`), so a block called on
+    it uses that context's copies of the parameters."""
     data = torch.as_tensor(data)
     if len(ctx_list) == 1:
         return [data.to(resolve_device(ctx_list[0]))]
     slices = split_data(data, len(ctx_list), batch_axis, even_split)
-    return [s.to(resolve_device(ctx)) for s, ctx in zip(slices, ctx_list)]
+    return [mark_context(s.to(resolve_device(ctx)), ctx)
+            for s, ctx in zip(slices, ctx_list)]
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):

@@ -193,7 +193,7 @@ class ImageRecordIter(DataIter):
     def reshard(self, num_parts, part_index):
         raise NotImplementedError(
             "ImageRecordIter.reshard (an elastic change of the world) is "
-            "ROADMAP queue A item 7 (distribution) in the port")
+            "ROADMAP queue A item A7d (distribution) in the port")
 
     def close(self):
         if getattr(self, "_handle", None):

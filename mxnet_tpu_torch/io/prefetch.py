@@ -19,7 +19,7 @@ card while the card runs the previous steps, so a step waits for
 ``dtypes=`` casts on the host, before the copy, as the reference does.
 On the CPU (``ctx=cpu()``) it is a plain ordered queue of CPU tensors.
 The reference's ``sharding=`` (per-device global batches over a mesh)
-is ROADMAP queue A item 7 and raises.  As in the reference, the counts
+is ROADMAP queue A item A7d and raises.  As in the reference, the counts
 are published to the telemetry registry (``mxtpu_prefetch_batches_total``,
 the ``mxtpu_prefetch_ring_occupancy`` gauge and the
 ``mxtpu_prefetch_wait_seconds`` histogram), and the feeder polls
@@ -114,7 +114,7 @@ class DevicePrefetcher:
         if sharding is not None:
             raise NotImplementedError(
                 "DevicePrefetcher(sharding=...) builds batches over a mesh: "
-                "ROADMAP queue A item 7 (distribution) in the port")
+                "ROADMAP queue A item A7d (distribution) in the port")
         self._device = resolve_device(ctx)
         self._cuda = self._device.type == "cuda"
         self._depth = max(1, int(depth if depth is not None

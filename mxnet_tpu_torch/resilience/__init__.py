@@ -23,7 +23,7 @@
 The reference's ``elastic`` module (``ElasticSupervisor``,
 ``ElasticWorld``, ``EmulatedPod``, ``scaled_lr``) rebuilds the kvstore,
 the bucketer and the fused step for a survivor world; it waits for the
-port's distribution layer (ROADMAP queue A7), and naming it raises.
+port's distribution layer (ROADMAP queue A7d), and naming it raises.
 """
 from __future__ import annotations
 
@@ -63,5 +63,5 @@ def __getattr__(name):
         raise NotImplementedError(
             f"resilience.{name} is the reference's elastic layer, which "
             "reshards onto a survivor world through the kvstore and the "
-            "bucketer: ROADMAP queue A7 (distribution) in the port")
+            "bucketer: ROADMAP queue A7d (distribution) in the port")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -27,7 +27,8 @@ train-mode draws take their seed words from: without it a resumed run
 would draw other dropout bits.  The reference ignores that key, and a
 reference checkpoint without it leaves the generator as it is.  The
 kvstore's error-feedback residuals, the reference's ``kvres/`` and
-``bucketres/`` arrays, wait for the port's kvstore (ROADMAP queue A7):
+``bucketres/`` arrays, wait for the kvstore's compression and
+bucketing (ROADMAP queue A7c):
 a checkpoint that holds them raises.
 
 Arrays are host copies: numpy arrays, except where numpy has no dtype
@@ -47,7 +48,7 @@ keep-last-K pruning (``MXNET_CHECKPOINT_KEEP``), ``restore_latest``
 with automatic fallback, and ``mxtpu_checkpoint_*`` telemetry.
 
 The port runs one rank (``torch.distributed``'s rank and world when a
-process group is up, else 0 and 1) until ROADMAP queue A7: a checkpoint
+process group is up, else 0 and 1) until ROADMAP queue A7b: a checkpoint
 saved by a larger world raises :class:`CheckpointTopologyError`, and
 ``reshard=True`` raises ``NotImplementedError``.
 """
@@ -427,6 +428,7 @@ def gather_training_state(trainer, step, scaler=None, include_rng=True,
     synchronization."""
     from .. import random as _rng
 
+    _one_copy(trainer)
     trainer._init_states()
     arrays, meta = {}, {"step": int(step)}
     names = [p.name for p in trainer._params]
@@ -471,6 +473,18 @@ def gather_training_state(trainer, step, scaler=None, include_rng=True,
     return arrays, meta
 
 
+def _one_copy(trainer):
+    """Raise for a trainer over parameters with copies on several
+    contexts, whose checkpoints are ROADMAP queue A7d."""
+    several = [p.name for p in trainer._params if len(p.list_ctx()) > 1]
+    if several:
+        raise NotImplementedError(
+            f"parameters with copies on several contexts ({several[0]}, "
+            "...): their training-state checkpoints are ROADMAP queue A "
+            "item A7d; Block.save_parameters and Trainer.save_states save "
+            "them")
+
+
 def _to_tensor(a):
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(
         onp.ascontiguousarray(a))
@@ -489,7 +503,7 @@ def restore_training_state(arrays, meta, trainer, scaler=None,
     and no default generator makes one.  A checkpoint saved by a larger
     world raises :class:`CheckpointTopologyError`; ``reshard=True``,
     recipe-sharded params and kvstore residuals raise
-    ``NotImplementedError`` (ROADMAP queue A7)."""
+    ``NotImplementedError`` (ROADMAP queue A7c, A7d)."""
     from .. import random as _rng
     from ..ops import invoke as _invoke
     from ..ops import threefry as _threefry
@@ -497,14 +511,15 @@ def restore_training_state(arrays, meta, trainer, scaler=None,
     if reshard:
         raise NotImplementedError(
             "restore_training_state(reshard=True) restores onto a survivor "
-            "world, which is ROADMAP queue A7 (distribution)")
+            "world, which is ROADMAP queue A7d (distribution)")
     if meta.get("sharded_params") or meta.get("bucket_residuals") or any(
             k.startswith(("kvres/", "bucketres/", "paramshard/"))
             for k in arrays):
         raise NotImplementedError(
             "this checkpoint holds recipe-sharded params or kvstore "
             "residuals, which wait for the port's kvstore (ROADMAP queue "
-            "A7, distribution)")
+            "A7c, distribution)")
+    _one_copy(trainer)
     trainer._init_states()
     saved = meta.get("world")
     live = {"copies": 1, "processes": _world()[1]}
@@ -515,7 +530,7 @@ def restore_training_state(arrays, meta, trainer, scaler=None,
             f"{saved.get('copies')} device copies ({saved.get('processes')} "
             f"process(es)), live world has 1 device copy "
             f"({live['processes']} process(es)); resharding onto another "
-            "world is ROADMAP queue A7", saved_world=dict(saved),
+            "world is ROADMAP queue A7d", saved_world=dict(saved),
             live_world=live)
     with torch.no_grad():
         for i, p in enumerate(trainer._params):

@@ -10,8 +10,8 @@ arrival index IS the step number).  Sites re-count from 1 after
 ``clear()``/``plan()``, so a chaos test is reproducible bit for bit.
 
 Sites (each has a hook in the named module of the reference; in the
-port, the kvstore, collective and serving sites wait for their modules,
-ROADMAP queue A6 and A7):
+port, ``kvstore.kv`` waits for the store across ranks, ROADMAP queue
+A7b, and ``collective.dispatch`` for the bucketer, A7c):
 
 =================== ======================================================
 site                 hook location

@@ -15,7 +15,7 @@ Three failure classes, three policies (docs/RESILIENCE.md):
   :func:`abort_to_checkpoint` — flush the checkpoint manager and raise
   :class:`DeadNodeError` so the launcher can restart the job against
   the surviving hosts; resumption costs one checkpoint interval, not
-  the run.  The port runs one rank until ROADMAP queue A7: without a
+  the run.  The port runs one rank until ROADMAP queue A7b: without a
   ``store``, :func:`check_peers` finds no peer dead, as the reference
   does with a single rank.
 """

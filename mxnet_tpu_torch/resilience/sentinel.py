@@ -8,9 +8,9 @@ counters).
   the caller raises :class:`DegradedNodeError` (a
   :class:`~mxnet_tpu_torch.resilience.policies.DeadNodeError`
   subclass).  The reference's supervisor that reshards past it is
-  ROADMAP queue A7 in the port.
+  ROADMAP queue A7d in the port.
 * **Silent corruption** — the integrity sideband is the kvstore's
-  (A7); this module owns the counter it ticks.
+  (A7c); this module owns the counter it ticks.
 * **Divergence** — :class:`DivergenceSentinel` watches the loss the
   training loop already reads: a spike past
   ``MXNET_SENTINEL_LOSS_FACTOR`` x the warmed-up EMA (or a non-finite

@@ -95,9 +95,9 @@ def test_join_leave_matches_jax_batcher_and_oracle(rng):
     prompts = [rng.integers(0, 50, size=rng.integers(1, 6))
                .astype(onp.int32) for _ in range(7)]
     budgets = [1, 3, 6, 4, 2, 5, 6]
-    with RefBatcher(*_int_lm_ref(), slots=3, name="t_cont") as ref_cb:
+    with RefBatcher(*_int_lm_ref(), slots=3, name="pt_cont") as ref_cb:
         theirs = _run(ref_cb, prompts, budgets)
-    with ContinuousBatcher(prefill, decode, slots=3, name="t_cont") as cb:
+    with ContinuousBatcher(prefill, decode, slots=3, name="pt_cont") as cb:
         mine = _run(cb, prompts, budgets)
     for out, ref_out, p, b in zip(mine, theirs, prompts, budgets):
         assert out.dtype == ref_out.dtype == onp.int64
@@ -120,10 +120,10 @@ def test_eos_terminates_and_is_excluded_as_jax():
             break
     assert prompt is not None
     with RefBatcher(*_int_lm_ref(), slots=2, eos_id=eos,
-                    name="t_eos") as ref_cb:
+                    name="pt_eos") as ref_cb:
         theirs = ref_cb.generate(prompt, max_new_tokens=12, timeout=60)
     with ContinuousBatcher(prefill, decode, slots=2, eos_id=eos,
-                           name="t_eos") as cb:
+                           name="pt_eos") as cb:
         mine = cb.generate(prompt, max_new_tokens=12, timeout=60)
     expect = oracle(prompt, 12, eos_id=eos)
     assert len(expect) < 12              # eos actually fired early
@@ -151,7 +151,7 @@ def test_bad_carry_fails_only_that_future():
     outs = {}
     for key, make, fns in (("ref", RefBatcher, (ref_prefill, ref_decode)),
                            ("port", ContinuousBatcher, (prefill, decode))):
-        with make(*fns, slots=2, name="t_badcarry") as cb:
+        with make(*fns, slots=2, name="pt_badcarry") as cb:
             first = cb.generate(onp.asarray([9, 2, 4], onp.int32),
                                 max_new_tokens=1, timeout=60)
             bad = cb.submit(onp.asarray([1, 2], onp.int32),
@@ -169,7 +169,7 @@ def test_bad_carry_fails_only_that_future():
 
 def test_validation_and_close():
     prefill, decode, _ = _int_lm()
-    cb = ContinuousBatcher(prefill, decode, slots=2, name="t_cval",
+    cb = ContinuousBatcher(prefill, decode, slots=2, name="pt_cval",
                            start=False)
     with pytest.raises(ValueError, match="non-empty 1-D"):
         cb.submit(onp.zeros((2, 3), onp.int32))
@@ -185,7 +185,7 @@ def test_validation_and_close():
 
 def test_nondrain_close_fails_waiting():
     prefill, decode, _ = _int_lm()
-    cb = ContinuousBatcher(prefill, decode, slots=1, name="t_cnodrain",
+    cb = ContinuousBatcher(prefill, decode, slots=1, name="pt_cnodrain",
                            start=False)
     futs = [cb.submit(onp.asarray([i + 1], onp.int32), max_new_tokens=4)
             for i in range(3)]
@@ -288,9 +288,9 @@ def test_word_lm_greedy_decode_matches_jax():
     prompts = [rng.integers(0, VOCAB, size=n).astype(onp.int32)
                for n in (3, 6, 3, 6, 3)]
     budgets = [6, 3, 5, 2, 8]
-    with RefBatcher(*_lm_fns_ref(ref), slots=3, name="t_lm") as ref_cb:
+    with RefBatcher(*_lm_fns_ref(ref), slots=3, name="pt_lm") as ref_cb:
         theirs = _run(ref_cb, prompts, budgets)
-    with ContinuousBatcher(*_lm_fns(net), slots=3, name="t_lm") as cb:
+    with ContinuousBatcher(*_lm_fns(net), slots=3, name="pt_lm") as cb:
         mine = _run(cb, prompts, budgets)
     ref_run = _ref_steps(ref)
     for out, ref_out, p, b in zip(mine, theirs, prompts, budgets):
@@ -343,7 +343,7 @@ def test_decode_captures_once_and_resets_without_retrace(standin, rng):
             raise RuntimeError("decode failed")
         return decode(h_stack, toks)
 
-    name = "t_capture"
+    name = "pt_capture"
     wd = telemetry.watchdog()
     before = wd.retrace_count(f"serve/{name}/decode")
     prompts = [rng.integers(0, 50, size=3).astype(onp.int32)

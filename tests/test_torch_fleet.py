@@ -103,7 +103,7 @@ def test_fleet_batched_matches_jax_fleet(rng):
     xs = [rng.standard_normal((n, 8)).astype(onp.float32)
           for n in (1, 3, 2, 4, 1, 2)]
     clss = ["interactive", "standard", "batch"]
-    kw = dict(replicas=2, name="t_parity", max_batch_size=4,
+    kw = dict(replicas=2, name="pt_parity", max_batch_size=4,
               max_latency_ms=2)
     outs = {}
     for key, make, make_kw in (("ref", RefFleet, {}),
@@ -127,9 +127,9 @@ def test_priority_ordering_under_full_queue():
     order = [("batch", 0), ("batch", 1), ("standard", 2),
              ("standard", 3), ("interactive", 4), ("interactive", 5)]
     popped = {}
-    fleets = {"ref": RefFleet(ref, replicas=1, name="t_prio", start=False,
+    fleets = {"ref": RefFleet(ref, replicas=1, name="pt_prio", start=False,
                               max_batch_size=4, max_latency_ms=1),
-              "port": Fleet(net, replicas=1, name="t_prio", start=False,
+              "port": Fleet(net, replicas=1, name="pt_prio", start=False,
                             devices=CPU, max_batch_size=4,
                             max_latency_ms=1)}
     futs = []
@@ -157,7 +157,7 @@ def test_priority_ordering_under_full_queue():
 
 def test_deadline_shed_is_distinct_error(rng):
     _, net = _pair()
-    fleet = Fleet(net, replicas=1, name="t_shed", start=False, devices=CPU,
+    fleet = Fleet(net, replicas=1, name="pt_shed", start=False, devices=CPU,
                   max_batch_size=4, max_latency_ms=1)
     x = rng.standard_normal((1, 8)).astype(onp.float32)
     fut = fleet.submit(x, cls="interactive", timeout_ms=30)
@@ -176,9 +176,9 @@ def test_unknown_service_class_message_equals_jax():
     ref, net = _pair()
     msgs = []
     for fleet, exc_type in (
-            (RefFleet(ref, replicas=1, name="t_unknown", start=False),
+            (RefFleet(ref, replicas=1, name="pt_unknown", start=False),
              Exception),
-            (Fleet(net, replicas=1, name="t_unknown", start=False,
+            (Fleet(net, replicas=1, name="pt_unknown", start=False,
                    devices=CPU), UnknownServiceClass)):
         with pytest.raises(exc_type) as exc:
             fleet.submit(onp.zeros((1, 8), onp.float32), cls="premium")
@@ -191,7 +191,7 @@ def test_unknown_service_class_message_equals_jax():
 def test_pinned_submit_to_unroutable_replica_carries_fleet_state(rng):
     ref, net = _pair()
     x = rng.standard_normal((1, 8)).astype(onp.float32)
-    with Fleet(net, replicas=2, name="t_pin", devices=CPU, max_batch_size=4,
+    with Fleet(net, replicas=2, name="pt_pin", devices=CPU, max_batch_size=4,
                max_latency_ms=2) as fleet:
         fleet.replicas[1].set_state(EJECTED)
         with pytest.raises(ReplicaUnavailable) as exc:
@@ -208,7 +208,7 @@ def test_pinned_submit_to_unroutable_replica_carries_fleet_state(rng):
 def test_pinned_submit_validates_replica_index(rng):
     ref, net = _pair()
     x = rng.standard_normal((1, 8)).astype(onp.float32)
-    with Fleet(net, replicas=2, name="t_pin_range", devices=CPU,
+    with Fleet(net, replicas=2, name="pt_pin_range", devices=CPU,
                max_batch_size=4, max_latency_ms=2) as fleet:
         for bad in (2, 7, -1, -2):
             with pytest.raises(ReplicaUnavailable,
@@ -228,7 +228,7 @@ def test_more_replicas_than_devices_warns_as_jax():
         with pytest.warns(RuntimeWarning, match="share devices") as rec:
             fleet = make(ref if make is RefFleet else net,
                          replicas=len(jax.devices()) + 1,
-                         name="t_overcommit", start=False, **kw)
+                         name="pt_overcommit", start=False, **kw)
         texts.append([str(w.message) for w in rec
                       if issubclass(w.category, RuntimeWarning)])
         fleet.shutdown()
@@ -246,7 +246,7 @@ def test_fleet_requires_card_unless_cpu_is_named():
 def test_nondrain_shutdown_fails_queued_futures_no_strand(rng):
     _, net = _pair()
     x = rng.standard_normal((1, 8)).astype(onp.float32)
-    fleet = Fleet(net, replicas=1, name="t_nodrain", start=False,
+    fleet = Fleet(net, replicas=1, name="pt_nodrain", start=False,
                   devices=CPU, max_batch_size=4, max_latency_ms=1)
     futs = [fleet.submit(x, timeout_ms=60_000) for _ in range(4)]
     fleet.shutdown(drain=False)          # dispatcher never started
@@ -258,7 +258,7 @@ def test_nondrain_shutdown_fails_queued_futures_no_strand(rng):
 def test_no_healthy_replica_when_all_dead(rng):
     ref, net = _pair()
     x = rng.standard_normal((1, 8)).astype(onp.float32)
-    fleet = Fleet(net, replicas=1, name="t_alldead", devices=CPU,
+    fleet = Fleet(net, replicas=1, name="pt_alldead", devices=CPU,
                   max_batch_size=4, max_latency_ms=2)
     _close(fleet.predict(x, timeout_ms=60_000), _ref_forward(ref, x))
     fleet.kill_replica(0)
@@ -301,7 +301,7 @@ def test_ejection_and_probe_readmission_end_to_end(rng):
     fault clears, and the held request still completes."""
     ref, net = _pair()
     x = rng.standard_normal((2, 8)).astype(onp.float32)
-    fleet = Fleet(net, replicas=1, name="t_eject", devices=CPU,
+    fleet = Fleet(net, replicas=1, name="pt_eject", devices=CPU,
                   max_batch_size=4, max_latency_ms=1, probe_interval=0.05)
     fleet.warmup(x)                     # seeds the 1-row probe payload
     faultline.plan([{"site": "serve.model_call", "kind": "timeout",
@@ -311,7 +311,7 @@ def test_ejection_and_probe_readmission_end_to_end(rng):
     rep = fleet.replicas[0]
     assert rep.state == HEALTHY         # readmitted by a probe success
     assert _sample("mxtpu_fleet_probes_total",
-                   {"fleet": "t_eject", "outcome": "ok"}) >= 1
+                   {"fleet": "pt_eject", "outcome": "ok"}) >= 1
     assert rep.consecutive_failures == 0
     fleet.shutdown(drain=True)
 
@@ -320,7 +320,7 @@ def test_kill_replica_mid_traffic_zero_drop(rng):
     ref, net = _pair()
     xs = [rng.standard_normal((1 + i % 3, 8)).astype(onp.float32)
           for i in range(8)]
-    fleet = Fleet(net, replicas=2, name="t_kill", devices=CPU,
+    fleet = Fleet(net, replicas=2, name="pt_kill", devices=CPU,
                   max_batch_size=4, max_latency_ms=2)
     fleet.warmup(xs[0])
     before = _sample("mxtpu_faults_recovered_total",
@@ -350,7 +350,7 @@ def test_endpoint_hot_swap_pins_in_flight_version(rng):
     want_old, want_new = _ref_forward(ref_old, x), _ref_forward(ref_new, x)
     assert not onp.allclose(want_old, want_new)   # the swap is observable
 
-    ep = Endpoint(old, name="t_swap_ep", device="cpu", max_batch_size=4,
+    ep = Endpoint(old, name="pt_swap_ep", device="cpu", max_batch_size=4,
                   max_latency_ms=1, start=False)
     f_old = ep.submit(x)                 # admitted under version 0
     assert ep.swap_model(new) == 1       # no live cache to stage yet
@@ -369,7 +369,7 @@ def test_fleet_hot_swap_under_load(rng):
     ref_new, new = _pair(seed=32)
     x = rng.standard_normal((2, 8)).astype(onp.float32)
     want_old, want_new = _ref_forward(ref_old, x), _ref_forward(ref_new, x)
-    with Fleet(old, replicas=2, name="t_swap_fleet", devices=CPU,
+    with Fleet(old, replicas=2, name="pt_swap_fleet", devices=CPU,
                max_batch_size=4, max_latency_ms=1) as fleet:
         fleet.warmup(x)
         futs = [fleet.submit(x, timeout_ms=60_000) for _ in range(6)]
@@ -416,7 +416,7 @@ def test_default_classes_match_jax():
 def test_endpoint_stats_expose_wait_and_execute_quantiles(rng):
     _, net = _pair()
     x = rng.standard_normal((2, 8)).astype(onp.float32)
-    with Endpoint(net, name="t_quant", device="cpu", max_batch_size=4,
+    with Endpoint(net, name="pt_quant", device="cpu", max_batch_size=4,
                   max_latency_ms=1) as ep:
         for _ in range(5):
             ep.predict(x)
@@ -433,7 +433,7 @@ def test_histogram_quantile_matches_jax():
     got = {}
     for key, reg in (("ref", ref_telemetry.MetricsRegistry()),
                      ("port", telemetry.MetricsRegistry())):
-        h = reg.histogram("t_q_seconds", "test", buckets=(1.0, 2.0, 4.0))
+        h = reg.histogram("pt_q_seconds", "test", buckets=(1.0, 2.0, 4.0))
         assert h.quantile(0.5) is None
         for v in values:
             h.observe(v)
@@ -447,7 +447,7 @@ def test_histogram_quantile_matches_jax():
 def test_fleet_sla_report_shape(rng):
     _, net = _pair()
     x = rng.standard_normal((1, 8)).astype(onp.float32)
-    with Fleet(net, replicas=1, name="t_sla", devices=CPU, max_batch_size=4,
+    with Fleet(net, replicas=1, name="pt_sla", devices=CPU, max_batch_size=4,
                max_latency_ms=1) as fleet:
         fleet.warmup(x)
         fleet.predict(x, cls="interactive", timeout_ms=60_000)
@@ -492,14 +492,14 @@ def test_prometheus_families_match_jax(rng):
     for key, make, kw, tele in (
             ("ref", RefFleet, {}, ref_telemetry),
             ("port", Fleet, {"devices": CPU}, telemetry)):
-        with make(ref if key == "ref" else net, replicas=2, name="t_prom",
+        with make(ref if key == "ref" else net, replicas=2, name="pt_prom",
                   max_batch_size=4, max_latency_ms=1, **kw) as fleet:
             fleet.warmup(x)
             for cls in ("interactive", "batch"):
                 fleet.predict(x, cls=cls, timeout_ms=60_000)
         texts[key] = tele.export_prometheus()
-    port, theirs = _series(texts["port"], "t_prom"), \
-        _series(texts["ref"], "t_prom")
+    port, theirs = _series(texts["port"], "pt_prom"), \
+        _series(texts["ref"], "pt_prom")
     families = {n for n, _ in port}
     assert any(n.startswith("mxtpu_fleet_") for n in families)
     assert any(n.startswith("mxtpu_serve_") for n in families)
@@ -513,7 +513,7 @@ def test_submit_shutdown_eject_fuzz(rng):
     draining shutdown: every future obtained from submit() resolves
     exactly once, with a result or a typed error."""
     _, net = _pair()
-    fleet = Fleet(net, replicas=2, name="t_fuzz", devices=CPU,
+    fleet = Fleet(net, replicas=2, name="pt_fuzz", devices=CPU,
                   max_batch_size=4, max_latency_ms=1)
     x = rng.standard_normal((1, 8)).astype(onp.float32)
     fleet.warmup(x)
@@ -580,7 +580,7 @@ def test_jax_endpoint_and_port_endpoint_agree_after_swap(rng):
     for key, make, models, kw in (
             ("ref", RefEndpoint, (ref_old, ref_new), {}),
             ("port", Endpoint, (old, new), {"device": "cpu"})):
-        with make(models[0], name="t_swap_pair", max_batch_size=4,
+        with make(models[0], name="pt_swap_pair", max_batch_size=4,
                   max_latency_ms=1, **kw) as ep:
             ep.warmup(x)
             before = ep.predict(x)

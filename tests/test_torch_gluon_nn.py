@@ -402,7 +402,12 @@ def test_initialize_takes_a_one_element_context_list():
     net.initialize(ctx=[cpu()])
     net(torch.ones(2, 4))
     assert net.weight.data().device.type == "cpu"
-    with pytest.raises(mxt.MXNetError, match="A7"):
-        nn.Dense(3, in_units=2).initialize(ctx=[cpu(), cpu(1)])
-    with pytest.raises(mxt.MXNetError, match="A7"):
+    # several contexts keep a copy on each (data parallelism in one
+    # process); an empty list or a context named twice raises
+    two = nn.Dense(3, in_units=2)
+    two.initialize(ctx=[cpu(), cpu(1)])
+    assert two.weight.list_ctx() == [cpu(), cpu(1)]
+    with pytest.raises(mxt.MXNetError, match="empty"):
         nn.Dense(3, in_units=2).initialize(ctx=[])
+    with pytest.raises(mxt.MXNetError, match="twice"):
+        nn.Dense(3, in_units=2).initialize(ctx=[cpu(1), cpu(1)])

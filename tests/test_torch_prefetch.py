@@ -142,7 +142,7 @@ def test_depth_default_from_the_environment(monkeypatch):
 
 
 def test_sharding_and_the_default_card():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(NotImplementedError, match="A7d"):
         DevicePrefetcher(iter([]), ctx=cpu(), sharding=object())
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")

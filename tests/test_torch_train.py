@@ -461,10 +461,15 @@ def test_dropout_training_is_seeded():
 
 def test_single_device_contract():
     mod, trainer, _args = _tiny_trainer()
-    with pytest.raises(NotImplementedError, match="one device"):
-        Trainer(mod.collect_params(), "adam", kvstore="dist_sync")
-    with pytest.raises(NotImplementedError, match="single-device"):
+    # a distributed store's name is taken (its store reduces copies in
+    # one process); meshes and compression name their queue items
+    assert Trainer(mod.collect_params(), "adam",
+                   kvstore="dist_sync").kvstore.type == "tpu_ici"
+    with pytest.raises(NotImplementedError, match="A7b"):
         FusedTrainStep(mod, trainer, mesh=object())
+    with pytest.raises(NotImplementedError, match="A7c"):
+        Trainer(mod.collect_params(), "adam",
+                compression_params={"type": "2bit"})
     # loss scaling is ported: an explicit scaler is taken, not refused
     scaler = mxt.amp.LossScaler()
     assert FusedTrainStep(mod, trainer, scaler=scaler)._scaler is scaler
