@@ -351,12 +351,38 @@ the package is missing.  Phases, each fatal on failure:
    the LSTM layers on the card bitwise its plain CPU computation from
    the same key words.
 
+15. **Ranks** (``--ranks`` alone; `phase_ranks`).  Each world is this
+   script started again with ``--ranks-worker`` and the launcher's three
+   variables (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+   ``JAX_PROCESS_ID``), whose import of the package starts the rank's
+   ``torch.distributed`` group; a rank that fails, or a world past
+   RANKS_TIMEOUT, fails the script.  ResNet-50 v1 as `bench.py` builds
+   it for the dp mesh (bf16, SoftmaxCrossEntropyLoss, SGD lr 0.1
+   momentum 0.9, one seeded global batch of 128 at 224 x 224) through
+   `FusedTrainStep(mesh=make_mesh({"dp": -1}))`.  (a) Two ranks share
+   the card over gloo (the step's body eager), 64 rows a rank, 5 steps:
+   the weights' digests equal on both ranks after every step, B1 53 a
+   step on each, each step's ms, the collectives' ms in one more step
+   timed call by call and their share, peak memory; on rank 0, step 1's
+   per-row losses and each parameter's first update, and the mean loss
+   and the weights after 3 steps, against one rank on the global batch,
+   each within `RANKS_FACTOR` of the distance that rolling one rank's
+   rows makes (`RANKS_ROLLS`, `RANKS_FLOOR`).  (b) An NCCL group of one
+   rank: one capture, 0 host syncs a replay, B1 53 a replay traced on
+   the card and booked by its wrapper, the weights after 3 steps
+   bitwise the plain step's (cuDNN pinned deterministic), the replayed
+   step's ms beside the plain step's.  (c) Four ranks over NCCL, one
+   card each, where the machine has four cards, held as (a) is and
+   each rank's replays traced as (b)'s; else "not run: N card(s)".  (d) Two
+   ranks make the store; rank 1 exits after its second step and rank
+   0's ``get_dead_nodes(timeout=3)`` must name it (``rank:`` lines).
+
 Every measurement is printed on a line of its own (``kernel``,
 ``kernel_bwd``, ``kernel_bn``, ``kernel_stem``, ``kernel_rtc``,
 ``serve:``, ``fleet:``, ``continuous:``, ``train:``, ``train_amp:``,
 ``odd_bert:``, ``flash_crossover:``,
 ``ops:``, ``resnet:``, ``resnet_s2d:``, ``recordio:``, ``rtc:``, ``resnet_custom:``,
-``rnn_lm:``, ``profile:``).  The last three lines are a ``{"kernels": [...]}``
+``rnn_lm:``, ``profile:``, ``dp:``, ``rank:``).  The last three lines are a ``{"kernels": [...]}``
 object.  A captured path's ``launches`` are counted on the card, from
 the ``torch.profiler`` trace of its traced run (`KERNEL_NAMES`), with
 the wrappers' bookkeeping of the same run beside them as
@@ -2237,7 +2263,7 @@ TRACE_PAD, TRACE_PAD_CYCLES = 256, 10000
 TRACE_PAD_NAME = r"\bspin_kernel\b"
 
 
-def traced_launches(fn, reset):
+def traced_launches(fn, reset, agree=None):
     """Run ``fn()`` traced by ``torch.profiler`` (device activity only)
     between two runs of `TRACE_PAD` spin kernels; returns its result and
     the launches of each of `KERNEL_NAMES` the trace recorded, a CUDA
@@ -2246,7 +2272,10 @@ def traced_launches(fn, reset):
     trace lost at either end may reach into ``fn``'s launches: where
     fewer were kept (seen on an H100 right after another trace),
     ``reset()`` puts the caller's bookkeeping back to where it stood and
-    ``fn`` runs again under a fresh trace, once; a second loss fails."""
+    ``fn`` runs again under a fresh trace, once; a second loss fails.
+    ``agree(kept_enough)``, where ``fn`` is one step of several ranks,
+    returns whether every rank's trace kept enough, so that all of them
+    trace again or none does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2269,7 +2298,7 @@ def traced_launches(fn, reset):
         counts = _named_launches(prof, dict(KERNEL_NAMES,
                                             pad=TRACE_PAD_NAME))
         kept = counts.pop("pad")
-        if kept > TRACE_PAD:
+        if (agree or bool)(kept > TRACE_PAD):
             return result, counts
     raise SystemExit(f"the profiler kept {kept} of the {2 * TRACE_PAD} "
                      "spin kernels around a counted trace, twice")
@@ -4579,9 +4608,9 @@ def net_with_loss(net):
     return NetWithLoss(net)
 
 
-def resnet50(dev, seed=0, layout="NCHW"):
+def resnet50(dev, seed=0, layout="NCHW", dtype="bfloat16"):
     """``vision.resnet50_v1(layout=layout)``, Xavier from ``seed``, cast
-    to bf16."""
+    to ``dtype``."""
     import torch
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo import vision
@@ -4589,7 +4618,7 @@ def resnet50(dev, seed=0, layout="NCHW"):
     net = vision.resnet50_v1(layout=layout)
     net.initialize(init=mx.init.Xavier(), ctx=dev,
                    generator=torch.Generator().manual_seed(seed))
-    net.cast("bfloat16")
+    net.cast(dtype)
     return net
 
 
@@ -6768,6 +6797,620 @@ def phase_dp(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: ranks (processes of a torch.distributed group)
+# ---------------------------------------------------------------------------
+RANKS_BATCH, RANKS_STEPS, RANKS_CHECK_AFTER = RESNET_BATCH, 5, 3
+# (a) and (c) against one rank on the global batch.  Each reading is held
+# to RANKS_FACTOR times its distance between one rank on the rows in order
+# and one rank on the same rows rolled (the larger over RANKS_ROLLS): the
+# yardstick of a change of summation order alone; where the yardstick is
+# smaller, the dtype's floor stands in (RANKS_FLOORS: in bf16 two roundings,
+# as two ranks round each rank's gradient before the sum; in f32 the CPU
+# tests' rtol).  The readings: step 1's per-row losses (the forward), each
+# trainable parameter's first update (SGD's f32 momentum after step 1: -lr
+# x the rescaled global gradient), and after the last step compared the
+# mean loss and every weight at once.  In bf16, the path itself, compared
+# over RANKS_CHECK_AFTER steps, BatchNorm's single-pass statistics (the
+# reference's) amplify roundings where a channel's mean dwarfs its spread
+# (ROADMAP C14): rolled rows move step 1's per-row losses 1 % and most
+# parameters' first update by as much as the update itself, so a fault can
+# hide there.  The same step in f32 with cuDNN deterministic, one step,
+# gives the sharp readings.
+RANKS_FACTOR = 3.0
+RANKS_FLOORS = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+RANKS_ROLLS = (RANKS_BATCH // 2, RANKS_BATCH // 4)
+RANKS_KILL_AFTER, RANKS_DEAD_TIMEOUT = 2, 3.0
+RANKS_HEARTBEAT = 0.5
+RANKS_TIMEOUT = 300          # seconds a world may take, start-up included
+RANKS_TIMED = 10             # replays timed in (b)
+
+
+def _weight_digest(params):
+    """sha256 of every parameter's bytes, in name order (a host copy)."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for name in sorted(params):
+        t = params[name].data().detach().contiguous().flatten()
+        h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _timed_collectives(step, args, batch):
+    """One more step with every ``torch.distributed`` collective timed on
+    its own: the card synchronized and the ranks met at a barrier before
+    each (so a rank does not time its peer's kernels on the shared card),
+    the card synchronized after it (the step's own time is taken without
+    this)."""
+    import torch
+    import torch.distributed as dist
+
+    spent, calls = [0.0], [0]
+    real = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            calls[0] += 1
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn))
+    try:
+        step(*args, batch_size=batch)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    return spent[0] * 1e3, calls[0]
+
+
+def _trainable_copy(params):
+    """A copy of every trainable parameter's value, by name."""
+    return {n: p.data().detach().clone() for n, p in params.items()
+            if p.grad_req != "null"}
+
+
+def _first_updates(net, trainer):
+    """Every trainable parameter's SGD momentum after the first step (-lr
+    x its first rescaled gradient, in f32), by name."""
+    names = {id(p): n for n, p in net.collect_params().items()}
+    return {names[id(p)]: trainer._states[i][0].detach().clone()
+            for i, p in enumerate(trainer._params) if i in trainer._states}
+
+
+def _rel(mine, ref):
+    """||mine - ref|| / ||ref|| in f32."""
+    ref = ref.float()
+    return float((mine.float() - ref).norm() / ref.norm())
+
+
+def _rel_all(mine, ref):
+    """||mine - ref|| / ||ref|| over every tensor of ``ref`` at once."""
+    diff2 = norm2 = 0.0
+    for name, r in ref.items():
+        r = r.float()
+        diff2 += float((mine[name].float() - r).norm()) ** 2
+        norm2 += float(r.norm()) ** 2
+    return (diff2 / norm2) ** 0.5
+
+
+def _deterministic(fn):
+    """``fn()`` with cuDNN pinned to its deterministic algorithms."""
+    import torch
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _ranks_resnet(dev, mesh=None, dtype="bfloat16"):
+    """ResNet-50 v1 as `bench.py` builds it for the dp mesh (in bf16;
+    SoftmaxCrossEntropyLoss, SGD lr 0.1 momentum 0.9), its trainer, its
+    step over ``mesh`` (None: the single-device step), and the global
+    batch, in ``dtype``."""
+    import torch
+    from mxnet_tpu_torch.gluon import FusedTrainStep, Trainer
+
+    net = resnet50(dev, dtype=dtype)
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9})
+    step = FusedTrainStep(net_with_loss(net), trainer, mesh=mesh)
+    x, y = resnet_batch(dev)
+    return net, trainer, step, (x.to(getattr(torch, dtype)), y)
+
+
+def _steps_kept(net, trainer, step, args, steps):
+    """``steps`` steps: step 1's per-row losses and first updates, and the
+    mean loss and the trainable weights after each step."""
+    params, run = net.collect_params(), {"means": [], "weights": []}
+    for k in range(steps):
+        loss = step(*args, batch_size=RANKS_BATCH).float().clone()
+        if k == 0:
+            run["rows"], run["updates"] = loss, _first_updates(net, trainer)
+        run["means"].append(float(loss.mean()))
+        run["weights"].append(_trainable_copy(params))
+    return run
+
+
+def _one_rank_runs(dev, dtype, steps):
+    """`_steps_kept` of one rank on the global batch in ``dtype``: the
+    rows in order and half-rolled for ``steps`` steps, a quarter-rolled
+    for one (a roll's per-row losses rolled back)."""
+    import torch
+    runs = {}
+    for shift in (0,) + RANKS_ROLLS:
+        net, trainer, step, args = _ranks_resnet(dev, None, dtype)
+        if shift:
+            args = tuple(a.roll(shift, 0) for a in args)
+        run = _steps_kept(net, trainer, step, args,
+                          steps if shift in (0, RANKS_ROLLS[0]) else 1)
+        run["rows"] = run["rows"].roll(-shift, 0)
+        runs[shift] = run
+        del net, trainer, step, args
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _against_one_rank(dev, dtype, ranks):
+    """Rank 0 of (a) and (c): the ranks' `_steps_kept` held against one
+    rank's in ``dtype`` (see RANKS_FACTOR)."""
+    runs = _one_rank_runs(dev, dtype, len(ranks["means"]))
+    one, rolls = runs[0], [runs[s] for s in RANKS_ROLLS]
+    half, last = runs[RANKS_ROLLS[0]], len(ranks["means"]) - 1
+    floor = RANKS_FLOORS[dtype]
+
+    def held(reading, yardstick):
+        return {"ranks": reading, "rolled": yardstick,
+                "ratio": reading / max(yardstick, floor),
+                "ok": reading <= RANKS_FACTOR * max(yardstick, floor)}
+
+    rows = held(_rel(ranks["rows"], one["rows"]),
+                max(_rel(r["rows"], one["rows"]) for r in rolls))
+    params = {n: held(_rel(ranks["updates"][n], ref),
+                      max(_rel(r["updates"][n], ref) for r in rolls))
+              for n, ref in one["updates"].items()}
+    mean = abs(one["means"][last])
+    loss = held(abs(ranks["means"][last] - one["means"][last]) / mean,
+                abs(half["means"][last] - one["means"][last]) / mean)
+    weights = held(_rel_all(ranks["weights"][last], one["weights"][last]),
+                   _rel_all(half["weights"][last], one["weights"][last]))
+    worst = sorted(params, key=lambda n: -params[n]["ratio"])[:5]
+    out = {
+        "dtype": dtype, "steps": last + 1, "rolls": list(RANKS_ROLLS),
+        "factor": RANKS_FACTOR, "floor": floor,
+        "one_rank_losses": one["means"], "ranks_losses": ranks["means"],
+        "step1_rows": rows,
+        "step1_updates_failed": [n for n, p in params.items()
+                                 if not p["ok"]],
+        "step1_updates_worst": {n: params[n] for n in worst},
+        "step1_updates_median": {
+            k: statistics.median(p[k] for p in params.values())
+            for k in ("ranks", "rolled")},
+        "step1_updates": {n: [p["ranks"], p["rolled"]]
+                          for n, p in params.items()},
+        "loss_after": loss, "weights_after": weights}
+    out["ok"] = (rows["ok"] and not out["step1_updates_failed"] and
+                 loss["ok"] and weights["ok"])
+    return out
+
+
+def _ranks_dp(dev, out):
+    """(a) and (c): RANKS_STEPS steps of ResNet-50 over the dp mesh of
+    every rank, each timed to a sync, B1's launches counted from 0 a step,
+    the weights' digest after each; a captured step's launches counted in
+    TRACED_STEPS more steps traced; the collectives timed in one more
+    step (gloo: a captured step calls none from the host); one step of
+    the same net in f32, cuDNN deterministic; then, on rank 0, the first
+    RANKS_CHECK_AFTER bf16 steps and the f32 step against one rank on
+    the global batch (`_against_one_rank`)."""
+    import torch
+    import torch.distributed as dist
+    from mxnet_tpu_torch import _distributed
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh({"dp": -1})
+    torch.cuda.reset_peak_memory_stats()
+    net, trainer, step, args = _ranks_resnet(dev, mesh)
+    params = net.collect_params()
+    ms, b1, digests, means = [], [], [], []
+    kept = {"means": [], "weights": []}
+    for k in range(RANKS_STEPS):
+        torch.cuda.synchronize()
+        BN_BWD_REDUCE.launches = 0
+        t0 = time.perf_counter()
+        loss = step(*args, batch_size=RANKS_BATCH)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        b1.append(BN_BWD_REDUCE.launches)
+        means.append(float(loss.float().mean()))
+        digests.append(_weight_digest(params))
+        if rank == 0 and k == 0:
+            kept["rows"] = loss.float().clone()
+            kept["updates"] = _first_updates(net, trainer)
+        if rank == 0 and k < RANKS_CHECK_AFTER:
+            kept["means"].append(means[-1])
+            kept["weights"].append(_trainable_copy(params))
+    traced = None
+    if step.eager_reason is None:
+        def reset():
+            BN_BWD_REDUCE.launches = 0
+
+        def agree(ok):
+            flag = torch.tensor([int(ok)], device=dev)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            return bool(flag.item())
+
+        reset()
+        _, counts = traced_launches(
+            lambda: [step(*args, batch_size=RANKS_BATCH)
+                     for _ in range(TRACED_STEPS)], reset, agree)
+        traced = {"steps": TRACED_STEPS, "traced": counts["bn_bwd_reduce"],
+                  "booked": BN_BWD_REDUCE.launches}
+    coll_ms, coll_calls = _timed_collectives(step, args, RANKS_BATCH) \
+        if step.eager_reason else (None, 0)
+    median = statistics.median(ms[1:])
+    out.update({
+        "world": world, "backend": _distributed.backend(),
+        "device": str(dev), "global_batch": RANKS_BATCH,
+        "rows_a_rank": RANKS_BATCH // world, "step_ms": ms,
+        "median_step_ms": median, "losses": means,
+        "b1_launches_per_step": b1, "b1_traced": traced, "digests": digests,
+        "captures": step.captures, "eager_reason": step.eager_reason,
+        "collective_ms": coll_ms, "collective_calls": coll_calls,
+        "collective_share": None if coll_ms is None else coll_ms / median,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del net, trainer, step, args, params
+
+    def f32_step():
+        net, trainer, step, args = _ranks_resnet(dev, mesh, "float32")
+        run = _steps_kept(net, trainer, step, args, 1)
+        run["digest"] = _weight_digest(net.collect_params())
+        return run
+
+    f32 = _deterministic(f32_step)
+    out["f32_digest"] = f32.pop("digest")
+    dist.barrier()
+    if rank == 0 and world > 1:
+        out["one_rank"] = _against_one_rank(dev, "bfloat16", kept)
+        out["one_rank_f32"] = _deterministic(
+            lambda: _against_one_rank(dev, "float32", f32))
+
+
+def _ranks_nccl1(dev, out):
+    """(b): an NCCL group of one rank: ResNet-50 over the dp mesh and the
+    plain single-device step from the same seed, cuDNN pinned
+    deterministic, RANKS_CHECK_AFTER steps each, weights compared
+    bitwise; the mesh step's captures, host syncs a replay, B1's launches
+    in TRACED_STEPS replays traced and booked, and replayed step ms (the
+    plain step's beside it)."""
+    import torch
+    from mxnet_tpu_torch import _distributed
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    def reset():
+        BN_BWD_REDUCE.launches = 0
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    for label, mesh in (("mesh", make_mesh({"dp": -1})), ("plain", None)):
+        net, _, step, args = _ranks_resnet(dev, mesh)
+        losses = [float(step(*args, batch_size=RANKS_BATCH).float().mean())
+                  for _ in range(RANKS_CHECK_AFTER)]
+        weights = {n: p.data().detach().clone()
+                   for n, p in net.collect_params().items()}
+        reset()
+        _, counts = traced_launches(
+            lambda: [step(*args, batch_size=RANKS_BATCH)
+                     for _ in range(TRACED_STEPS)], reset)
+        b1 = {"replays": TRACED_STEPS, "traced": counts["bn_bwd_reduce"],
+              "booked": BN_BWD_REDUCE.launches}
+        syncs, _ = _count_syncs(lambda: step(*args, batch_size=RANKS_BATCH))
+        replay_ms = cuda_ms(lambda: step(*args, batch_size=RANKS_BATCH),
+                            iters=RANKS_TIMED, warmup=1)
+        runs[label] = {"losses": losses, "weights": weights,
+                       "captures": step.captures, "host_syncs": syncs,
+                       "replay_ms": replay_ms, "b1": b1,
+                       "eager_reason": step.eager_reason}
+        del net, step, args
+        torch.cuda.empty_cache()
+    mesh, plain = runs["mesh"], runs["plain"]
+    bitwise = all(torch.equal(mesh["weights"][n], plain["weights"][n])
+                  for n in plain["weights"])
+    for run in runs.values():
+        del run["weights"]
+    out.update({"backend": _distributed.backend(), "world": 1,
+                "weights_bitwise_plain": bitwise,
+                "losses_equal": mesh["losses"] == plain["losses"], **runs})
+
+
+def _ranks_live(dev, out):
+    """(d): both ranks make the store and take RANKS_KILL_AFTER steps of a
+    small net over the dp mesh; then rank 1 exits without a word and rank
+    0 polls ``get_dead_nodes(timeout=RANKS_DEAD_TIMEOUT)`` until it names
+    rank 1."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from mxnet_tpu_torch import gluon, kv
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    rank = dist.get_rank()
+    store = kv.create("tpu_ici")
+    net = gluon.nn.Dense(16, in_units=32)
+    net.initialize(ctx=dev, generator=torch.Generator().manual_seed(rank))
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1})
+
+    class L2(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            return (self.net(x) ** 2).sum(1)
+
+    step = gluon.FusedTrainStep(L2(), trainer, mesh=make_mesh({"dp": -1}))
+    x = torch.randn(8, 32, generator=torch.Generator().manual_seed(5)).to(dev)
+    for _ in range(RANKS_KILL_AFTER):
+        step(x, batch_size=8)
+        store.record_steptime(0.01 * (rank + 1))
+    torch.cuda.synchronize()
+    dist.barrier()
+    steptimes = store.read_steptimes()
+    live = store.get_dead_nodes(timeout=RANKS_DEAD_TIMEOUT)
+    dist.barrier()
+    if rank == 1:
+        os._exit(0)                 # no goodbye: its heartbeat just stops
+    t0 = time.perf_counter()
+    polls, dead = 0, []
+    while not dead and time.perf_counter() - t0 < 30:
+        time.sleep(0.25)
+        dead = store.get_dead_nodes(timeout=RANKS_DEAD_TIMEOUT)
+        polls += 1
+    out.update({"dead": dead, "detect_s": time.perf_counter() - t0,
+                "polls": polls, "live_before": live,
+                "steptimes": {str(k): v for k, v in steptimes.items()},
+                "timeout": RANKS_DEAD_TIMEOUT,
+                "heartbeat_interval": RANKS_HEARTBEAT})
+    store.close()
+
+
+RANKS_MODES = {"gloo2": _ranks_dp, "nccl1": _ranks_nccl1,
+               "nccl4": _ranks_dp, "live": _ranks_live}
+
+
+def ranks_worker(mode, path):
+    """One rank of phase 15, started by `phase_ranks` with the launcher's
+    variables (the package's import started its group): runs ``mode``
+    and writes its result to ``path`` with the rank's number."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import _distributed
+
+    dev = _distributed.device()
+    out = {"rank": dist.get_rank(), "mode": mode}
+    RANKS_MODES[mode](dev, out)
+    with open(f"{path}.{dist.get_rank()}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    log(f"rank {out['rank']} of {mode}: done")
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_world(mode, n, outdir, env=None):
+    """Start ``n`` ranks of ``mode`` (this script with ``--ranks-worker``
+    and the launcher's three variables), wait for all within
+    RANKS_TIMEOUT (killing every one past it), and return their exit
+    codes, logs and results; each rank logs to a file of its own."""
+    import os
+    port = _free_port()
+    path = os.path.join(outdir, mode)
+    procs, logs = [], []
+    for r in range(n):
+        logs.append(open(f"{path}.{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ranks-worker",
+             mode, path],
+            stdout=logs[-1], stderr=subprocess.STDOUT,
+            env=dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                     JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(r),
+                     **(env or {}))))
+    deadline = time.perf_counter() + RANKS_TIMEOUT
+    codes = []
+    try:
+        for p in procs:
+            codes.append(p.wait(timeout=max(1.0, deadline -
+                                            time.perf_counter())))
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    texts = [open(f"{path}.{r}.log").read() for r in range(n)]
+    results = []
+    for r in range(n):
+        try:
+            with open(f"{path}.{r}.json") as f:
+                results.append(json.load(f))
+        except FileNotFoundError:
+            results.append(None)
+    return codes, texts, results
+
+
+def _world_or_die(mode, n, outdir, env=None, quiet_ranks=()):
+    """`_spawn_world`, failing the script when a rank failed, timed out or
+    wrote nothing (ranks in ``quiet_ranks`` exit by design without a
+    result)."""
+    t0 = time.perf_counter()
+    codes, texts, results = _spawn_world(mode, n, outdir, env)
+    bad = codes is None or any(c != 0 for c in codes) or any(
+        results[r] is None for r in range(n) if r not in quiet_ranks)
+    if bad:
+        for r, text in enumerate(texts):
+            log(f"rank {r} of {mode} (exit {None if codes is None else codes[r]}"
+                f"):\n" + text[-4000:])
+        raise SystemExit(f"ranks: the world {mode} of {n} failed: exit "
+                         f"codes {codes} (None: past {RANKS_TIMEOUT} s)")
+    return results, time.perf_counter() - t0
+
+
+def _against_one_rank_ok(label, ranks):
+    """Rank 0's comparisons with one rank, in bf16 and in f32: each
+    parameter's first-update distances (ranks, rolled) logged on a line of
+    their own; returns the summaries, the f32 digests' agreement across
+    ranks, and whether every check held."""
+    summary = {}
+    for key in ("one_rank", "one_rank_f32"):
+        one = ranks[0][key]
+        log(f"rank: {label} {one['dtype']} first updates by parameter "
+            "[ranks, rolled]: " + json.dumps(one["step1_updates"]))
+        summary[key] = {k: v for k, v in one.items()
+                        if k != "step1_updates"}
+    summary["f32_weights_bitwise"] = all(
+        r["f32_digest"] == ranks[0]["f32_digest"] for r in ranks)
+    return summary, (summary["f32_weights_bitwise"] and
+                     summary["one_rank"]["ok"] and
+                     summary["one_rank_f32"]["ok"])
+
+
+def _part_a(outdir, out):
+    """(a): two ranks share the card over gloo."""
+    a, secs = _world_or_die("gloo2", 2, outdir)
+    out["gloo2"] = {"ranks": a, "seconds": secs}
+    one, one_ok = _against_one_rank_ok("(a)", a)
+    bitwise = [a[0]["digests"][k] == a[1]["digests"][k]
+               for k in range(RANKS_STEPS)]
+    b1_ok = all(n == BN_LAYERS for r in a for n in r["b1_launches_per_step"])
+    log("rank: (a) two ranks on one card over gloo: " + json.dumps({
+        "backend": a[0]["backend"], "eager_reason": a[0]["eager_reason"],
+        "global_batch": RANKS_BATCH, "rows_a_rank": a[0]["rows_a_rank"],
+        "median_step_ms": [r["median_step_ms"] for r in a],
+        "step_ms": [r["step_ms"] for r in a],
+        "collective_ms": [r["collective_ms"] for r in a],
+        "collective_share": [r["collective_share"] for r in a],
+        "collective_calls": a[0]["collective_calls"],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in a],
+        "b1_launches_per_step": [r["b1_launches_per_step"] for r in a],
+        "weights_bitwise_after_each_step": bitwise,
+        "losses": a[0]["losses"], "against_one_rank": one,
+        "seconds": secs, "card": out["card"]}))
+    if not (all(bitwise) and b1_ok and one_ok and
+            all(r["backend"] == "gloo" for r in a)):
+        raise SystemExit(
+            f"ranks (a) failed: weights bitwise {bitwise}, B1 a step ok "
+            f"{b1_ok}, against one rank ok {one_ok}")
+
+
+def _b1_traced_ok(b1, n):
+    """B1's launches in ``n`` traced steps or replays: BN_LAYERS a step on
+    the card, and as many by the wrapper's count."""
+    return b1["traced"] == b1["booked"] == n * BN_LAYERS
+
+
+def _part_b(outdir, out):
+    """(b): an NCCL group of one rank, the captured step."""
+    (b,), secs = _world_or_die("nccl1", 1, outdir)
+    out["nccl1"] = dict(b, seconds=secs)
+    mesh = b["mesh"]
+    log("rank: (b) an NCCL group of one rank: " + json.dumps(
+        dict(out["nccl1"], card=out["card"])))
+    if not (b["backend"] == "nccl" and mesh["captures"] == 1
+            and mesh["host_syncs"] == 0 and b["weights_bitwise_plain"]
+            and all(_b1_traced_ok(r["b1"], TRACED_STEPS)
+                    for r in (mesh, b["plain"]))):
+        raise SystemExit(f"ranks (b) failed: {json.dumps(b)}")
+
+
+def _part_c(outdir, out):
+    """(c): four ranks over NCCL, one card each, where there are four."""
+    cards = out["cards"]
+    if cards < 4:
+        out["nccl4"] = {"run": False, "why": f"not run: {cards} card(s)"}
+        log(f"rank: (c) four ranks over NCCL: not run: {cards} card(s)")
+        return
+    c, secs = _world_or_die("nccl4", 4, outdir)
+    out["nccl4"] = {"run": True, "ranks": c, "seconds": secs}
+    bitwise = [all(r["digests"][k] == c[0]["digests"][k] for r in c)
+               for k in range(RANKS_STEPS)]
+    one, one_ok = _against_one_rank_ok("(c)", c)
+    log("rank: (c) four ranks over NCCL: " + json.dumps({
+        "backend": [r["backend"] for r in c],
+        "devices": [r["device"] for r in c], "captures":
+        [r["captures"] for r in c], "rows_a_rank": c[0]["rows_a_rank"],
+        "median_step_ms": [r["median_step_ms"] for r in c],
+        "step_ms": [r["step_ms"] for r in c],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in c],
+        "b1_launches_per_step": [r["b1_launches_per_step"] for r in c],
+        "b1_traced": [r["b1_traced"] for r in c],
+        "weights_bitwise_after_each_step": bitwise,
+        "losses": c[0]["losses"], "against_one_rank": one,
+        "seconds": secs, "card": out["card"]}))
+    if not (all(bitwise) and one_ok and all(
+            r["backend"] == "nccl" and r["captures"] == 1 and
+            all(n == BN_LAYERS for n in r["b1_launches_per_step"]) and
+            _b1_traced_ok(r["b1_traced"], TRACED_STEPS) for r in c)):
+        raise SystemExit("ranks (c) failed: see its rank: line")
+
+
+def _part_d(outdir, out):
+    """(d): liveness; rank 1 exits after its second step."""
+    (d, _), secs = _world_or_die(
+        "live", 2, outdir, {"MXNET_HEARTBEAT_INTERVAL": str(RANKS_HEARTBEAT)},
+        quiet_ranks=(1,))
+    out["live"] = dict(d, seconds=secs)
+    log("rank: (d) liveness: " + json.dumps(out["live"]))
+    if d["dead"] != [1] or d["live_before"] != []:
+        raise SystemExit(f"ranks (d) failed: {json.dumps(d)}")
+
+
+RANKS_PARTS = {"a": _part_a, "b": _part_b, "c": _part_c, "d": _part_d}
+
+
+def phase_ranks(dev, parts="abcd"):
+    """Phase 15: ranks (see the module's docstring); ``parts`` picks
+    which of (a)-(d) run."""
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops.nn import _declare_bn
+
+    _build.load("bn_bwd_reduce", _declare_bn)   # built once, for every rank
+    out = {"card": nvidia_smi(), "cards": torch.cuda.device_count(),
+           "ran": []}
+    with tempfile.TemporaryDirectory(prefix="ranks-") as outdir:
+        for part in parts:
+            RANKS_PARTS[part](outdir, out)
+            out["ran"].append(part)
+    return out
+
+
 def main():
     try:
         import torch
@@ -6790,11 +7433,14 @@ def main():
               "only on the card", file=sys.stderr)
         return 1
     try:
-        import mxnet_tpu_torch  # noqa: F401
+        import mxnet_tpu_torch  # noqa: F401  (a rank: starts its group)
     except ImportError as exc:
         print(f"chip_smoke: the mxnet_tpu_torch package is missing ({exc}); "
               "run from the root of a checkout", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ranks-worker"]:
+        # one rank of phase 15, started by phase_ranks
+        return ranks_worker(sys.argv[2], sys.argv[3])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = nvidia_smi()
@@ -6840,6 +7486,12 @@ def main():
         log(f"card: {card}; torch {torch.__version__}")
         phase_dp(dev)
         return 0
+    if sys.argv[1:2] == ["--ranks"]:
+        # on the card, no result line: phase 15 alone (B1 is built first),
+        # or the parts named after it (e.g. `--ranks c`)
+        log(f"card: {card}; torch {torch.__version__}")
+        phase_ranks(dev, sys.argv[2] if len(sys.argv) > 2 else "abcd")
+        return 0
     if sys.argv[1:2] == ["--rtc-host"]:
         # on the card, no result line: B6's host time a launch alone, in
         # RTC_HOST_WINDOWS windows
@@ -6879,6 +7531,7 @@ def main():
     phase_mnist_mlp(dev)
     zoo = phase_zoo(dev)
     dp = phase_dp(dev)
+    ranks = phase_ranks(dev)
     log(f"seconds: {time.perf_counter() - t_start:.1f}")
 
     main_case = next(r for r in rows
@@ -7008,6 +7661,17 @@ def main():
         "dp_card_and_host_launches_per_step": [
             s["b1_launches_card_copy"]
             for s in dp["card_and_host_copies"]["steps"]],
+        # phase 15: each rank's launches in each step of (a), two ranks
+        # over gloo, eager; a replay's launches traced in (b), an NCCL
+        # group of one rank, and on each rank in (c), four
+        "ranks_launches_per_step": {
+            "gloo2": [r["b1_launches_per_step"]
+                      for r in ranks["gloo2"]["ranks"]],
+            "nccl1_traced": ranks["nccl1"]["mesh"]["b1"]["traced"]
+            // TRACED_STEPS,
+            "nccl4_traced": [r["b1_traced"]["traced"] // TRACED_STEPS
+                             for r in ranks["nccl4"]["ranks"]]
+            if ranks["nccl4"]["run"] else ranks["nccl4"]["why"]},
         "max_abs_err": bn_case["max_abs_err"],
         "ms": bn_case["ms"], "plain_ms": bn_case["plain_ms"],
         "bound_ms": bn_case["bound_ms"], "bound_by": bn_case["bound_by"],

@@ -12,6 +12,11 @@ installed before anything else of the package is imported, and the
 environment's import-time settings (`env.apply`: ``MXNET_SEED``,
 ``MXNET_ENFORCE_DETERMINISM``, ``MXNET_PROFILER_AUTOSTART``, ...) are
 read last.
+
+Under `tools/launch.py` (``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID`` set) the import starts this
+worker's ``torch.distributed`` process group (`_distributed`), as the
+reference's import starts ``jax.distributed``.
 """
 import os as _os
 
@@ -24,12 +29,16 @@ import torch  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from . import _distributed  # noqa: E402
+
+_distributed.init_from_env()
+
 from . import autograd, gluon, initializer, models, serve  # noqa: E402
 from . import amp, callback, lr_scheduler, operator, optimizer, rtc  # noqa: E402
 from . import image, io, recordio  # noqa: E402
 from . import env, monitor, observe, profiler, random  # noqa: E402
 from . import resilience, telemetry  # noqa: E402
-from . import kvstore  # noqa: E402
+from . import kvstore, parallel  # noqa: E402
 from . import kvstore as kv  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from . import numpy as np  # noqa: E402
@@ -45,4 +54,5 @@ __all__ = ["amp", "autograd", "callback", "gluon", "initializer", "init", "lr_sc
            "models", "optimizer", "serve", "np", "npx", "nd", "operator", "rtc",
            "image", "io", "recordio", "env", "monitor", "observe",
            "profiler", "random", "resilience", "telemetry", "kvstore", "kv",
+           "parallel",
            "MXNetError", "cpu", "gpu", "num_gpus", "current_context"]

@@ -130,8 +130,9 @@ def resolve_device(ctx=None):
         if len(ctx) != 1:
             raise MXNetError(
                 f"{len(ctx)} contexts {list(ctx)} where one device is "
-                "meant; this call runs on one device (work spread over "
-                "ranks is ROADMAP queue A item A7b); pass one")
+                "meant; this call runs on one device (a step over copies "
+                "in one process is ROADMAP queue A item A7b-rest; ranks, "
+                "one device each, start with tools/launch.py); pass one")
         ctx = ctx[0]
     dev = current_context() if ctx is None else torch.device(ctx)
     if dev.type == "cuda":

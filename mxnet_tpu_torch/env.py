@@ -64,10 +64,14 @@ MXNET_TELEMETRY_STEADY_STEPS retrace-watchdog steady-state call count:
 MXNET_PROFILE_RANK           set by ``tools/launch.py --profile-rank``:
                              the matching rank (or every rank, ``-1``)
                              starts the profiler at import and dumps a
-                             chrome trace at exit (the port has one rank
-                             until ROADMAP queue A7b)
+                             chrome trace at exit (read by
+                             ``_distributed`` when the group starts)
 MXNET_PROFILE_DIR            output directory for the launcher-requested
                              profile dumps (default ``.``)
+MXNET_DIST_CONTEXT           the port's own: ``cpu`` puts the ranks that
+                             ``tools/launch.py`` starts on the CPU over
+                             gloo, cards or not (read by ``_distributed``
+                             when the group starts)
 MXNET_KVSTORE_SPARSE_HOST_BOUND  row-sparse pushpull crossover: below
                              this many touched rows the host union beats
                              the device sort (default 256; re-read per

@@ -1,5 +1,6 @@
 """One training step: forward, gradients and the optimizer update
-(counterpart of `mxnet_tpu/gluon/fused_step.py`), single device.
+(counterpart of `mxnet_tpu/gluon/fused_step.py`), on one device or on
+one device a rank over a data-parallel mesh.
 
 ``FusedTrainStep(block, trainer)(*inputs, batch_size=B)`` does what
 ``with autograd.record(): loss = block(*inputs)``, ``loss.backward()``
@@ -59,11 +60,49 @@ the CPU every call runs eagerly.
 Deferred parameter shapes are settled before the first step by one
 forward in predict mode (`Block._ensure_shapes`).  Train-mode randomness
 draws from ``generator`` (a CPU ``torch.Generator``), or from an
-enclosing ``autograd.record``/``train_mode`` scope's.  SPMD (``mesh``,
-``recipe``, ``partition_rules``, ``data_spec``) and parameters with
-copies on several contexts are ROADMAP queue A item A7b and raise
-``NotImplementedError``; the record/backward/``Trainer.step`` loop
-trains over copies.
+enclosing ``autograd.record``/``train_mode`` scope's.  Parameters with
+copies on several contexts of one process are ROADMAP queue A item
+A7b-rest and raise ``NotImplementedError``; the
+record/backward/``Trainer.step`` loop trains over copies.
+
+Ranks (``mesh=``, a `parallel.make_mesh` over the ranks of the
+``torch.distributed`` group, one device a rank; `tools/launch.py`
+starts them).  Every rank passes the same global batch and
+``batch_size`` of the global batch, as in the reference:
+
+- each tensor input whose leading axis divides by the mesh's data axis
+  (``data_spec``'s first entry, default the mesh's first axis) is cut
+  to this rank's rows (`parallel.global_put`); other inputs are taken
+  whole;
+- at setup the parameters are broadcast from rank 0
+  (`parallel.shard_parameters`, ``partition_rules`` checked there:
+  a rule that shards raises, ROADMAP queue A item A8);
+- the forward runs inside `parallel.mesh_scope`, so BatchNorm's
+  statistics are global across the ranks (`ops.nn`);
+- the backward seed is the f32 sum of the first output over this
+  rank's rows; every gradient is then summed across the group (one
+  ``all_reduce`` a gradient), before the finite verdict and the update,
+  so every rank takes the same verdict and applies the same update with
+  ``rescale_grad = scale / batch_size`` of the global batch.  A first
+  output that is not one value a row (a 0-d mean, as the reference's
+  ``(d * d).mean()`` loss) is read as a mean over the batch: its seed
+  is divided by the number of ranks, so the sum of the ranks' gradients
+  is the gradient of the global batch's mean, exactly with rows split
+  evenly;
+- outputs come back as the global batch's: one value a row gathered
+  across the ranks (an ``all_reduce`` of a zero-padded buffer, which
+  both backends carry), a floating output of another shape averaged
+  over the ranks.
+
+Under ``nccl`` (one card a rank) the collectives are captured with the
+rest of the step: the eager first call of a signature runs them once,
+which starts the communicator, before the capture, and a replay syncs
+the host never.  Under ``gloo`` (ranks sharing a card, or the CPU) a
+collective waits on the host, which a CUDA graph cannot capture, so
+every call runs the step's body eagerly (``eager_reason`` says why).
+A group of one rank runs the collectives too.  ``recipe`` (and the
+``MXNET_PARALLEL_RECIPE`` default) and a mesh axis of more than one
+rank besides the data axis are ROADMAP queue A item A8 and raise.
 
 Loss scaling (amp): a `amp.LossScaler`, ``scaler=`` or the one
 ``amp.init_trainer`` attached to the trainer, multiplies the backward
@@ -102,8 +141,10 @@ import contextlib
 import numpy as onp
 import torch
 
+from .. import _distributed
 from .. import autograd
 from .. import telemetry as _telemetry
+from ..parallel import mesh as _mesh
 from ..ops import capture
 from ..ops.aux_scope import aux_update_scope
 from ..ops.invoke import current_generator, set_seed_table, tracing
@@ -172,6 +213,25 @@ class _Captured:
         self.ring = capture.HostRing(buf.numel(), buf.device)
 
 
+def _data_axis(mesh, data_spec):
+    """(spec, dp): the input spec (default: the mesh's first axis) and the
+    ranks its leading entry spans, which must be the whole mesh."""
+    spec = _mesh.PartitionSpec(*(data_spec if data_spec is not None
+                                 else (mesh.axis_names[0],)))
+    lead = spec[0] if len(spec) else None
+    axes = () if lead is None else \
+        ((lead,) if isinstance(lead, str) else tuple(lead))
+    dp = 1
+    for a in axes:
+        dp *= mesh.shape[a]
+    if dp != mesh.size:
+        raise NotImplementedError(
+            f"mesh {mesh.shape} with data spec {spec!r}: axes besides the "
+            "data axis larger than 1 (tensor, sequence or pipeline "
+            "parallelism) are ROADMAP queue A item A8")
+    return spec, dp
+
+
 class FusedTrainStep:
     """Fuse ``loss = block(*inputs); loss.backward(); trainer.step(bs)``
     into one call.  ``block`` must produce the loss (its first output
@@ -185,11 +245,21 @@ class FusedTrainStep:
 
     def __init__(self, block, trainer, mesh=None, partition_rules=None,
                  data_spec=None, scaler=None, recipe=None, generator=None):
-        if mesh is not None or recipe is not None or \
-                partition_rules is not None or data_spec is not None:
+        if recipe is None and mesh is None:
+            from .. import env as _env
+            recipe = _env.parallel_recipe()
+        if recipe is not None:
             raise NotImplementedError(
-                "FusedTrainStep is single-device in the port: SPMD meshes "
-                "and recipes are ROADMAP queue A item A7b")
+                f"recipe {recipe!r}: sharding recipes are ROADMAP queue A "
+                "item A8 in the port; pass mesh=parallel.make_mesh("
+                "{'dp': -1}) for data parallelism")
+        self._mesh = mesh
+        self._rules = partition_rules or []
+        self._dp = 1
+        if mesh is not None:
+            self._data_spec, self._dp = _data_axis(mesh, data_spec)
+        self._rows = None        # this rank's rows of the last batch
+        self.eager_reason = None
         self._block = block
         self._trainer = trainer
         self._scaler = scaler if scaler is not None else \
@@ -216,13 +286,32 @@ class FusedTrainStep:
         if several:
             raise NotImplementedError(
                 f"parameters with copies on several contexts ({several[0]}, "
-                "...): FusedTrainStep over copies is ROADMAP queue A item "
-                "A7b; use the record/backward/Trainer.step loop")
+                "...): FusedTrainStep over copies in one process is ROADMAP "
+                "queue A item A7b-rest; use the record/backward/Trainer.step "
+                "loop, or one rank a device (tools/launch.py) and mesh=")
+        params = self._block.collect_params()
+        if self._mesh is not None:
+            self._join_mesh(params)
         trainer._init_kvstore()
         trainer._init_states()
-        params = self._block.collect_params()
         self._plist = [params[k] for k in sorted(params)]
         self._managed = {id(p): i for i, p in enumerate(trainer._params)}
+
+    def _join_mesh(self, params):
+        """Check the mesh against the process group, replicate the
+        parameters from rank 0 and decide whether the step is captured."""
+        world = _distributed.world()[1]
+        ranks = sorted(int(r) for r in self._mesh.devices.flat)
+        if ranks != list(range(world)):
+            raise ValueError(
+                f"mesh {self._mesh.shape} over ranks {ranks} in a world of "
+                f"{world}: a step's mesh spans the process group (start the "
+                "ranks with tools/launch.py -n N)")
+        _mesh.shard_parameters(params, self._mesh, self._rules)
+        if _distributed.backend() == "gloo":
+            self.eager_reason = (
+                "gloo: its collectives wait on the host, which a CUDA graph "
+                "cannot capture")
 
     def _trainable(self):
         """The trainable parameters: a gradient AND managed by this
@@ -240,6 +329,8 @@ class FusedTrainStep:
         inject = _faultline.poll("train.grads")
         if inject is not None and inject != "nan_grad":
             _faultline.raise_fault("train.grads", inject)
+        if self._mesh is not None:
+            args = self._local_rows(args)
         if self._plist is None:
             self._setup(args)
         self._trainable()
@@ -261,8 +352,22 @@ class FusedTrainStep:
         self._guard(inject)
         return outs
 
+    def _local_rows(self, args):
+        """Each tensor input whose leading axis divides over the ranks cut
+        to this rank's rows; the others whole."""
+        sharding = _mesh.NamedSharding(self._mesh, self._data_spec)
+        out, self._rows = [], None
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.ndim and \
+                    a.shape[0] >= self._dp and a.shape[0] % self._dp == 0:
+                a = _mesh.global_put(a, sharding)
+                self._rows = self._rows or a.shape[0]
+            out.append(a)
+        return tuple(out)
+
     def _dispatch(self, args, weights, plan, batch_size):
-        if not weights or not capture.capturable(weights[0].device):
+        if not weights or not capture.capturable(weights[0].device) or \
+                self.eager_reason is not None:
             return self._eager(args, weights, plan)
         sig = (tuple((tuple(a.shape), a.dtype, a.device)
                      if isinstance(a, torch.Tensor) else ("value", a)
@@ -293,16 +398,26 @@ class FusedTrainStep:
         are taken to ``leaves`` (the weights by default)."""
         trainer = self._trainer
         rescale, rows = plan.views(buf)
+        ranks = self._mesh is not None and _distributed.backend() is not None
         with autograd.record(train_mode=True, generator=self._generator), \
-                aux_update_scope() as aux, tracing():
+                aux_update_scope() as aux, tracing(), \
+                _mesh.mesh_scope(self._mesh):
             outs = self._block(*args)
-            seed = _first_leaf(outs).float().sum()
+            first = _first_leaf(outs)
+            seed = first.float().sum()
+            if self._dp > 1 and not self._per_row(first):
+                seed = seed / self._dp      # a mean over the batch
             if plan.scaled:
                 seed = seed * plan.loss_scale(buf)
         grads = torch.autograd.grad(seed, leaves or weights,
                                     allow_unused=True)
 
         with torch.no_grad():
+            if ranks:
+                outs = self._gathered(outs)
+                for g in grads:
+                    if g is not None:
+                        torch.distributed.all_reduce(g)
             gs = trainer._rescaled([torch.zeros_like(w) if g is None else g
                                     for w, g in zip(weights, grads)],
                                    rescale)
@@ -315,6 +430,31 @@ class FusedTrainStep:
         write_back_multi([arr for arr, _ in aux.updates],
                          [new for _, new in aux.updates], keep=finite)
         return _detached(outs), finite
+
+    def _per_row(self, t):
+        return t.ndim > 0 and t.shape[0] == self._rows
+
+    def _gathered(self, outs):
+        """The global batch's outputs from this rank's: one value a row
+        gathered by an all-reduce of a zero-padded buffer, a floating
+        value of another shape averaged over the ranks."""
+        import torch.distributed as dist
+
+        if isinstance(outs, (tuple, list)):
+            return tuple(self._gathered(o) for o in outs)
+        outs = outs.detach()
+        if self._per_row(outs):
+            rows = outs.shape[0]
+            at = _mesh.row_block(self._mesh, self._data_spec)[0] * rows
+            full = outs.new_zeros((rows * self._dp,) + outs.shape[1:])
+            full[at:at + rows] = outs
+            dist.all_reduce(full)
+            return full
+        if not outs.is_floating_point():
+            return outs
+        total = outs.clone()
+        dist.all_reduce(total)
+        return total / self._dp
 
     def _eager(self, args, weights, plan):
         buf = capture.upload(plan.host, weights[0].device if weights

@@ -182,8 +182,10 @@ class BatchNorm(HybridBlock):
 
 
 class SyncBatchNorm(BatchNorm):
-    """BatchNorm with the reference's signature: on one device the
-    batch's statistics are already global."""
+    """BatchNorm with the reference's signature, and its alias: every
+    BatchNorm's statistics are global across the ranks inside a
+    `FusedTrainStep` over a dp mesh (`ops.nn`), and the batch's own on
+    one device."""
 
     def __init__(self, in_channels=0, num_devices=None, **kwargs):
         kwargs.pop("ndev", None)

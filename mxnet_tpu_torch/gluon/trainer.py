@@ -21,8 +21,11 @@ initialized on a list of contexts keep one copy on each, and the
 kvstore (`kvstore.create(kvstore)`, made at the first step) sums the
 copies' gradients before the update.  As in the reference, no store is
 made for ``None``, or for ``'local'`` / ``'device'`` while every
-parameter has one copy; any other name, or several copies, makes one,
-and a `kvstore.KVStoreBase` is taken as it is.  The store first
+parameter has one copy in a world of one rank; any other name, several
+copies or several ranks make one, and a `kvstore.KVStoreBase` is taken
+as it is.  Across ranks the store reduces no single value, as in the
+reference: `FusedTrainStep(mesh=)` sums the gradients inside its step
+(ROADMAP queue C12 for the eager loop).  The store first
 broadcasts each parameter's first copy to its others.  Each step then
 reduces ``(index, list_grad())`` for every trainable parameter, in
 reverse registration order (`pushpull_list`), and updates every copy
@@ -72,6 +75,7 @@ import time as _time
 import numpy as onp
 import torch
 
+from .. import _distributed
 from .. import kvstore as _kvstore
 from .. import observe as _observe
 from .. import optimizer as opt
@@ -186,9 +190,11 @@ class Trainer:
         elif isinstance(kv, _kvstore.KVStoreBase):
             store = kv
         elif isinstance(kv, str):
+            # one copy in one process: no store; several copies or ranks
             several = any(len(p.list_ctx()) > 1 for p in self._params)
+            ranks = _distributed.world()[1] > 1
             store = None if kv in ("local", "device") and not several \
-                else _kvstore.create(kv)
+                and not ranks else _kvstore.create(kv)
         else:
             raise MXNetError(f"invalid kvstore {kv!r}")
         if store is None or self._update_on_kvstore is None:

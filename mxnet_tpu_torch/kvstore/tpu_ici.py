@@ -18,15 +18,40 @@ Each ``pushpull`` runs inside the transient-fault retry policy, with the
 bytes)`` around the reduction, as in the reference.  ``pushpull_list``
 reduces key by key in the caller's order.
 
-This store runs one process (``rank`` 0 of 1).  A process group of more
-than one rank and liveness across ranks (``get_dead_nodes``, the
-heartbeat) are ROADMAP queue A item A7b; gradient compression and
-bucketing are A7c; row-sparse values are A10.
+Across ranks (a ``torch.distributed`` group, `mxnet_tpu_torch._distributed`)
+``rank`` and ``num_workers`` are the group's.  A single value's
+``pushpull`` is its own sum there too, as in the reference, where XLA has
+already reduced it inside the step: `gluon.FusedTrainStep(mesh=)` sums
+the gradients across the ranks; the eager loop's are not summed (ROADMAP
+queue C12, inherited).
+
+Liveness (the reference's heartbeat over the coordination service): with
+more than one rank, a thread stamps ``mxtpu/heartbeat/<rank>`` with the
+wall clock into the bootstrap's ``TCPStore`` every
+``MXNET_HEARTBEAT_INTERVAL`` seconds (default 5), through a connection
+of its own; `get_dead_nodes` reads every rank's stamp and declares a
+rank dead on its second stale observation in a row, after a start-up
+grace of ``timeout`` for a rank that never stamped.  `record_steptime`
+and `read_steptimes` stamp and read ``mxtpu/steptime/<rank>`` for the
+straggler policy.  Reads go through the ``kvstore.kv`` fault site under
+`retry_transient`; a ``bitflip`` there corrupts a stamp, and a
+``dead_node`` fault marks its rank stale for good.  `close` stops and
+joins the thread.  A group that `_distributed` did not start has no
+store to stamp into: there, as in the reference without a coordination
+client, no rank is reported dead.
+
+Gradient compression and bucketing are ROADMAP queue A item A7c;
+row-sparse values are A10.
 """
 from __future__ import annotations
 
+import os
+import threading
+import time
+
 import torch
 
+from .. import _distributed
 from .. import observe as _observe
 from ..base import MXNetError
 from ..telemetry import collective_span as _collective_span
@@ -43,21 +68,158 @@ def _payload_bytes(vals):
 @KVStoreBase.register
 class TPUICIStore(KVStoreBase):
     def __init__(self):
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and \
-                dist.get_world_size() > 1:
-            raise NotImplementedError(
-                f"a process group of {dist.get_world_size()} ranks: the "
-                "store across ranks is ROADMAP queue A item A7b in the "
-                "port, which reduces copies in one process")
-        self._rank = 0
-        self._size = 1
+        self._rank, self._size = _distributed.world()
         _observe.set_rank(self._rank)
+        self._hb_stop = None
+        self._hb_thread = None
+        # rank -> consecutive stale heartbeat observations (death needs 2)
+        self._stale_counts = {}
+        # a rank that never stamped is dead only after `timeout` seconds
+        # from here
+        self._started_at = time.time()
+        if self._size > 1:
+            self._start_heartbeat()
+
+    # -- liveness -------------------------------------------------------------
+    @staticmethod
+    def _kv_client():
+        from .. import _distributed
+
+        return _distributed.store()
+
+    @staticmethod
+    def _kv_try_get(client, key):
+        """The stamp under ``key`` or None, through the ``kvstore.kv``
+        fault site under the transient-fault retry policy; after the retry
+        budget, unreachable and absent both read as no stamp.  A planned
+        ``bitflip`` corrupts the stamp in flight."""
+        from ..resilience import faultline as _faultline
+        from ..resilience.policies import retry_transient
+
+        def attempt():
+            _faultline.check("kvstore.kv")
+            if not client.check([key]):
+                return None
+            return client.get(key).decode()
+
+        try:
+            out = retry_transient(attempt, site="kvstore.kv")
+        # an unreachable store after the retries reads as "no stamp"
+        except (RuntimeError, TimeoutError, ConnectionError):
+            return None
+        if isinstance(out, str):
+            out = _faultline.corrupt("kvstore.kv", out)
+        return out
+
+    def _start_heartbeat(self):
+        from .. import _distributed
+
+        client = _distributed.store_client()
+        if client is None:
+            return
+        interval = float(os.environ.get("MXNET_HEARTBEAT_INTERVAL", "5"))
+        self._hb_stop = threading.Event()
+        key = f"mxtpu/heartbeat/{self._rank}"
+
+        def beat():
+            while True:
+                try:
+                    stamp = time.time()
+                    client.set(key, repr(stamp))
+                    _observe.record("heartbeat", "beat",
+                                    rank=self._rank, stamp=stamp)
+                # the store going down mid-beat: peers see a stale stamp,
+                # which is what this thread reports by stopping to beat
+                except RuntimeError:
+                    pass
+                if self._hb_stop.wait(interval):
+                    return
+
+        t = threading.Thread(target=beat, daemon=True,
+                             name="mxtpu-heartbeat")
+        t.start()
+        self._hb_thread = t
 
     def get_dead_nodes(self, timeout=60):
-        """Ranks whose heartbeat is older than ``timeout``: none in one
-        process (liveness across ranks is ROADMAP queue A item A7b)."""
-        return []
+        """Ranks whose heartbeat is older than ``timeout`` seconds (empty
+        with one rank).  A single stale observation only marks a rank
+        suspect; death is declared on the second in a row, so one missed
+        stamp never kills a live job.  A fresh stamp clears the
+        suspicion."""
+        from ..resilience import faultline as _faultline
+
+        client = self._kv_client()
+        if client is None or self._size <= 1:
+            return []
+        now = time.time()
+        # ranks an injected `dead_node` fault killed read stale for good
+        killed = _faultline.dead_ranks()
+        dead = []
+        for r in range(self._size):
+            stamp = self._kv_try_get(client, f"mxtpu/heartbeat/{r}")
+            if r in killed:
+                stale = True
+            elif stamp is None:
+                # never stamped: "still launching" within the grace window
+                stale = now - self._started_at > timeout
+            else:
+                try:
+                    stale = now - float(stamp) > timeout
+                except ValueError:
+                    stale = True  # forged/corrupt stamp: not a live beat
+            if not stale:
+                self._stale_counts.pop(r, None)
+                if r != self._rank and stamp is not None:
+                    _observe.record("heartbeat", "observe", rank=r,
+                                    stamp=float(stamp), stale=False)
+                continue
+            n = self._stale_counts.get(r, 0) + 1
+            self._stale_counts[r] = n
+            _observe.record("heartbeat", "observe", rank=r, stamp=None,
+                            stale=True, consecutive=n)
+            if n >= 2:
+                dead.append(r)
+        return dead
+
+    def record_steptime(self, seconds):
+        """Stamp this rank's last step wall time (``mxtpu/steptime/<rank>``)
+        for the straggler policy.  Best-effort: a rank that cannot stamp
+        looks like a rank with no stamp, which the policy skips."""
+        client = self._kv_client()
+        if client is None:
+            return
+        try:
+            client.set(f"mxtpu/steptime/{self._rank}", repr(float(seconds)))
+            _observe.record("heartbeat", "steptime", rank=self._rank,
+                            seconds=float(seconds))
+        # a store hiccup must not fail the step that just completed
+        except RuntimeError:
+            pass
+
+    def read_steptimes(self):
+        """Every rank's last stamped step time, ``{rank: seconds}``; ranks
+        with no (or an unparseable) stamp are absent."""
+        client = self._kv_client()
+        if client is None or self._size <= 1:
+            return {}
+        out = {}
+        for r in range(self._size):
+            stamp = self._kv_try_get(client, f"mxtpu/steptime/{r}")
+            if stamp is None:
+                continue
+            try:
+                out[r] = float(stamp)
+            except ValueError:
+                continue  # corrupt stamp: treated as absent, never 0.0
+        return out
+
+    def close(self):
+        """Stop and join the heartbeat thread."""
+        if self._hb_stop is not None:
+            self._hb_stop.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=10)
+            self._hb_thread = None
 
     # -- interface ---------------------------------------------------------
     def broadcast(self, key, value, out, priority=0):

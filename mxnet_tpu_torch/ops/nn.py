@@ -694,6 +694,23 @@ def _promoted(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
+def _sync_size():
+    """How many ranks BatchNorm's statistics span here
+    (`parallel.mesh.sync_size`)."""
+    from ..parallel.mesh import sync_size
+
+    return sync_size()
+
+
+def _sum_across_ranks(a, b):
+    """``(a, b)`` summed over the process group, in one all-reduce."""
+    import torch.distributed as dist
+
+    both = torch.stack((a, b))
+    dist.all_reduce(both)
+    return both[0], both[1]
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """Single-pass statistics (sum and sum of squares in f32, var =
     max(s2/n - mean^2, 0)), the scale and shift folded into one
@@ -701,18 +718,31 @@ class _BatchNormTrain(torch.autograd.Function):
     rebuilt in f32, one joint reduction (B1), one elementwise pass.
     dgamma and dbeta come back in gamma's dtype, dx in the data's.  The
     new running statistics are outputs without a gradient, computed in
-    the running statistics' own dtype."""
+    the running statistics' own dtype.
+
+    Inside `parallel.mesh_scope` of a mesh of several ranks (a
+    `FusedTrainStep` over a dp mesh) the statistics are global, as in
+    the reference's one program over the global batch: the forward sums
+    ``(s1, s2)`` across the ranks and counts ``n`` over all of them, so
+    the running statistics are equal on every rank; the backward sums
+    B1's ``(sum_dy, sum_dy_xhat)`` across the ranks, in f32, before
+    ``dx``.  dgamma and dbeta stay this rank's sums: the step sums every
+    gradient across the ranks, so global sums here would count them once
+    a rank."""
 
     @staticmethod
     def forward(ctx, data, gamma, beta, moving_mean, moving_var, momentum,
                 eps, axis):
         red = tuple(i for i in range(data.ndim) if i != axis)
-        n = data.numel() // data.shape[axis]
+        ranks = _sync_size()
+        n = data.numel() // data.shape[axis] * ranks
         shape = _bn_shape(data, axis)
         cdt = _promoted(data.dtype)
         xf = data.to(cdt)
         s1 = xf.sum(dim=red)
         s2 = (xf * xf).sum(dim=red)
+        if ranks > 1:
+            s1, s2 = _sum_across_ranks(s1, s2)
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
@@ -726,6 +756,7 @@ class _BatchNormTrain(torch.autograd.Function):
             var.to(moving_var.dtype) * (1 - momentum)
         ctx.save_for_backward(data, gamma, mean, inv)
         ctx.axis = axis
+        ctx.ranks = ranks
         ctx.mark_non_differentiable(new_mean, new_var)
         return out, new_mean, new_var
 
@@ -734,7 +765,7 @@ class _BatchNormTrain(torch.autograd.Function):
         data, gamma, mean, inv = ctx.saved_tensors
         axis = ctx.axis
         n0, c, n1 = _bn_view(data, axis)
-        n = n0 * n1
+        n = n0 * n1 * ctx.ranks
         shape = _bn_shape(data, axis)
         cdt = _promoted(data.dtype)
         dyf = dy.to(cdt).contiguous()
@@ -746,11 +777,14 @@ class _BatchNormTrain(torch.autograd.Function):
         else:
             sum_dy, sum_dy_xhat = bn_bwd_reduce_reference(
                 dyf.view(n0, c, n1), xhat.view(n0, c, n1))
+        dgamma, dbeta = sum_dy_xhat, sum_dy      # this rank's
+        if ctx.ranks > 1:
+            sum_dy, sum_dy_xhat = _sum_across_ranks(sum_dy, sum_dy_xhat)
         a = (gamma.to(cdt) * inv).reshape(shape)
         dx = a * torch.addcmul(dyf - (sum_dy / n).reshape(shape), xhat,
                                (sum_dy_xhat / -n).reshape(shape))
-        return (dx.to(data.dtype), sum_dy_xhat.to(gamma.dtype),
-                sum_dy.to(gamma.dtype), None, None, None, None, None)
+        return (dx.to(data.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(gamma.dtype), None, None, None, None, None)
 
 
 def batch_norm_train(data, gamma, beta, momentum, eps, axis, moving_mean,

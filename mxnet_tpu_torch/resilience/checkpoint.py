@@ -47,10 +47,12 @@ I/O happens off-thread; the worker is joined in ``close()``),
 keep-last-K pruning (``MXNET_CHECKPOINT_KEEP``), ``restore_latest``
 with automatic fallback, and ``mxtpu_checkpoint_*`` telemetry.
 
-The port runs one rank (``torch.distributed``'s rank and world when a
-process group is up, else 0 and 1) until ROADMAP queue A7b: a checkpoint
-saved by a larger world raises :class:`CheckpointTopologyError`, and
-``reshard=True`` raises ``NotImplementedError``.
+Each rank writes and reads its own ``host-<rank>`` shard, its rank and
+world ``torch.distributed``'s when a process group is up, else 0 and 1:
+a checkpoint restores in a world of the size that saved it, a world of
+another size raises :class:`CheckpointTopologyError`, and
+``reshard=True`` (onto a survivor world) raises ``NotImplementedError``
+(ROADMAP queue A7d).
 """
 from __future__ import annotations
 
@@ -64,6 +66,7 @@ import time
 import numpy as onp
 import torch
 
+from .. import _distributed
 from .. import observe as _observe
 from .. import telemetry as _telemetry
 from . import faultline
@@ -153,15 +156,6 @@ _UNSIGNED = {1: onp.uint8, 2: onp.uint16, 4: onp.uint32, 8: onp.uint64}
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
-def _world():
-    """(rank, world size): ``torch.distributed``'s, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return int(dist.get_rank()), int(dist.get_world_size())
-    return 0, 1
-
-
 def _torch_dtype(name):
     dt = getattr(torch, name, None)
     if not isinstance(dt, torch.dtype):
@@ -246,7 +240,7 @@ def save_checkpoint(root, step, arrays, meta=None, rank=None):
     """Atomically commit one host's shard for ``step``.  Returns the
     committed shard directory path."""
     if rank is None:
-        rank = _world()[0]
+        rank = _distributed.world()[0]
     faultline.check("checkpoint.write")
     t0 = time.monotonic()
     final = _host_dir(root, step, rank)
@@ -266,7 +260,7 @@ def save_checkpoint(root, step, arrays, meta=None, rank=None):
             "schema": SCHEMA,
             "step": int(step),
             "rank": int(rank),
-            "world": _world()[1],
+            "world": _distributed.world()[1],
             "saved_unix": time.time(),
             "nonnative_dtypes": nonnative,
             "files": {_ARRAYS: {"sha256": _sha256(arr_path),
@@ -328,7 +322,7 @@ def load_checkpoint(root, step=None, rank=None):
     :class:`CheckpointCorrupt` on validation failure, ``FileNotFoundError``
     when nothing exists."""
     if rank is None:
-        rank = _world()[0]
+        rank = _distributed.world()[0]
     if step is None:
         steps = list_steps(root)
         if not steps:
@@ -445,7 +439,7 @@ def gather_training_state(trainer, step, scaler=None, include_rng=True,
     meta["param_names"] = names
     if rep_bytes:
         _param_bytes_counter().labels(mode="replicated").inc(rep_bytes)
-    meta["world"] = {"copies": 1, "processes": _world()[1]}
+    meta["world"] = {"copies": 1, "processes": _distributed.world()[1]}
     # -- optimizer: per-param state tuples, update counts, num_update
     opt = trainer._optimizer
     opt_multi = {}
@@ -522,7 +516,7 @@ def restore_training_state(arrays, meta, trainer, scaler=None,
     _one_copy(trainer)
     trainer._init_states()
     saved = meta.get("world")
-    live = {"copies": 1, "processes": _world()[1]}
+    live = {"copies": 1, "processes": _distributed.world()[1]}
     if saved and (int(saved.get("copies", 1)) != 1 or
                   int(saved.get("processes", 1)) != live["processes"]):
         raise CheckpointTopologyError(
@@ -605,7 +599,7 @@ class CheckpointManager:
         if keep is None:
             keep = int(os.environ.get("MXNET_CHECKPOINT_KEEP", "3"))
         self.keep = max(1, int(keep))
-        self._rank = _world()[0] if rank is None else int(rank)
+        self._rank = _distributed.world()[0] if rank is None else int(rank)
         self._async = bool(async_write)
         self._q = None
         self._worker = None
@@ -705,16 +699,19 @@ class CheckpointManager:
         self.close()
 
     def prune(self):
-        """Keep the newest ``keep`` steps, delete the rest (and any
-        leftover tmp dirs from crashed writers)."""
+        """Keep the newest ``keep`` steps, delete the rest (and this
+        rank's leftover tmp dirs from crashed writers: another rank's may
+        be a shard it is writing into the same root, which the
+        reference's prune deletes, ROADMAP queue C13)."""
         import shutil
 
         steps = list_steps(self.root)
         for s in steps[:-self.keep] if len(steps) > self.keep else []:
             shutil.rmtree(_step_dir(self.root, s), ignore_errors=True)
+        mine = f"-host-{self._rank:05d}-"
         if os.path.isdir(self.root):
             for name in os.listdir(self.root):
-                if name.startswith(".tmp-"):
+                if name.startswith(".tmp-") and mine in name:
                     shutil.rmtree(os.path.join(self.root, name),
                                   ignore_errors=True)
 

@@ -15,14 +15,15 @@ Three failure classes, three policies (docs/RESILIENCE.md):
   :func:`abort_to_checkpoint` — flush the checkpoint manager and raise
   :class:`DeadNodeError` so the launcher can restart the job against
   the surviving hosts; resumption costs one checkpoint interval, not
-  the run.  The port runs one rank until ROADMAP queue A7b: without a
-  ``store``, :func:`check_peers` finds no peer dead, as the reference
-  does with a single rank.
+  the run.  Without a ``store``, or with one rank, :func:`check_peers`
+  finds no peer dead, as the reference does with a single rank; across
+  ranks it asks ``TPUICIStore.get_dead_nodes``.
 """
 from __future__ import annotations
 
 import time
 
+from .. import _distributed
 from .. import observe as _observe
 from ..base import MXNetError
 from . import faultline
@@ -71,16 +72,6 @@ def step_skip_counter():
         "bitwise untouched and the loss scaler backed off")
 
 
-def _local_rank():
-    """This process's rank for jitter seeding: ``torch.distributed``'s
-    when a process group is up, 0 otherwise."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return int(dist.get_rank())
-    return 0
-
-
 def backoff_delay(attempt, base_delay=0.05, max_delay=2.0, rank=None):
     """The capped exponential delay for retry ``attempt`` (0-based) with
     deterministic per-rank jitter: the base ``min(max, base*2^k)``
@@ -92,7 +83,7 @@ def backoff_delay(attempt, base_delay=0.05, max_delay=2.0, rank=None):
     import random as _random
 
     if rank is None:
-        rank = _local_rank()
+        rank = _distributed.world()[0]
     # string seed -> deterministic sha512 path, never process-salted
     rng = _random.Random(f"backoff:{int(rank)}:{int(attempt)}")
     jitter = 0.5 + 0.5 * rng.random()

@@ -67,7 +67,10 @@ def test_import_leaves_jax_out():
             "mxnet_tpu_torch.resilience.faultline, "
             "mxnet_tpu_torch.resilience.policies, "
             "mxnet_tpu_torch.resilience.checkpoint, "
-            "mxnet_tpu_torch.resilience.sentinel, chip_smoke; "
+            "mxnet_tpu_torch.resilience.sentinel, "
+            "mxnet_tpu_torch._distributed, mxnet_tpu_torch.parallel, "
+            "mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.kvstore.tpu_ici, "
+            "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu', 'ml_dtypes')]; print(bad); "
             "sys.exit(1 if bad else 0)")

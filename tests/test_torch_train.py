@@ -462,11 +462,15 @@ def test_dropout_training_is_seeded():
 def test_single_device_contract():
     mod, trainer, _args = _tiny_trainer()
     # a distributed store's name is taken (its store reduces copies in
-    # one process); meshes and compression name their queue items
+    # one process); recipes, meshes with a tensor-parallel axis and
+    # compression name their queue items
     assert Trainer(mod.collect_params(), "adam",
                    kvstore="dist_sync").kvstore.type == "tpu_ici"
-    with pytest.raises(NotImplementedError, match="A7b"):
-        FusedTrainStep(mod, trainer, mesh=object())
+    with pytest.raises(NotImplementedError, match="A8"):
+        FusedTrainStep(mod, trainer, recipe="dp2.tp2")
+    with pytest.raises(NotImplementedError, match="A8"):
+        FusedTrainStep(mod, trainer, mesh=mxt.parallel.Mesh(
+            onp.arange(2).reshape(1, 2), ("dp", "tp")))
     with pytest.raises(NotImplementedError, match="A7c"):
         Trainer(mod.collect_params(), "adam",
                 compression_params={"type": "2bit"})
