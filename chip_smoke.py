@@ -351,6 +351,42 @@ the package is missing.  Phases, each fatal on failure:
    the LSTM layers on the card bitwise its plain CPU computation from
    the same key words.
 
+14. **Data parallelism over copies** (``--dp`` alone; `phase_dp`),
+   ``examples/image-classification/train_imagenet.py``'s eager loop on
+   ResNet-50 v1 (f32, Xavier from a seed, SGD lr 0.1 momentum 0.9).
+   (a) ``ctx=[gpu(0)]``, batch 64, ``kvstore="tpu_ici"`` in turns with
+   no store; (b) ``ctx=[gpu(0), cpu()]``, 4 images a copy,
+   ``kvstore="device"``, the copies within DP_COPY_TOL; (c) the per-key
+   NCCL branch against the plain sum, with two cards or more.  (d) **The
+   wire** (`_dp_wire`): over ``[gpu(0), cpu()]``, ``kvstore="tpu_ici"``,
+   3 steps in each of DP_WIRE_MODES (dense bucketed, dense per key with
+   ``MXNET_KVSTORE_BUCKETING=0``, 2bit at threshold 0.5, int8 and fp8
+   in blocks of 256).  Gates: finite losses; the copies within
+   DP_COPY_TOL after every step; B1 53 a step on the card copy; the
+   collectives a step (``mxtpu_kvstore_collective_launches_total``) the
+   plan's bucket count and below 161, 161 per key; step 2's reduce (the
+   gradient the store wrote to the card copy, and the residuals) bitwise
+   the same reduce computed on the host from the gradients and residuals
+   copied off before it (fp8: bitwise expected, else the worst element
+   beside its stated tolerance); with ``MXNET_KVSTORE_INTEGRITY=1``, in
+   dense and in int8, a ``bitflip`` planned at ``collective.dispatch``
+   on copy 1 before step 2: the step skipped with every copy bitwise as
+   before, the violations, skipped-steps and recovered counters up by
+   one, step 3 updating; in int8, the training state saved after step 2
+   through ``CheckpointManager`` (``bucketres/`` in it), restored into a
+   fresh net and trainer, whose step 3 is bitwise the uninterrupted
+   run's (cuDNN pinned deterministic).  Printed: the plan (buckets,
+   one-key buckets, fill fractions), the share of non-zero 2bit levels,
+   each mode's reduce ms and share of the step beside the per-key
+   mode's, peak memory, and the device ms of the block-scaled
+   quantize-to-dequantize passes of the largest multi-key bucket
+   beside its bytes bound.  With four cards or more, the same modes and
+   integrity runs over ``ctx=[gpu(0..3)]``, 16 images a copy, every
+   collective NCCL (`_dp_wire_nccl`): 2bit and int8 bitwise the host's
+   list computation, dense and fp8 within NCCL's rounding (its order of
+   summation is its own), whether the copies stay bitwise; else "not
+   run: N card(s)" (``wire:`` lines).
+
 15. **Ranks** (``--ranks`` alone; `phase_ranks`).  Each world is this
    script started again with ``--ranks-worker`` and the launcher's three
    variables (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
@@ -382,7 +418,7 @@ Every measurement is printed on a line of its own (``kernel``,
 ``serve:``, ``fleet:``, ``continuous:``, ``train:``, ``train_amp:``,
 ``odd_bert:``, ``flash_crossover:``,
 ``ops:``, ``resnet:``, ``resnet_s2d:``, ``recordio:``, ``rtc:``, ``resnet_custom:``,
-``rnn_lm:``, ``profile:``, ``dp:``, ``rank:``).  The last three lines are a ``{"kernels": [...]}``
+``rnn_lm:``, ``profile:``, ``dp:``, ``wire:``, ``rank:``).  The last three lines are a ``{"kernels": [...]}``
 object.  A captured path's ``launches`` are counted on the card, from
 the ``torch.profiler`` trace of its traced run (`KERNEL_NAMES`), with
 the wrappers' bookkeeping of the same run beside them as
@@ -6790,10 +6826,539 @@ def _dp_nccl(dev):
     return out
 
 
+# (d): the wire.  Modes: (name, compression_params, bucketing)
+DP_WIRE_MODES = (("dense", None, True), ("per_key", None, False),
+                 ("2bit", {"type": "2bit", "threshold": 0.5}, True),
+                 ("int8", {"type": "int8", "block": 256}, True),
+                 ("fp8", {"type": "fp8", "block": 256}, True))
+DP_WIRE_STEPS = 3
+DP_WIRE_CHECK_STEP = 2       # the step whose reduce is held against the CPU
+DP_WIRE_NCCL_PER_COPY = 16   # over four cards: the example's batch 64
+# the planned fault of the integrity runs: one bitflip, on copy 1, at the
+# first bucket of the step it is planned before
+DP_WIRE_FLIP = {"site": "collective.dispatch", "kind": "bitflip", "at": 1,
+                "seed": 5, "rank": 1}
+DP_WIRE_FLIP_STEP = 2
+GRADIENTS_RESNET50 = 161     # the per-key collectives of a step
+
+
+def _sync_all():
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _wire_launches():
+    from mxnet_tpu_torch import telemetry
+    return telemetry.default_registry().get_sample_value(
+        "mxtpu_kvstore_collective_launches_total") or 0.0
+
+
+def _wire_counters():
+    """(integrity violations, skipped steps, recovered bitflips) from the
+    port's registry."""
+    from mxnet_tpu_torch import telemetry
+    reg = telemetry.default_registry()
+    return tuple(reg.get_sample_value(name, labels) or 0.0 for name, labels in (
+        ("mxtpu_integrity_violations_total", {"site": "collective.dispatch"}),
+        ("mxtpu_train_steps_skipped_total", None),
+        ("mxtpu_faults_recovered_total",
+         {"site": "collective.dispatch", "kind": "bitflip"})))
+
+
+class _env:
+    """Environment variables set for a ``with`` block (None: unset)."""
+
+    def __init__(self, **values):
+        self.values, self.saved = values, {}
+
+    def __enter__(self):
+        import os
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        import os
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _wire_trainer(ctxs, comp, x, seed=2):
+    """ResNet-50 v1 (f32, Xavier from ``seed``) over ``ctxs``, its shapes
+    settled and its ``tpu_ici`` store made (the broadcast of the first
+    copy done), SGD lr 0.1 momentum 0.9 with ``comp``."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.utils import split_and_load
+
+    net = _dp_net(ctxs, seed=seed)
+    net._ensure_shapes(split_and_load(x, ctxs)[0])
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9},
+                      kvstore="tpu_ici", compression_params=comp)
+    trainer.kvstore
+    return net, trainer
+
+
+def _wire_snapshot(trainer):
+    """The step's gradients (every copy, to the host, in the order the
+    trainer hands them to the store) and the bucketer's residuals, copied
+    off before the reduce."""
+    pairs = [(i, [g.detach().to("cpu", copy=True) for g in p.list_grad()])
+             for i, p in enumerate(trainer._params)
+             if p.grad_req != "null"][::-1]
+    bucketer = trainer.kvstore._bucketer
+    res = {} if bucketer is None else {
+        k: v.detach().to("cpu", copy=True)
+        for k, v in bucketer.export_residuals().items()}
+    return pairs, res
+
+
+def _wire_plain(trainer, pairs, res, bucketing):
+    """The same reduce computed on the host: the copies as host copies
+    ``cpu(0..n-1)`` (the in-process ring), the residuals imported by
+    digest; per key, the index-order sum.  Returns ``({key: the reduced
+    host tensor}, the host bucketer or None, 2bit levels (nonzero, all))``."""
+    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch.context import mark_context
+    from mxnet_tpu_torch.kvstore import GradBucketer, tpu_ici
+
+    if not bucketing:
+        out = {}
+        for k, gs in pairs:
+            total = gs[0]
+            for g in gs[1:]:
+                total = total + g
+            out[k] = total
+        return out, None, None
+    store = trainer.kvstore
+    plain = GradBucketer(bucket_bytes=store._bucketer.bucket_bytes,
+                         integrity=False)
+    plain.import_residuals(res)
+    items = [(k, [mark_context(g.clone(), cpu(j)) for j, g in enumerate(gs)])
+             for k, gs in pairs]
+    levels = [0, 0]
+    real = tpu_ici._quantize_2bit
+
+    def counted(x, residual, threshold):
+        lvl, r = real(x, residual, threshold)
+        levels[0] += int((lvl != 0).sum())
+        levels[1] += lvl.numel()
+        return lvl, r
+
+    tpu_ici._quantize_2bit = counted
+    try:
+        plain.pushpull(items, compression=store._compression)
+    finally:
+        tpu_ici._quantize_2bit = real
+    return {k: gs for k, gs in items}, plain, levels
+
+
+def _wire_compare(trainer, plain, plain_b, name, nccl, pairs):
+    """The store's reduced gradients (every card copy) and residuals
+    against the host's: ``(bitwise, worst {key, abs err, allowed})``.
+    Over NCCL, dense and fp8 sums are held to a stated tolerance, each
+    partial sum at most P, the sum of the copies' largest magnitudes:
+    NCCL picks the order of its n - 1 f32 additions and the host takes
+    its own, each addition rounded by 2^-24 of a partial, so the two
+    differ by at most 2 (n - 1) 2^-24 P; fp8's bf16 partials round each
+    of NCCL's n - 1 additions by 2^-8 and the host's f32 sum once at the
+    end, so n 2^-8 P, with P doubled for the residual added to each
+    copy's gradient before it is quantized."""
+    import torch
+
+    worst = {"key": None, "abs_err": 0.0, "allowed": 0.0}
+    margin = None                # the largest abs_err - allowed seen
+    bitwise = True
+    params = trainer._params
+    before = dict(pairs)
+    for k, want in plain.items():
+        for c, g in enumerate(params[k].list_grad()):
+            if c > 0 and g.device.type != "cuda":
+                continue                 # copy 0 and every card copy
+            got = g.detach().cpu()
+            ref = want if isinstance(want, torch.Tensor) else want[c]
+            if torch.equal(got, ref):
+                continue
+            bitwise = False
+            err = float((got.float() - ref.float()).abs().max())
+            allowed = 0.0
+            if nccl and name in ("dense", "per_key", "fp8"):
+                n = len(before[k])
+                peak = sum(float(x.abs().max()) for x in before[k])
+                allowed = (2 * (n - 1) * 2.0 ** -24 if name != "fp8"
+                           else n * 2.0 ** -8 * 2) * peak
+            if margin is None or err - allowed > margin:
+                margin = err - allowed
+                worst = {"key": k, "copy": c, "abs_err": err,
+                         "allowed": allowed}
+    res_bitwise = None
+    if plain_b is not None:
+        got = trainer.kvstore._bucketer.export_residuals()
+        want = plain_b.export_residuals()
+        res_bitwise = set(got) == set(want) and all(
+            torch.equal(got[k].detach().cpu(), want[k]) for k in want)
+    return bitwise, res_bitwise, worst
+
+
+def _wire_step(net, trainer, loss_fn, ctxs, x, y, check=None):
+    """One step of the loop with the reduce and the update timed to a
+    sync of every card, the collectives it launched and B1's launches on
+    the card copies counted from 0; with ``check`` (mode, bucketing,
+    over NCCL), the reduce held against the host's."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.utils import split_and_load
+    from mxnet_tpu_torch.ops.nn import BN_BWD_REDUCE
+
+    BN_BWD_REDUCE.launches = 0
+    launches = _wire_launches()
+    _sync_all()
+    t0 = time.perf_counter()
+    xs, ys = split_and_load(x, ctxs), split_and_load(y, ctxs)
+    with mx.autograd.record():
+        losses = [loss_fn(net(xb), yb).mean() for xb, yb in zip(xs, ys)]
+    mx.autograd.backward(losses)
+    _sync_all()
+    t1 = time.perf_counter()
+    snap = _wire_snapshot(trainer) if check else None
+    _sync_all()
+    t2 = time.perf_counter()
+    trainer.allreduce_grads()
+    _sync_all()
+    t3 = time.perf_counter()
+    trainer.update(x.shape[0])
+    _sync_all()
+    t4 = time.perf_counter()
+    out = {"losses": [float(l.detach()) for l in losses],
+           "forward_backward_ms": (t1 - t0) * 1e3,
+           "reduce_ms": (t3 - t2) * 1e3, "update_ms": (t4 - t3) * 1e3,
+           "collective_launches": _wire_launches() - launches,
+           "b1_launches": BN_BWD_REDUCE.launches}
+    out["reduce_share"] = out["reduce_ms"] / (
+        out["forward_backward_ms"] + out["reduce_ms"] + out["update_ms"])
+    if check:
+        name, bucketing, nccl = check
+        plain, plain_b, levels = _wire_plain(trainer, *snap, bucketing)
+        bitwise, res_bitwise, worst = _wire_compare(trainer, plain, plain_b,
+                                                    name, nccl, snap[0])
+        out["check"] = {"reduce_bitwise": bitwise,
+                        "residuals_bitwise": res_bitwise, "worst": worst}
+        if levels is not None and levels[1]:
+            out["check"]["nonzero_level_share"] = levels[0] / levels[1]
+    return out
+
+
+def _wire_copies_diff(net):
+    """The largest difference between a trainable parameter's copies,
+    relative to max(1, |w|), and whether every copy is bitwise its first."""
+    import torch
+    worst, bitwise = 0.0, True
+    for p in net.collect_params().values():
+        if p.grad_req == "null":
+            continue
+        first = p.list_data()[0].detach().cpu()
+        for other in p.list_data()[1:]:
+            other = other.detach().cpu()
+            bitwise = bitwise and torch.equal(first, other)
+            worst = max(worst, float((first - other).abs().max()) /
+                        max(1.0, float(first.abs().max())))
+    return worst, bitwise
+
+
+def _wire_weights(net):
+    return {name: [t.detach().cpu().clone() for t in p.list_data()]
+            for name, p in net.collect_params().items()
+            if p.grad_req != "null"}
+
+
+def _wire_mode(ctxs, name, comp, bucketing, x, y, nccl, ckpt_dir=None):
+    """One mode's DP_WIRE_STEPS steps from the same seed; step
+    DP_WIRE_CHECK_STEP held against the host.  With ``ckpt_dir`` (int8),
+    the training state saved after step 2 through `CheckpointManager`,
+    restored into a fresh net and trainer, whose step 3 must equal this
+    run's bitwise."""
+    import torch
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.resilience import checkpoint as ckpt
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+    with _env(MXNET_KVSTORE_BUCKETING="1" if bucketing else "0",
+              MXNET_KVSTORE_INTEGRITY=None):
+        net, trainer = _wire_trainer(ctxs, comp, x)
+        steps = []
+        for t in range(1, DP_WIRE_STEPS + 1):
+            check = (name, bucketing, nccl) if t == DP_WIRE_CHECK_STEP \
+                else None
+            steps.append(_wire_step(net, trainer, loss_fn, ctxs, x, y,
+                                    check))
+            steps[-1]["copies_max_rel_diff"], steps[-1]["copies_bitwise"] = \
+                _wire_copies_diff(net)
+            if ckpt_dir is not None and t == 2:
+                mgr = ckpt.CheckpointManager(ckpt_dir, async_write=False)
+                arrays, meta = ckpt.gather_training_state(trainer, t)
+                mgr.save(t, arrays, meta)
+                mgr.close()
+                saved = {"kvres": sum(k.startswith("kvres/") for k in arrays),
+                         "bucketres": sum(k.startswith("bucketres/")
+                                          for k in arrays)}
+        plan = trainer.kvstore._bucketer._plans if bucketing else {}
+        out = {"mode": name, "compression": comp, "bucketing": bucketing,
+               "steps": steps}
+        if plan:
+            (buckets,) = plan.values()
+            out["plan"] = {
+                "buckets": len(buckets),
+                "single_key_buckets": sum(len(b.keys) == 1 for b in buckets),
+                "fill_fractions": [round(b.fill_fraction, 4)
+                                   for b in buckets],
+                "largest_multi_key_capacity": max(
+                    (b.capacity for b in buckets if len(b.keys) > 1),
+                    default=0)}
+        if ckpt_dir is not None:
+            want = _wire_weights(net)
+            mgr = ckpt.CheckpointManager(ckpt_dir, async_write=False)
+            step, arrays, meta = mgr.restore_latest()
+            mgr.close()
+            net2, trainer2 = _wire_trainer(ctxs, comp, x, seed=9)
+            ckpt.restore_training_state(arrays, meta, trainer2)
+            _wire_step(net2, trainer2, loss_fn, ctxs, x, y)
+            got = _wire_weights(net2)
+            out["resume"] = {"saved_step": step, **saved,
+                             "step3_bitwise": all(
+                                 torch.equal(a, b) for k in want
+                                 for a, b in zip(want[k], got[k]))}
+            del net2, trainer2
+    del net, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wire_integrity(ctxs, name, comp, x, y):
+    """With MXNET_KVSTORE_INTEGRITY=1, DP_WIRE_FLIP planned before step
+    DP_WIRE_FLIP_STEP of DP_WIRE_STEPS (through ``Trainer.step``): that
+    step skipped with every parameter copy bitwise as before it, the
+    three counters up by one each, the next step updating."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.utils import split_and_load
+    from mxnet_tpu_torch.resilience import faultline
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+    out = {"mode": name, "flip": DP_WIRE_FLIP}
+    with _env(MXNET_KVSTORE_BUCKETING="1", MXNET_KVSTORE_INTEGRITY="1"):
+        net, trainer = _wire_trainer(ctxs, comp, x)
+        for t in range(1, DP_WIRE_STEPS + 1):
+            before = _wire_weights(net)
+            counters = _wire_counters()
+            skipped = trainer.skipped_steps
+            if t == DP_WIRE_FLIP_STEP:
+                faultline.plan([DP_WIRE_FLIP])
+            try:
+                xs, ys = split_and_load(x, ctxs), split_and_load(y, ctxs)
+                with mx.autograd.record():
+                    losses = [loss_fn(net(xb), yb).mean()
+                              for xb, yb in zip(xs, ys)]
+                mx.autograd.backward(losses)
+                trainer.step(x.shape[0])
+            finally:
+                faultline.clear()
+            _sync_all()
+            after = _wire_weights(net)
+            same = all(torch.equal(a, b) for k in before
+                       for a, b in zip(before[k], after[k]))
+            rise = [b - a for a, b in zip(counters, _wire_counters())]
+            out[f"step{t}"] = {"skipped": trainer.skipped_steps - skipped,
+                               "params_unchanged": same,
+                               "counters_rise": rise}
+    want_skip = {"skipped": 1, "params_unchanged": True,
+                 "counters_rise": [1.0, 1.0, 1.0]}
+    want_clean = {"skipped": 0, "params_unchanged": False,
+                  "counters_rise": [0.0, 0.0, 0.0]}
+    out["ok"] = (out[f"step{DP_WIRE_FLIP_STEP}"] == want_skip and
+                 out[f"step{DP_WIRE_FLIP_STEP + 1}"] == want_clean)
+    del net, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wire_quantize_ms(dev, cap, qtype, n=2):
+    """Device ms of the block-scaled quantize-to-dequantize passes
+    (`tpu_ici._blockwise_body`, ``n`` copies of a ``cap``-element flat
+    bucket on the card, the in-process reduction between them) beside the
+    bytes bound: each copy's gradient and residual read once, its result
+    and new residual written once, at HBM_BYTES_PER_S."""
+    import torch
+    from mxnet_tpu_torch.kvstore import tpu_ici
+
+    gen = torch.Generator(device=dev).manual_seed(53)
+    gs = [torch.randn(cap, device=dev, generator=gen) for _ in range(n)]
+    rs = [torch.randn(cap, device=dev, generator=gen) * 1e-3
+          for _ in range(n)]
+    ms = device_ms(lambda: tpu_ici._blockwise_body(
+        gs, rs, qtype, 256, tpu_ici._ListCollective), iters=10)
+    bound = n * cap * 4 * 4 / HBM_BYTES_PER_S * 1e3
+    return {"qtype": qtype, "capacity": cap, "copies": n, "device_ms": ms,
+            "bound_ms": bound, "bound_by": "bytes", "x_bound": ms / bound}
+
+
+def _dp_wire(dev):
+    """(d) the wire: ResNet-50 v1 over ``ctx=[gpu(0), cpu()]`` (4 images
+    a copy) with ``kvstore="tpu_ici"`` in each of DP_WIRE_MODES, the
+    integrity runs (dense, int8) and the int8 checkpoint resume; the
+    quantize passes of the largest multi-key bucket timed on the card.
+    cuDNN pinned deterministic throughout."""
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch import cpu
+
+    ctxs = [dev, cpu()]
+    torch.cuda.reset_peak_memory_stats()
+    x, y = _dp_batch(DP_HOST_PER_COPY * len(ctxs), seed=45)
+    t0 = time.perf_counter()
+
+    def run(ckpt_dir):
+        out = _wire_modes(ctxs, x, y, nccl=False, ckpt_dir=ckpt_dir)
+        out["integrity"] = [_wire_integrity(ctxs, "dense", None, x, y),
+                            _wire_integrity(ctxs, "int8",
+                                            DP_WIRE_MODES[3][1], x, y)]
+        for r in out["integrity"]:
+            log("wire: integrity " + json.dumps(r))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _deterministic(lambda: run(tmp))
+    cap = out["modes"]["int8"]["plan"]["largest_multi_key_capacity"]
+    out["quantize"] = [_wire_quantize_ms(dev, cap, q) for q in ("int8", "fp8")]
+    for q in out["quantize"]:
+        log("wire: quantize passes " + json.dumps(q))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t0
+    out["ctx"] = [str(c) for c in ctxs]
+    log("wire: summary " + json.dumps(
+        {k: out[k] for k in ("ctx", "peak_mem_gb", "seconds")} |
+        {"reduce_ms": out["reduce_ms"]}))
+    _wire_gates(out, card_copies=1, nccl=False)
+    return out
+
+
+def _wire_modes(ctxs, x, y, nccl, ckpt_dir=None):
+    """Every mode of DP_WIRE_MODES over ``ctxs`` (int8 with the
+    checkpoint resume into ``ckpt_dir``, if given); the per-key mode's
+    median reduce ms beside each mode's."""
+    import statistics as st
+    modes = {}
+    for name, comp, bucketing in DP_WIRE_MODES:
+        modes[name] = _wire_mode(ctxs, name, comp, bucketing, x, y, nccl,
+                                 ckpt_dir if name == "int8" else None)
+        log("wire: mode " + json.dumps(modes[name]))
+    reduce_ms = {name: st.median(s["reduce_ms"] for s in m["steps"][1:])
+                 for name, m in modes.items()}
+    share = {name: st.median(s["reduce_share"] for s in m["steps"][1:])
+             for name, m in modes.items()}
+    return {"modes": modes, "reduce_ms": reduce_ms, "reduce_share": share,
+            "reduce_vs_per_key": {name: ms / reduce_ms["per_key"]
+                                  for name, ms in reduce_ms.items()}}
+
+
+def _wire_gates(out, card_copies, nccl):
+    """Part (d)'s gates, each fatal: finite losses, copies within
+    DP_COPY_TOL after every step, B1 53 a step on each card copy, the
+    collectives a step the plan's bucket count and below 161 (161 per
+    key), the checked reduce bitwise its host computation (dense, 2bit,
+    int8; fp8 and NCCL's dense sums reported against their tolerance),
+    residuals bitwise, the integrity runs, the resume."""
+    fails = []
+    for name, m in out["modes"].items():
+        want = m["plan"]["buckets"] if "plan" in m else GRADIENTS_RESNET50
+        for i, s in enumerate(m["steps"], 1):
+            if not all(v == v and abs(v) != float("inf")
+                       for v in s["losses"]):
+                fails.append(f"{name} step {i}: a loss is not finite")
+            if s["copies_max_rel_diff"] > DP_COPY_TOL:
+                fails.append(f"{name} step {i}: copies differ by "
+                             f"{s['copies_max_rel_diff']}")
+            if s["b1_launches"] != BN_LAYERS * card_copies:
+                fails.append(f"{name} step {i}: B1 {s['b1_launches']}")
+            if s["collective_launches"] != want:
+                fails.append(f"{name} step {i}: {s['collective_launches']} "
+                             f"collectives, expected {want}")
+            c = s.get("check")
+            if c is None:
+                continue
+            tolerant = name == "fp8" or (nccl and name in ("dense",
+                                                           "per_key"))
+            if not c["reduce_bitwise"]:
+                w = c["worst"]
+                if not tolerant or w["abs_err"] > w["allowed"]:
+                    fails.append(f"{name}: the reduce is not its host "
+                                 f"computation: {w}")
+                else:
+                    log(f"wire: {name} within tolerance, not bitwise: {w}")
+            if c["residuals_bitwise"] is False and not tolerant:
+                fails.append(f"{name}: residuals differ from the host's")
+        if "plan" in m and not m["plan"]["buckets"] < GRADIENTS_RESNET50:
+            fails.append(f"{name}: {m['plan']['buckets']} buckets")
+    for r in out["integrity"]:
+        if not r["ok"]:
+            fails.append(f"integrity {r['mode']}: {r}")
+    resume = out["modes"]["int8"].get("resume")
+    if resume is not None and not (resume["step3_bitwise"] and
+                                   resume["bucketres"] > 0):
+        fails.append(f"resume: {resume}")
+    if fails:
+        raise SystemExit("the wire failed: " + "; ".join(fails))
+
+
+def _dp_wire_nccl(dev):
+    """(d) over four cards: the same modes and integrity runs over
+    ``ctx=[gpu(0..3)]``, DP_WIRE_NCCL_PER_COPY images a copy, every
+    collective NCCL; run only with four cards or more."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        out = {"run": False, "why": f"not run: {n} card(s)"}
+        log("wire: (d) over four cards " + json.dumps(out))
+        return out
+    ctxs = [torch.device("cuda", i) for i in range(4)]
+    x, y = _dp_batch(DP_WIRE_NCCL_PER_COPY * len(ctxs), seed=47)
+    t0 = time.perf_counter()
+
+    def run():
+        out = _wire_modes(ctxs, x, y, nccl=True)
+        out["integrity"] = [_wire_integrity(ctxs, "dense", None, x, y),
+                            _wire_integrity(ctxs, "int8",
+                                            DP_WIRE_MODES[3][1], x, y)]
+        for r in out["integrity"]:
+            log("wire: nccl integrity " + json.dumps(r))
+        return out
+
+    out = _deterministic(run)
+    out["run"] = True
+    out["copies_bitwise"] = {
+        name: all(s["copies_bitwise"] for s in m["steps"])
+        for name, m in out["modes"].items()}
+    out["seconds"] = time.perf_counter() - t0
+    log("wire: nccl summary " + json.dumps(
+        {k: out[k] for k in ("reduce_ms", "copies_bitwise", "seconds")}))
+    _wire_gates(out, card_copies=4, nccl=True)
+    return out
+
+
 def phase_dp(dev):
     out = {"card_copy": _dp_card(dev),
            "card_and_host_copies": _dp_card_and_host(dev),
-           "nccl_copies": _dp_nccl(dev), "card": nvidia_smi()}
+           "nccl_copies": _dp_nccl(dev), "wire": _dp_wire(dev),
+           "wire_nccl": _dp_wire_nccl(dev), "card": nvidia_smi()}
     return out
 
 

@@ -51,7 +51,8 @@ import weakref
 
 import torch
 
-from ..context import as_context, current_context, resolve_contexts
+from ..context import (as_context, current_context, mark_context,
+                       resolve_contexts)
 from .. import initializer
 
 __all__ = ["Parameter", "DeferredInitializationError", "to_torch_dtype",
@@ -315,7 +316,14 @@ class Parameter:
             raise KeyError(ctx if ctx is not None else current_context())
         if tensor.grad is None:
             tensor.grad = torch.zeros_like(tensor)
-        return tensor.grad
+        # a host copy's gradient carries its context, as the kvstore
+        # decides by contexts whether copies ride a ring
+        return mark_context(tensor.grad, self._context_of(tensor))
+
+    def _context_of(self, tensor):
+        if tensor is self._data:
+            return self._ctx_list[0]
+        return next(c for c, t in self._copies.items() if t is tensor)
 
     def list_grad(self):
         """Every copy's gradient, in context order ([] for

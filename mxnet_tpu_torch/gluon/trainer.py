@@ -37,8 +37,12 @@ stay bitwise equal.  With ``update_on_kvstore=True`` (a store that
 instead: after the reduce, each gradient is pushed to it and the
 updated weight pulled into every copy, as the reference does, which
 with n copies pushes n reduced copies and so applies n times their sum
-(ROADMAP queue C, C10).  Gradient compression is ROADMAP queue A item
-A7c.
+(ROADMAP queue C, C10).  ``compression_params`` goes to the store's
+``set_gradient_compression`` when the store is made (``2bit``, ``int8``,
+``fp8``, with error feedback; a store without it raises the reference's
+``ValueError``).  The reduce goes through the store's ``pushpull_list``
+(its `GradBucketer`); ``MXNET_KVSTORE_BUCKETING=0`` pushes key by key,
+in registration order with ``priority=-i``, as the reference does.
 
 An optimizer with ``supports_fused = False`` (Nadam, SGLD) is applied
 parameter by parameter instead (`Optimizer.update`: the gradient
@@ -59,7 +63,14 @@ Telemetry, as in the reference: ``step`` counts a step
 ``optimizer`` phases and the whole step
 (``mxtpu_step_duration_seconds``, and a flight-recorder event); a step
 the guard skips ticks ``mxtpu_train_steps_skipped_total`` and
-``faultline.recovered("train.grads", "nan_grad")``.
+``faultline.recovered("train.grads", "nan_grad")``.  Before the loss
+scaler, the integrity guard (``MXNET_KVSTORE_INTEGRITY=1``) asks the
+store for the reduce's integrity violations
+(``consume_integrity_violations``): a step whose reduced gradients
+disagreed across the copies is skipped the same way, with weights,
+states and counts bitwise as they were, an ``integrity_violation``
+event in the flight recorder and
+``faultline.recovered("collective.dispatch", "bitflip")``.
 
 ``save_states`` / ``load_states`` write and read the optimizer states
 in the JAX package's format (`optimizer.Updater`): the file of either
@@ -141,11 +152,8 @@ class Trainer:
         for i, param in enumerate(params):
             if not isinstance(param, Parameter):
                 raise ValueError(f"element {i} is not a Parameter")
-        if compression_params is not None:
-            raise NotImplementedError(
-                "gradient compression (compression_params) is ROADMAP "
-                "queue A item A7c in the port")
         self._params = list(params)
+        self._compression_params = compression_params
         self._scale = 1.0
         self.skipped_steps = 0
         self._states = None
@@ -204,6 +212,11 @@ class Trainer:
                 raise ValueError(f"kvstore {store.type} does not support "
                                  "update_on_kvstore")
             store.set_optimizer(self._optimizer)
+        if store is not None and self._compression_params is not None:
+            if not hasattr(store, "set_gradient_compression"):
+                raise ValueError(f"kvstore {store.type} does not support "
+                                 "gradient compression")
+            store.set_gradient_compression(self._compression_params)
         if store is not None:
             for i, param in enumerate(self._params):
                 ctxs = param.list_ctx()
@@ -305,6 +318,8 @@ class Trainer:
         _telemetry.mark_step()
         with _telemetry.step_phase("allreduce"):
             self._allreduce_grads()
+        if self._integrity_violated():
+            return
         scaler = getattr(self, "_amp_loss_scaler", None)
         if scaler is not None and scaler.has_overflow(
                 [p for p in self._params if p.grad_req != "null"]):
@@ -320,6 +335,25 @@ class Trainer:
         if scaler is not None:
             scaler.update_scale(False)
 
+    def _integrity_violated(self):
+        """The integrity guard: whether the store's reduce flagged a
+        corrupted bucket this step; such a step is counted as skipped
+        and leaves the update out."""
+        consume = getattr(self._kvstore, "consume_integrity_violations",
+                          None)
+        violations = consume() if consume is not None else 0
+        if violations <= 0:
+            return False
+        from ..resilience import faultline as _faultline
+        from ..resilience.policies import step_skip_counter
+        self.skipped_steps += 1
+        step_skip_counter().inc()
+        _observe.record("sentinel", "integrity_violation",
+                        site="collective.dispatch",
+                        violations=int(violations))
+        _faultline.recovered("collective.dispatch", "bitflip")
+        return True
+
     def allreduce_grads(self):
         """Sum every trainable parameter's gradients over its copies, in
         place (nothing without a store)."""
@@ -333,10 +367,16 @@ class Trainer:
         pairs = [(i, param.list_grad())
                  for i, param in enumerate(self._params)
                  if param.grad_req != "null"]
-        if pairs:
+        if not pairs:
+            return
+        from ..kvstore import bucketing as _bucketing
+        if _bucketing.bucketing_enabled():
             # reverse registration order: the order a backward produces
             # the gradients
             self._kvstore.pushpull_list(pairs[::-1])
+            return
+        for i, grads in pairs:
+            self._kvstore.pushpull(i, grads, priority=-i)
 
     def update(self, batch_size, ignore_stale_grad=False):
         self._init_kvstore()

@@ -1,19 +1,12 @@
 """KVStore (counterpart of `mxnet_tpu/kvstore/`): the stores that reduce
-a parameter's per-context copies in one process.  ``GradBucketer`` is
-ROADMAP queue A item A7c in the port, and naming it raises."""
+a parameter's per-context copies in one process, and the
+`GradBucketer` that fuses their gradients into size-capped buckets."""
 from .base import KVStoreBase, create, TestStore
+from .bucketing import GradBucketer
 from .local import LocalKVStore
 from .tpu_ici import TPUICIStore
 
 KVStore = LocalKVStore  # the classic API's store type
 
 __all__ = ["KVStoreBase", "KVStore", "create", "TestStore", "LocalKVStore",
-           "TPUICIStore"]
-
-
-def __getattr__(name):
-    if name in ("GradBucketer", "bucketing"):
-        raise NotImplementedError(
-            f"kvstore.{name}: gradient bucketing is ROADMAP queue A item "
-            "A7c in the port; pushpull_list reduces key by key")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+           "TPUICIStore", "GradBucketer"]

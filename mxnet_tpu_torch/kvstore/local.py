@@ -5,8 +5,10 @@ A push sums the per-context copies of a value in index order on the
 first copy's device; a pull copies the stored value into every output.
 With an optimizer set (``set_optimizer``, as ``update_on_kvstore=True``
 does), a push runs the update at the store through an
-`optimizer.Updater` instead of storing the sum.  Values are dense
-tensors; row-sparse ones are ROADMAP queue A item A10.
+`optimizer.Updater` instead of storing the sum.  ``pushpull_list``
+reduces the values of two or more copies through a
+`bucketing.GradBucketer`, uncompressed, as the reference does.  Values
+are dense tensors; row-sparse ones are ROADMAP queue A item A10.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ class LocalKVStore(KVStoreBase):
     def __init__(self):
         self._store = {}
         self._updater = None
+        self._bucketer = None
 
     # -- classic API --------------------------------------------------------
     def init(self, key, value):
@@ -66,10 +69,23 @@ class LocalKVStore(KVStoreBase):
                 _copy_into(reduced, dst)
 
     def pushpull_list(self, pairs):
-        """Reduce many keys in place, key by key in the caller's order
-        (gradient bucketing is ROADMAP queue A item A7c)."""
-        for key, value in pairs:
+        """Reduce many keys in place in the caller's order, the values of
+        two or more dense copies through the store's `GradBucketer` (one
+        reduce a size-capped bucket); a single value keeps the per-key
+        path.  ``MXNET_KVSTORE_BUCKETING=0`` reduces key by key."""
+        from . import bucketing as _bucketing
+
+        if not _bucketing.bucketing_enabled():
+            for key, value in pairs:
+                self.pushpull(key, value)
+            return
+        bucketable, per_key = _bucketing.split_bucketable(pairs)
+        for key, value in per_key:
             self.pushpull(key, value)
+        if bucketable:
+            if self._bucketer is None:
+                self._bucketer = _bucketing.GradBucketer()
+            self._bucketer.pushpull(bucketable)
 
     @staticmethod
     def is_capable(capability):

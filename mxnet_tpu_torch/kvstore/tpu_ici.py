@@ -1,22 +1,44 @@
 """``kvstore='tpu_ici'``: the copies' reduction in one process
-(counterpart of `mxnet_tpu/kvstore/tpu_ici.py`'s dense copies path).
+(counterpart of `mxnet_tpu/kvstore/tpu_ici.py`'s copies path).
 
 The name is the reference's, and ``nccl``, ``dist_sync``,
 ``dist_device_sync`` and ``horovod`` are its aliases (`kvstore.create`).
 Values arrive as a list of per-context copies of one gradient, as
-``Trainer`` pushes them; `_reduce_copies` sums them:
+``Trainer`` pushes them.  Whether a reduction rides a ring is decided by
+the copies' **contexts** (`context.tensor_context`: a card tensor's
+device, the mark `split_and_load` and `Parameter.grad` put on a host
+tensor), not by ``tensor.device``, since every host copy says ``cpu``:
 
-- copies on two or more distinct cards: one ``torch.cuda.nccl``
-  all-reduce over the copies, each card's sum left on that card (the
-  reference's one compiled psum over the copies' devices);
-- host-backed copies, or several copies on one device: a plain sum in
-  index order on the first copy's device, written back to each copy (the
-  reference's fallback branch).
+- copies on distinct known contexts ride the ring: each copy's result
+  is computed and left on its own device, with the collective the
+  contexts allow (`_collective_for`): one ``torch.cuda.nccl``
+  all-reduce where every copy lies on a card of its own, else an
+  in-process reduction of the list in copy-index order on the first
+  copy's device (host copies ``cpu(0..3)``, or a card copy beside a
+  host copy), as the reference's four host devices take its psum;
+- copies on one context, or an unmarked host tensor among them: the
+  fallback, a plain sum in index order on the first copy's device,
+  written back to each copy (the reference's fallback branch).
+
+Gradient compression with error feedback (`set_gradient_compression`,
+the reference's types and error text): ``2bit`` quantizes each copy to
+levels {-1, 0, +1} against a threshold and sums the levels; ``int8`` and
+``fp8`` are block-scaled, with one scale per ``MXNET_KVSTORE_QBLOCK``
+elements agreed across the copies by a MAX of their block maxima, so
+the quantized payloads sum exactly (`_blockwise_body`).  Each keeps the
+quantization error as a residual per (key, copy), added back at the next
+reduce, reset where its shape, dtype or context changed
+(`_residual_matches`).  The math is plain torch ops, as the reference's
+is ``jnp`` code that XLA fuses.
 
 Each ``pushpull`` runs inside the transient-fault retry policy, with the
-``kvstore.pushpull`` fault site and a ``collective_span("allreduce",
-bytes)`` around the reduction, as in the reference.  ``pushpull_list``
-reduces key by key in the caller's order.
+``kvstore.pushpull`` fault site and a ``collective_span`` around the
+reduction (``allreduce``; ``allreduce_2bit`` at a quarter of the bytes,
+``allreduce_int8`` / ``allreduce_fp8`` at half), as in the reference.
+``pushpull_list`` reduces the bucketable values through a
+`bucketing.GradBucketer` (one collective a size-capped bucket; the
+integrity sideband rides there), ``MXNET_KVSTORE_BUCKETING=0`` key by
+key.
 
 Across ranks (a ``torch.distributed`` group, `mxnet_tpu_torch._distributed`)
 ``rank`` and ``num_workers`` are the group's.  A single value's
@@ -40,8 +62,7 @@ joins the thread.  A group that `_distributed` did not start has no
 store to stamp into: there, as in the reference without a coordination
 client, no rank is reported dead.
 
-Gradient compression and bucketing are ROADMAP queue A item A7c;
-row-sparse values are A10.
+Row-sparse values are ROADMAP queue A item A10.
 """
 from __future__ import annotations
 
@@ -54,10 +75,12 @@ import torch
 from .. import _distributed
 from .. import observe as _observe
 from ..base import MXNetError
+from ..context import mark_context, tensor_context
 from ..telemetry import collective_span as _collective_span
 from .base import KVStoreBase, _as_list, _copy_into
 
-__all__ = ["TPUICIStore"]
+__all__ = ["TPUICIStore", "SUPPORTED_COMPRESSION", "DEFAULT_QBLOCK",
+           "qblock_size"]
 
 
 def _payload_bytes(vals):
@@ -65,11 +88,282 @@ def _payload_bytes(vals):
     return sum(v.numel() * v.element_size() for v in vals)
 
 
+# -- where a reduction runs ----------------------------------------------------
+
+def _value_contexts(vals):
+    """The context each copy belongs to (None: an unmarked host tensor)."""
+    return [tensor_context(v) for v in vals]
+
+
+def _on_ring(ctxs):
+    """Whether copies on ``ctxs`` ride the ring: every context known and
+    each copy on one of its own."""
+    return None not in ctxs and len(set(ctxs)) == len(ctxs)
+
+
+# ncclRedOp_t values (torch.cuda.nccl names only SUM)
+_NCCL_OPS = {"sum": 0, "max": 2}
+
+
+class _NcclCollective:
+    """All-reduce over copies each on a card of its own: one
+    ``torch.cuda.nccl.all_reduce`` a call, each card's result on that
+    card.  The cards' streams run NCCL calls in issue order, so the
+    reference's launch-chain token and host fence (workarounds for XLA's
+    emulated collectives) have no counterpart here."""
+
+    @staticmethod
+    def all_reduce(tensors, op):
+        outs = [t.clone(memory_format=torch.contiguous_format)
+                for t in tensors]
+        torch.cuda.nccl.all_reduce(outs, op=_NCCL_OPS[op])
+        return outs
+
+
+class _ListCollective:
+    """All-reduce over copies on distinct contexts that NCCL cannot
+    join (host copies, a card copy beside a host copy): the list reduced
+    in copy-index order on the first copy's device, and the result copied
+    to every copy's device (each copy its own tensor).  A sum of 16-bit
+    floats accumulates in f32 and rounds once, as XLA's all-reduce over
+    the reference's host devices does (fp8's bf16 partials then agree
+    with the reference bitwise)."""
+
+    @staticmethod
+    def all_reduce(tensors, op):
+        first = tensors[0]
+        wide = op == "sum" and first.dtype in (torch.bfloat16,
+                                                torch.float16)
+        total = first.float() if wide else first
+        for t in tensors[1:]:
+            t = t.to(first.device)
+            if wide:
+                total = total + t.float()
+            elif op == "sum":
+                total = total + t
+            else:
+                total = torch.maximum(total, t)
+        total = total.to(first.dtype)
+        return [total.to(t.device, copy=True) for t in tensors]
+
+
+def _collective_for(ctxs):
+    """NCCL where every copy lies on a card of its own, else the
+    in-process list reduction."""
+    if all(c.type == "cuda" for c in ctxs):
+        return _NcclCollective
+    return _ListCollective
+
+
+def _residual_matches(res, data):
+    """An error-feedback residual holds only for the tensor it was
+    recorded against: the same shape and dtype and, where both say it,
+    the same context (a copy moved by `reset_ctx` resets it).  A residual
+    restored from a checkpoint carries no context and gates on shape and
+    dtype only."""
+    if tuple(res.shape) != tuple(data.shape) or res.dtype != data.dtype:
+        return False
+    a, b = tensor_context(res), tensor_context(data)
+    return a is None or b is None or a == b
+
+
+def _like(value, tensor):
+    """``value`` (a python float) as a 0-dim tensor of ``tensor``'s dtype
+    on its device, as the reference's weak-typed scalars take the
+    array's dtype (filled on the device: no copy from the host)."""
+    return torch.full((), value, dtype=tensor.dtype, device=tensor.device)
+
+
+def _quantize_2bit(x, residual, threshold):
+    """The reference's 2-bit compression: ``x + residual`` to levels
+    {-1, 0, +1} against ``threshold`` (scaled by it after the sum), the
+    error kept as the new residual.  Returns (int8 levels, residual)."""
+    acc = x + residual
+    thr = _like(threshold, acc)
+    lvl = torch.where(acc >= thr, 1,
+                      torch.where(acc <= -thr, -1, 0)).to(torch.int8)
+    return lvl, acc - lvl.to(acc.dtype) * thr
+
+
+def _sum_levels(levels, ctxs, dtype, threshold):
+    """The dequantized sum of the copies' 2bit levels (``dtype`` times
+    the threshold in ``dtype``): on the ring one result a copy, the
+    levels summed as int8 while n x 1 fits, int32 past 127 copies (NCCL
+    has no int16, the reference's type there); else one tensor, summed
+    as int32 on the first copy's device."""
+    if _on_ring(ctxs):
+        acc = torch.int8 if len(levels) <= 127 else torch.int32
+        totals = _collective_for(ctxs).all_reduce(
+            [lvl.to(acc) for lvl in levels], "sum")
+        outs = [t.to(dtype) for t in totals]
+        return [o * _like(threshold, o) for o in outs]
+    total = levels[0].to(torch.int32)
+    for lvl in levels[1:]:
+        total = total + lvl.to(levels[0].device).to(torch.int32)
+    out = total.to(dtype)
+    return out * _like(threshold, out)
+
+
+# -- block-scaled int8/fp8 ----------------------------------------------------
+
+#: Gradient compression types ``set_gradient_compression`` accepts.
+SUPPORTED_COMPRESSION = ("2bit", "int8", "fp8")
+
+#: Largest quantized magnitude per block-scaled type (int8: symmetric 127;
+#: fp8 e4m3: 448, the format's finite max).
+_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+DEFAULT_QBLOCK = 256
+
+
+def qblock_size():
+    """Scale-block size in elements for block-scaled int8/fp8
+    compression (``MXNET_KVSTORE_QBLOCK``, default 256): 256 f32 elements
+    are 1 KB, so the 64 KB bucket-capacity quantum holds whole blocks."""
+    return max(1, int(os.environ.get("MXNET_KVSTORE_QBLOCK",
+                                     DEFAULT_QBLOCK)))
+
+
+def _blockwise_qparams(qtype, n_copies):
+    """``(qmax, wire dtype, sum dtype)`` for a variant.
+
+    The reference sums int8 payloads as int16 partials; NCCL has no
+    int16, so they sum as f16 while ``n x 127 <= 2048``, up to 16 copies:
+    every partial sum is then an integer f16 holds exactly, so the result
+    is bitwise the int16 sum.  Past 16 copies they sum as int32 (exact,
+    twice the bytes).  fp8 payloads widen to bf16 partials, as in the
+    reference."""
+    if qtype == "int8":
+        acc = torch.float16 if n_copies <= 16 else torch.int32
+        return _QMAX["int8"], torch.int8, acc
+    if qtype == "fp8":
+        return _QMAX["fp8"], torch.float8_e4m3fn, torch.bfloat16
+    raise MXNetError(f"no block-scaled compression type {qtype!r}")
+
+
+def _blockwise_layout(numel, block):
+    """``(n_blocks, pad)`` covering ``numel`` elements with whole
+    ``block``-element scale blocks (the tail block zero-padded)."""
+    nblk = -(-numel // block)
+    return nblk, nblk * block - numel
+
+
+def _blockwise_body(gs, rs, qtype, block, collective):
+    """The block-scaled reduce over copies: ``gs`` and ``rs`` are each
+    copy's flat gradient and residual (one dtype, each on its copy's
+    device), ``collective`` the all-reduce the copies ride (a SUM and a
+    MAX over a list, each result left on its copy's device).  Returns
+    ``(outs, new residuals)``, one of each a copy, in the gradient's
+    dtype on its device.
+
+    Copies scaled independently cannot share a sum, so the scale is
+    agreed first: a MAX of each copy's per-block amax (a sideband of
+    1/block of the payload) gives every copy the same scale, and the
+    quantized payloads then sum exactly in the widened type.  A zero-amax
+    block keeps scale 1, so 0/0 never happens and a zero-padded tail
+    stays zero through quantize, sum and residual.  Rounding follows what
+    XLA makes of the reference's code: the scale is the block maximum
+    times the f32 reciprocal of qmax, round half to even, clip to +-qmax before the cast (the
+    fp8 cast does not saturate), and the residual ``blocks - q x scale``
+    rounded once, as the fused multiply-subtract XLA emits: the product
+    and the difference are exact in f64 (q has at most 8 significant
+    bits, the scale 24, and q x scale lies within a factor of two of the
+    block's value), so one rounding to f32 remains."""
+    n, numel = len(gs), gs[0].numel()
+    out_dtype = gs[0].dtype
+    qmax, wire, acc_dt = _blockwise_qparams(qtype, n)
+    nblk, pad = _blockwise_layout(numel, block)
+    blocks = []
+    for g, r in zip(gs, rs):
+        # one program in the reference: XLA keeps the 16-bit sum in f32
+        # (excess precision), so the sum is taken in f32 here
+        accf = (g.to(torch.float32) + r.to(torch.float32)).reshape(-1)
+        if pad:
+            accf = torch.nn.functional.pad(accf, (0, pad))
+        blocks.append(accf.reshape(nblk, block))
+    gmaxes = collective.all_reduce(
+        [b.abs().amax(dim=1) for b in blocks], "max")
+    qs, scales = [], []
+    for b, gmax in zip(blocks, gmaxes):
+        # XLA turns the reference's division by the constant qmax into
+        # a multiplication by its f32 reciprocal; so does this
+        scale = torch.where(gmax > 0, gmax * _like(1.0 / qmax, gmax),
+                            _like(1.0, gmax))
+        q = b / scale[:, None]
+        if qtype == "int8":
+            q = torch.round(q)
+        qs.append(q.clamp(-qmax, qmax).to(wire))
+        scales.append(scale)
+    totals = collective.all_reduce([q.to(acc_dt) for q in qs], "sum")
+    outs, new_res = [], []
+    for b, q, scale, total in zip(blocks, qs, scales, totals):
+        outs.append((total.to(torch.float32) * scale[:, None])
+                    .reshape(-1)[:numel].to(out_dtype))
+        res = b.double() - q.double() * scale.double()[:, None]
+        new_res.append(res.to(torch.float32).reshape(-1)[:numel]
+                       .to(out_dtype))
+    return outs, new_res
+
+
+def _blockwise_local(gs, rs, qtype, block):
+    """The collective-free twin of `_blockwise_body` for copies that
+    share a context (or an unmarked host tensor): every copy moved to the
+    first one's device and reduced there by the same math, so the twin
+    and the ring agree bitwise.  Returns ``(reduced, new residuals)``."""
+    dev = gs[0].device
+    outs, new_res = _blockwise_body([g.to(dev) for g in gs],
+                                    [r.to(dev) for r in rs], qtype, block,
+                                    _ListCollective)
+    return outs[0], new_res
+
+
+# -- the integrity sideband ---------------------------------------------------
+
+_I32 = 1 << 32
+
+
+def _wrap_i32(x):
+    """int64 tensor ``x`` mod 2^32 as a signed int32 value (in int64)."""
+    return torch.remainder(x + (1 << 31), _I32) - (1 << 31)
+
+
+def _digest(total):
+    """The wrapping int32 sum of ``total``'s f32 bit patterns (a 0-dim
+    int64 tensor holding an int32 value): the reference's
+    ``jnp.sum(bitcast(total.astype(f32), int32), dtype=int32)``."""
+    bits = total.reshape(-1).to(torch.float32).view(torch.int32)
+    return _wrap_i32(bits.sum(dtype=torch.int64))
+
+
+def _integrity_sideband(totals, flips, collective):
+    """The integrity check (``MXNET_KVSTORE_INTEGRITY=1``) on the copies'
+    results of one reduce: ``flips[j]`` (0.0 = clean; a chaos plan puts a
+    seeded magnitude on one copy, a payload bit flipped in flight) is
+    added to element 0 of copy j's result, then each copy's digest is
+    agreement-checked with ONE MAX over ``[d, -d]`` (max and -min), the
+    negation wrapping at INT32_MIN as jax's does.  Returns ``(totals,
+    violation)``, the violation an int32 flag a copy on its device."""
+    digests = []
+    for t, f in zip(totals, flips):
+        if f != 0.0:
+            flat = t.view(-1)
+            flat[0] = flat[0] + torch.tensor(
+                f, dtype=torch.float32).to(t.dtype)
+        d = _digest(t)
+        digests.append(torch.stack([d, _wrap_i32(-d)]).to(torch.int32))
+    viol = [(m[0].to(torch.int64) != _wrap_i32(-m[1].to(torch.int64)))
+            .to(torch.int32) for m in collective.all_reduce(digests, "max")]
+    return totals, viol
+
+
 @KVStoreBase.register
 class TPUICIStore(KVStoreBase):
     def __init__(self):
         self._rank, self._size = _distributed.world()
         _observe.set_rank(self._rank)
+        self._compression = None
+        self._residuals = {}      # (key, copy) -> error-feedback residual
+        self._bucketer = None
         self._hb_stop = None
         self._hb_thread = None
         # rank -> consecutive stale heartbeat observations (death needs 2)
@@ -213,6 +507,15 @@ class TPUICIStore(KVStoreBase):
                 continue  # corrupt stamp: treated as absent, never 0.0
         return out
 
+    def consume_integrity_violations(self):
+        """The bucketer's integrity flags since the last call, read on
+        the host (`GradBucketer.consume_integrity`): 0 when nothing was
+        bucketed or integrity mode is off.  The trainer's step guard
+        calls it once a step."""
+        if self._bucketer is None:
+            return 0
+        return self._bucketer.consume_integrity()
+
     def close(self):
         """Stop and join the heartbeat thread."""
         if self._hb_stop is not None:
@@ -238,9 +541,38 @@ class TPUICIStore(KVStoreBase):
                 _copy_into(src, o)
 
     def set_gradient_compression(self, compression_params):
-        raise NotImplementedError(
-            "gradient compression (2-bit, block-scaled int8/fp8) is "
-            "ROADMAP queue A item A7c in the port")
+        """Turn on gradient compression with error feedback (the
+        reference's `set_gradient_compression`):
+
+        * ``{'type': '2bit', 'threshold': t}`` (default 0.5): levels
+          {-1, 0, +1} ride as int8, a quarter of the f32 bytes;
+        * ``{'type': 'int8'}`` / ``{'type': 'fp8'}``: block-scaled, one
+          scale per ``MXNET_KVSTORE_QBLOCK`` elements (``'block'``
+          overrides it) agreed by a MAX across the copies, the payload
+          summed as 2-byte partials, half the f32 bytes.
+
+        Either applies to the reduce over copies; a single value (a
+        rank's own, already summed in its step) is left as it is.  The
+        residuals start from zero."""
+        ctype = compression_params.get("type", "2bit")
+        if ctype not in SUPPORTED_COMPRESSION:
+            raise MXNetError(
+                f"unsupported gradient compression type {ctype!r}: "
+                f"supported types are "
+                f"{', '.join(repr(t) for t in SUPPORTED_COMPRESSION)} "
+                f"(docs/DESIGN.md \"Block-scaled quantized allreduce\")")
+        if ctype == "2bit":
+            self._compression = {
+                "type": "2bit",
+                "threshold": float(compression_params.get("threshold", 0.5)),
+            }
+        else:
+            self._compression = {
+                "type": ctype,
+                "block": int(compression_params.get("block",
+                                                    qblock_size())),
+            }
+        self._residuals = {}
 
     def pushpull(self, key, value, out=None, priority=0):
         """One key's reduce inside the transient-fault retry policy: a
@@ -257,18 +589,23 @@ class TPUICIStore(KVStoreBase):
 
         _faultline.check("kvstore.pushpull")
         vals = _as_list(value)
-        if any(v.layout != torch.strided for v in vals):
-            raise NotImplementedError(
-                "row-sparse kvstore values wait for the port's row-sparse "
-                "arrays (ROADMAP queue A item A10)")
+        _check_dense(vals)
         if len(vals) == 1:
             reduced = vals[0]          # one copy: its own sum
+        elif self._compression is not None:
+            ctype = self._compression["type"]
+            # 2bit levels ride as int8 (a quarter of the f32 bytes);
+            # block-scaled int8/fp8 as 2-byte partials (half)
+            shrink = 4 if ctype == "2bit" else 2
+            with _collective_span(f"allreduce_{ctype}",
+                                  _payload_bytes(vals) // shrink):
+                reduced = self._reduce_compressed(key, vals)
         else:
             with _collective_span("allreduce", _payload_bytes(vals)):
                 reduced = self._reduce_copies(vals)
         targets = vals if out is None else _as_list(out)
         if isinstance(reduced, list):
-            # each card's sum, written on its own card
+            # each copy's result, written on its own device
             for o, r in zip(targets, reduced):
                 _copy_into(r, o)
             return
@@ -276,27 +613,86 @@ class TPUICIStore(KVStoreBase):
             _copy_into(reduced, o)
 
     def pushpull_list(self, pairs):
-        """Reduce many keys in place, key by key in the caller's order
-        (gradient bucketing is ROADMAP queue A item A7c)."""
-        for key, value in pairs:
+        """Reduce many keys in place in the caller's order, the values of
+        two or more dense copies through the store's `GradBucketer` (one
+        collective a size-capped bucket, compressed as the store is); a
+        single value keeps the per-key path.  ``MXNET_KVSTORE_BUCKETING=0``
+        reduces key by key."""
+        from . import bucketing as _bucketing
+
+        if not _bucketing.bucketing_enabled():
+            for key, value in pairs:
+                self.pushpull(key, value)
+            return
+        bucketable, per_key = _bucketing.split_bucketable(pairs)
+        for key, value in per_key:
             self.pushpull(key, value)
+        if bucketable:
+            if self._bucketer is None:
+                self._bucketer = _bucketing.GradBucketer()
+            self._bucketer.pushpull(bucketable,
+                                    compression=self._compression)
+
+    def _stored_residual(self, key, i, v):
+        """Copy ``i``'s residual for ``key`` on ``v``'s device, zeros
+        where none is stored or it no longer matches ``v``."""
+        res = self._residuals.get((key, i))
+        if res is None or not _residual_matches(res, v):
+            return torch.zeros_like(v)
+        return res.to(v.device)
+
+    def _reduce_compressed(self, key, vals):
+        """Quantize each copy on its own device against its residual
+        (stored back per (key, copy), marked with the copy's context) and
+        sum the levels: on the ring one list of per-copy results, else
+        one tensor on the first copy's device."""
+        if self._compression["type"] != "2bit":
+            return self._reduce_blockwise(key, vals)
+        thr = self._compression["threshold"]
+        ctxs = _value_contexts(vals)
+        levels = []
+        for i, v in enumerate(vals):
+            lvl, res = _quantize_2bit(v, self._stored_residual(key, i, v),
+                                      thr)
+            self._residuals[(key, i)] = _mark(res, ctxs[i])
+            levels.append(lvl)
+        return _sum_levels(levels, ctxs, vals[0].dtype, thr)
+
+    def _reduce_blockwise(self, key, vals):
+        """The per-key block-scaled int8/fp8 reduce: every copy's flat
+        gradient and residual through `_blockwise_body` on the ring (its
+        twin off it), the new residual stored per (key, copy) in the
+        value's shape and dtype."""
+        ctype, block = self._compression["type"], self._compression["block"]
+        shape = tuple(vals[0].shape)
+        ctxs = _value_contexts(vals)
+        flats = [v.reshape(-1) for v in vals]
+        res_flats = [self._stored_residual(key, i, v).reshape(-1)
+                     for i, v in enumerate(vals)]
+        if not _on_ring(ctxs):
+            out, new_res = _blockwise_local(flats, res_flats, ctype, block)
+            for i in range(len(vals)):
+                self._residuals[(key, i)] = new_res[i].reshape(shape)
+            return out.reshape(shape)
+        outs, new_res = _blockwise_body(flats, res_flats, ctype, block,
+                                        _collective_for(ctxs))
+        for i in range(len(vals)):
+            self._residuals[(key, i)] = _mark(new_res[i].reshape(shape),
+                                              ctxs[i])
+        return [o.reshape(shape) for o in outs]
 
     @staticmethod
     def _reduce_copies(vals):
-        """The sum of the copies: one list of per-card sums from a NCCL
-        all-reduce where every copy lies on a card of its own, else one
-        tensor summed in index order on the first copy's device."""
-        devices = [v.device for v in vals]
-        if any(d.type != "cuda" for d in devices) or \
-                len(set(devices)) < len(vals):
-            total = vals[0]
-            for v in vals[1:]:
-                total = total + v.to(devices[0])
-            return total
-        sums = [v.clone(memory_format=torch.contiguous_format)
-                for v in vals]
-        torch.cuda.nccl.all_reduce(sums)
-        return sums
+        """The sum of the copies: on the ring one list of per-copy sums,
+        else one tensor summed in index order on the first copy's
+        device."""
+        ctxs = _value_contexts(vals)
+        if _on_ring(ctxs):
+            return _collective_for(ctxs).all_reduce(vals, "sum")
+        total = vals[0]
+        for v in vals[1:]:
+            total = total + v.to(vals[0].device)
+        return total
 
     @staticmethod
     def is_capable(capability):
@@ -315,3 +711,16 @@ class TPUICIStore(KVStoreBase):
     @property
     def type(self):
         return "tpu_ici"
+
+
+def _check_dense(vals):
+    if any(v.layout != torch.strided for v in vals):
+        raise NotImplementedError(
+            "row-sparse kvstore values wait for the port's row-sparse "
+            "arrays (ROADMAP queue A item A10)")
+
+
+def _mark(tensor, ctx):
+    """``tensor`` marked with context ``ctx`` (a host tensor carries its
+    copy's context as a mark)."""
+    return tensor if ctx is None else mark_context(tensor, ctx)

@@ -10,7 +10,9 @@
   rename + manifest-with-checksum) per-host save/restore of the training
   state: params, optimizer states and update counts, the ``LossScaler``,
   the ``mx.random`` stream and the CPU ``torch.Generator`` that
-  train-mode draws take their seeds from.  Async background writer,
+  train-mode draws take their seeds from; over parameter copies, each
+  copy's states and the kvstore's error-feedback residuals.  Async
+  background writer,
   keep-last-K pruning, fallback to the previous checkpoint on
   corruption.  The files are the reference's: either package restores
   the other's.

@@ -25,11 +25,16 @@ params, optimizer ``_states`` + update counts + ``num_update``,
 (``rng/torch_generator``), the state of the CPU ``torch.Generator`` that
 train-mode draws take their seed words from: without it a resumed run
 would draw other dropout bits.  The reference ignores that key, and a
-reference checkpoint without it leaves the generator as it is.  The
-kvstore's error-feedback residuals, the reference's ``kvres/`` and
-``bucketres/`` arrays, wait for the kvstore's compression and
-bucketing (ROADMAP queue A7c):
-a checkpoint that holds them raises.
+reference checkpoint without it leaves the generator as it is.  Over
+parameter copies, one state a copy (``opt/{i}/{c}/{j}``, the copy count
+in ``opt_multi``), the update counts under each copy's index and
+``world.copies``; and the kvstore's error-feedback residuals, the
+quantization error owed to the parameters: the store's per (key, copy)
+as ``kvres/{key}/{c}``, the bucketer's per (bucket, copy) as
+``bucketres/{n}`` with ``bucket_residuals`` (digest, bucket, copy) and
+``bucket_layouts`` in the meta.  A restore adopts them as the
+reference does: the store's at once, the bucketer's when its next
+reduce builds the plan of their digest.
 
 Arrays are host copies: numpy arrays, except where numpy has no dtype
 (bfloat16, the float8 types), which stay CPU ``torch`` tensors.  On
@@ -49,8 +54,8 @@ with automatic fallback, and ``mxtpu_checkpoint_*`` telemetry.
 
 Each rank writes and reads its own ``host-<rank>`` shard, its rank and
 world ``torch.distributed``'s when a process group is up, else 0 and 1:
-a checkpoint restores in a world of the size that saved it, a world of
-another size raises :class:`CheckpointTopologyError`, and
+a checkpoint restores in a world of the size and copy count that saved
+it, another world raises :class:`CheckpointTopologyError`, and
 ``reshard=True`` (onto a survivor world) raises ``NotImplementedError``
 (ROADMAP queue A7d).
 """
@@ -414,22 +419,33 @@ def gather_training_state(trainer, step, scaler=None, include_rng=True,
     """Snapshot the training state to host arrays: ``(arrays, meta)``
     ready for :func:`save_checkpoint`.  Call it between steps.
 
-    ``scaler`` defaults to the loss scaler `amp.init_trainer` attached
-    to the trainer.  With ``include_rng``, the ``mx.random`` stream and
-    the state of ``generator`` (default: ``mx.random``'s default
-    generator, which train-mode draws take when no scope names one) are
-    saved too.  Every device tensor is copied to the host with one
-    synchronization."""
+    A parameter's first copy is its value (the reduce keeps the copies
+    in step); each copy's optimizer states and the store's residuals are
+    saved too.  ``scaler`` defaults to the loss scaler `amp.init_trainer`
+    attached to the trainer.  With ``include_rng``, the ``mx.random``
+    stream and the state of ``generator`` (default: ``mx.random``'s
+    default generator, which train-mode draws take when no scope names
+    one) are saved too.  Every device tensor is copied to the host with
+    one synchronization."""
     from .. import random as _rng
 
-    _one_copy(trainer)
     trainer._init_states()
     arrays, meta = {}, {"step": int(step)}
     names = [p.name for p in trainer._params]
     opt_items = sorted((trainer._states or {}).items())
-    flat = [p.data() for p in trainer._params]
+    store = trainer._kvstore
+    kvres = sorted((k, res) for k, res in
+                   getattr(store, "_residuals", {}).items()
+                   if isinstance(k[0], int))   # the Trainer's keys
+    bucketer = getattr(store, "_bucketer", None)
+    bucketres = list(bucketer.export_residuals().items()) \
+        if bucketer is not None else []
+    flat = [p.list_data()[0] for p in trainer._params]
     for _i, entry in opt_items:
-        flat.extend(_as_tuple(entry))
+        for st in (entry if isinstance(entry, list) else [entry]):
+            flat.extend(_as_tuple(st))
+    flat.extend(res for _k, res in kvres)
+    flat.extend(res for _k, res in bucketres)
     host = iter(_host_copies(flat))
     rep_bytes = 0
     for i in range(len(trainer._params)):
@@ -439,17 +455,27 @@ def gather_training_state(trainer, step, scaler=None, include_rng=True,
     meta["param_names"] = names
     if rep_bytes:
         _param_bytes_counter().labels(mode="replicated").inc(rep_bytes)
-    meta["world"] = {"copies": 1, "processes": _distributed.world()[1]}
-    # -- optimizer: per-param state tuples, update counts, num_update
+    copies = max((len(p.list_data()) for p in trainer._params), default=1)
+    meta["world"] = {"copies": int(copies),
+                     "processes": _distributed.world()[1]}
+    # -- optimizer: per-param state tuples (one a copy over copies), the
+    # update counts under each copy's index, num_update
     opt = trainer._optimizer
     opt_multi = {}
     for i, entry in opt_items:
-        opt_multi[str(i)] = 0  # single-device: no copy axis
-        for j, _s in enumerate(_as_tuple(entry)):
-            arrays[f"opt/{i}/{j}"] = next(host)
+        if isinstance(entry, list):
+            opt_multi[str(i)] = len(entry)
+            for c, st in enumerate(entry):
+                for j, _s in enumerate(_as_tuple(st)):
+                    arrays[f"opt/{i}/{c}/{j}"] = next(host)
+        else:
+            opt_multi[str(i)] = 0  # one copy: no copy axis
+            for j, _s in enumerate(_as_tuple(entry)):
+                arrays[f"opt/{i}/{j}"] = next(host)
     meta["opt_multi"] = opt_multi
-    meta["opt_update_counts"] = {
-        "0": {str(i): int(t) for i, t in opt._index_update_count.items()}}
+    counts = {str(i): int(t) for i, t in opt._index_update_count.items()}
+    meta["opt_update_counts"] = {str(c): dict(counts)
+                                 for c in range(copies)}
     meta["opt_num_update"] = int(opt.num_update)
     # -- loss scaler
     if scaler is None:
@@ -464,19 +490,18 @@ def gather_training_state(trainer, step, scaler=None, include_rng=True,
         gen = _default_generator(generator)
         if gen is not None:
             arrays["rng/torch_generator"] = gen.get_state().numpy().copy()
+    # -- error-feedback residuals, owed to the parameters
+    for (key, c), _res in kvres:
+        arrays[f"kvres/{key}/{c}"] = next(host)
+    if bucketer is not None:
+        meta["bucket_residuals"] = []
+        for n, ((digest, bidx, c), _res) in enumerate(bucketres):
+            arrays[f"bucketres/{n}"] = next(host)
+            meta["bucket_residuals"].append(
+                {"digest": digest, "bucket": int(bidx), "copy": int(c),
+                 "index": n})
+        meta["bucket_layouts"] = bucketer.export_layouts()
     return arrays, meta
-
-
-def _one_copy(trainer):
-    """Raise for a trainer over parameters with copies on several
-    contexts, whose checkpoints are ROADMAP queue A7d."""
-    several = [p.name for p in trainer._params if len(p.list_ctx()) > 1]
-    if several:
-        raise NotImplementedError(
-            f"parameters with copies on several contexts ({several[0]}, "
-            "...): their training-state checkpoints are ROADMAP queue A "
-            "item A7d; Block.save_parameters and Trainer.save_states save "
-            "them")
 
 
 def _to_tensor(a):
@@ -486,18 +511,21 @@ def _to_tensor(a):
 
 def restore_training_state(arrays, meta, trainer, scaler=None,
                            reshard=False, generator=None):
-    """Inverse of :func:`gather_training_state`: copy params, optimizer
-    states and counts, scaler, the ``mx.random`` stream and the
-    generator's state back, bitwise.  Returns the checkpointed step.
+    """Inverse of :func:`gather_training_state`: copy params (into every
+    copy), optimizer states and counts, scaler, the ``mx.random`` stream,
+    the generator's state and the residuals back, bitwise.  Returns the
+    checkpointed step.
 
     Params and states are copied into the trainer's tensors in place, so
     they keep their device, their ``generation`` and a captured step's
     CUDA graph.  ``scaler`` and ``generator`` default as in
     :func:`gather_training_state`; a checkpoint with a generator state
-    and no default generator makes one.  A checkpoint saved by a larger
-    world raises :class:`CheckpointTopologyError`; ``reshard=True``,
-    recipe-sharded params and kvstore residuals raise
-    ``NotImplementedError`` (ROADMAP queue A7c, A7d)."""
+    and no default generator makes one.  Residuals make the trainer's
+    store (and its bucketer) if the trainer has none yet, as a restarted
+    process restores before its first step.  A checkpoint saved by
+    another world (copies or processes) raises
+    :class:`CheckpointTopologyError`; ``reshard=True`` and recipe-sharded
+    params raise ``NotImplementedError`` (ROADMAP queue A7d)."""
     from .. import random as _rng
     from ..ops import invoke as _invoke
     from ..ops import threefry as _threefry
@@ -506,23 +534,23 @@ def restore_training_state(arrays, meta, trainer, scaler=None,
         raise NotImplementedError(
             "restore_training_state(reshard=True) restores onto a survivor "
             "world, which is ROADMAP queue A7d (distribution)")
-    if meta.get("sharded_params") or meta.get("bucket_residuals") or any(
-            k.startswith(("kvres/", "bucketres/", "paramshard/"))
-            for k in arrays):
+    if meta.get("sharded_params") or any(k.startswith("paramshard/")
+                                         for k in arrays):
         raise NotImplementedError(
-            "this checkpoint holds recipe-sharded params or kvstore "
-            "residuals, which wait for the port's kvstore (ROADMAP queue "
-            "A7c, distribution)")
-    _one_copy(trainer)
+            "this checkpoint holds recipe-sharded params, which wait for "
+            "the port's sharding recipes (ROADMAP queue A7d, "
+            "distribution)")
     trainer._init_states()
     saved = meta.get("world")
-    live = {"copies": 1, "processes": _distributed.world()[1]}
-    if saved and (int(saved.get("copies", 1)) != 1 or
+    live = {"copies": max((len(p.list_data()) for p in trainer._params),
+                          default=1),
+            "processes": _distributed.world()[1]}
+    if saved and (int(saved.get("copies", 1)) != live["copies"] or
                   int(saved.get("processes", 1)) != live["processes"]):
         raise CheckpointTopologyError(
             f"checkpoint topology mismatch: saved world has "
             f"{saved.get('copies')} device copies ({saved.get('processes')} "
-            f"process(es)), live world has 1 device copy "
+            f"process(es)), live world has {live['copies']} device copies "
             f"({live['processes']} process(es)); resharding onto another "
             "world is ROADMAP queue A7d", saved_world=dict(saved),
             live_world=live)
@@ -537,16 +565,19 @@ def restore_training_state(arrays, meta, trainer, scaler=None,
                     f"({meta.get('param_names', [None] * (i + 1))[i]}): "
                     f"saved {tuple(a.shape)}, live {tuple(p.shape)} — "
                     "different model", saved_world=saved, live_world=live)
-            p.data().copy_(_to_tensor(a))
+            for w in p.list_data():
+                w.copy_(_to_tensor(a))
         opt_multi = meta.get("opt_multi", {})
         for i, entry in (trainer._states or {}).items():
             ncopies = opt_multi.get(str(i))
             if ncopies is None:
                 continue
-            for j, s in enumerate(_as_tuple(entry)):
-                key = f"opt/{i}/0/{j}" if ncopies else f"opt/{i}/{j}"
-                if key in arrays:
-                    s.copy_(_to_tensor(arrays[key]))
+            per_copy = entry if isinstance(entry, list) else [entry]
+            for c, st in enumerate(per_copy):
+                for j, s in enumerate(_as_tuple(st)):
+                    key = f"opt/{i}/{c}/{j}" if ncopies else f"opt/{i}/{j}"
+                    if key in arrays:
+                        s.copy_(_to_tensor(arrays[key]))
     opt = trainer._optimizer
     counts = meta.get("opt_update_counts")
     if counts is not None:
@@ -570,7 +601,37 @@ def restore_training_state(arrays, meta, trainer, scaler=None,
             gen = torch.Generator()
             _invoke.set_default_generator(gen)
         gen.set_state(_to_tensor(arrays["rng/torch_generator"]).clone())
+    _restore_residuals(arrays, meta, trainer)
     return int(meta.get("step", 0))
+
+
+def _restore_residuals(arrays, meta, trainer):
+    """Hand the checkpoint's residuals to the trainer's store: the
+    store's ``kvres/`` at once (carrying no context, they gate on shape
+    and dtype and move to each copy's device at use), the bucketer's
+    parked by digest until its next reduce.  A trainer that has made no
+    store yet makes it here (its `set_gradient_compression` clears the
+    residuals first), so the error feedback is not dropped."""
+    kvres = [k for k in arrays if k.startswith("kvres/")]
+    pending = meta.get("bucket_residuals")
+    if trainer._kvstore is None and (kvres or pending):
+        trainer._init_kvstore()
+    store = trainer._kvstore
+    if store is None:
+        return
+    if hasattr(store, "_residuals"):
+        for name in kvres:
+            _, key, c = name.split("/")
+            store._residuals[(int(key), int(c))] = \
+                _to_tensor(arrays[name]).clone()
+    if pending and hasattr(store, "_bucketer"):
+        if store._bucketer is None:
+            from ..kvstore.bucketing import GradBucketer
+            store._bucketer = GradBucketer()
+        store._bucketer.import_residuals({
+            (e["digest"], e["bucket"], e["copy"]):
+                arrays[f"bucketres/{e['index']}"]
+            for e in pending})
 
 
 # --------------------------------------------------------------------------

@@ -9,9 +9,7 @@ index** at that site on which it fires (``at``; the older alias
 arrival index IS the step number).  Sites re-count from 1 after
 ``clear()``/``plan()``, so a chaos test is reproducible bit for bit.
 
-Sites (each has a hook in the named module of the reference; in the
-port, ``collective.dispatch`` waits for the bucketer, ROADMAP queue
-A7c):
+Sites (each has a hook in the named module, the reference's):
 
 =================== ======================================================
 site                 hook location

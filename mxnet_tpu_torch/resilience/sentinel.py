@@ -9,8 +9,9 @@ counters).
   :class:`~mxnet_tpu_torch.resilience.policies.DeadNodeError`
   subclass).  The reference's supervisor that reshards past it is
   ROADMAP queue A7d in the port.
-* **Silent corruption** — the integrity sideband is the kvstore's
-  (A7c); this module owns the counter it ticks.
+* **Silent corruption** — the integrity sideband rides the kvstore's
+  bucketed reduce (`kvstore.bucketing`); this module owns the counter
+  it ticks.
 * **Divergence** — :class:`DivergenceSentinel` watches the loss the
   training loop already reads: a spike past
   ``MXNET_SENTINEL_LOSS_FACTOR`` x the warmed-up EMA (or a non-finite

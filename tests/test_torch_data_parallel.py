@@ -270,8 +270,16 @@ def test_copies_refusals_name_their_queue_items():
     trainer = gluon.Trainer(net.collect_params(), "sgd")
     with pytest.raises(NotImplementedError, match="A7b"):
         FusedTrainStep(net, trainer)(torch.ones(2, 4), batch_size=2)
+    # a training state over copies restores only into the same copies;
+    # another world is the reshard (A7d)
+    arrays, meta = checkpoint.gather_training_state(trainer, 0)
+    assert meta["world"]["copies"] == 2
+    other = gluon.Trainer(_dense(4).collect_params(), "sgd")
+    with pytest.raises(checkpoint.CheckpointTopologyError, match="A7d"):
+        checkpoint.restore_training_state(arrays, meta, other)
     with pytest.raises(NotImplementedError, match="A7d"):
-        checkpoint.gather_training_state(trainer, 0)
+        checkpoint.restore_training_state(arrays, meta, trainer,
+                                          reshard=True)
     with pytest.raises(MXNetError, match="A7b"):
         from mxnet_tpu_torch.context import resolve_device
         resolve_device(CTXS)

@@ -359,9 +359,33 @@ def test_topology_and_residuals_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A7"):
         resilience.restore_training_state(arrays, meta, trainer,
                                           reshard=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        resilience.restore_training_state(
-            dict(arrays, **{"bucketres/0": onp.zeros(3)}), meta, trainer)
+    # bucket residuals round-trip: a trainer over two copies with int8
+    # compression saves them, and a fresh one adopts them bitwise
+    def copies_trainer():
+        net = nn.Dense(3, in_units=6)
+        net.initialize(ctx=[cpu(0), cpu(1)],
+                       generator=torch.Generator().manual_seed(0))
+        return net, Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1}, kvstore="tpu_ici",
+                            compression_params={"type": "int8"})
+
+    net2, tr2 = copies_trainer()
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.utils import split_and_load
+    xs = split_and_load(torch.from_numpy(_x(0)), [cpu(0), cpu(1)])
+    with autograd.record():
+        losses = [(net2(x) ** 2).mean() for x in xs]
+    autograd.backward(losses)
+    tr2.step(4)
+    arrays2, meta2 = resilience.gather_training_state(tr2, step=1)
+    assert any(k.startswith("bucketres/") for k in arrays2)
+    _, fresh = copies_trainer()
+    resilience.restore_training_state(arrays2, meta2, fresh)
+    pending = fresh.kvstore._bucketer._pending_residuals
+    for e in meta2["bucket_residuals"]:
+        got = pending[(e["digest"], e["bucket"], e["copy"])]
+        assert onp.asarray(got).tobytes() == \
+            arrays2[f"bucketres/{e['index']}"].tobytes()
     for name in ("ElasticSupervisor", "EmulatedPod", "scaled_lr"):
         with pytest.raises(NotImplementedError, match="A7"):
             getattr(resilience, name)

@@ -462,8 +462,9 @@ def test_dropout_training_is_seeded():
 def test_single_device_contract():
     mod, trainer, _args = _tiny_trainer()
     # a distributed store's name is taken (its store reduces copies in
-    # one process); recipes, meshes with a tensor-parallel axis and
-    # compression name their queue items
+    # one process); recipes and meshes with a tensor-parallel axis name
+    # their queue items; compression goes to the store, and one copy
+    # with ``kvstore="device"`` makes none, as in the reference
     assert Trainer(mod.collect_params(), "adam",
                    kvstore="dist_sync").kvstore.type == "tpu_ici"
     with pytest.raises(NotImplementedError, match="A8"):
@@ -471,9 +472,11 @@ def test_single_device_contract():
     with pytest.raises(NotImplementedError, match="A8"):
         FusedTrainStep(mod, trainer, mesh=mxt.parallel.Mesh(
             onp.arange(2).reshape(1, 2), ("dp", "tp")))
-    with pytest.raises(NotImplementedError, match="A7c"):
-        Trainer(mod.collect_params(), "adam",
-                compression_params={"type": "2bit"})
+    assert Trainer(mod.collect_params(), "adam",
+                   compression_params={"type": "2bit"}).kvstore is None
+    assert Trainer(mod.collect_params(), "adam", kvstore="tpu_ici",
+                   compression_params={"type": "int8"}
+                   ).kvstore._compression["type"] == "int8"
     # loss scaling is ported: an explicit scaler is taken, not refused
     scaler = mxt.amp.LossScaler()
     assert FusedTrainStep(mod, trainer, scaler=scaler)._scaler is scaler
